@@ -1,0 +1,119 @@
+"""Batched centroidal-dynamics constraint operators for the biconvex MPC.
+
+Counterpart of ``bunmpc_tpu/mpc/centroidal.py`` (reference
+src/dynamics/centroidal.cpp:57-127). ``A_x`` and ``A_f`` are never
+materialized: both are structured stencils (block-bidiagonal in the knot
+index with 3-vector cross-product blocks), so each matvec is a handful of
+batched elementwise ops.
+
+State layout  X: (..., H+1, 9)  = [com(3), vcom(3), amom(3)] per knot
+Force layout  F: (..., H, n_eff, 3)
+Contact plan: cnt (..., H, n_eff) in {0,1};  r (..., H, n_eff, 3);  dt (..., H)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_G = 9.81
+
+
+@dataclasses.dataclass(frozen=True)
+class ContactPlan:
+    """Dense contact plan (reference ``set_contact_arrays`` layout)."""
+
+    cnt: torch.Tensor  # (..., H, n_eff) contact flags
+    r: torch.Tensor  # (..., H, n_eff, 3) contact locations (world)
+    dt: torch.Tensor  # (..., H) knot durations
+
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _pad_row(rows):
+    """Append the zero terminal row block: (..., H, 9) -> (..., H+1, 9)."""
+    return torch.cat([rows, torch.zeros_like(rows[..., :1, :])], dim=-2)
+
+
+# --- F-subproblem operators:  A_x(X) F  and  b_x(X) ---
+
+
+def ax_apply(plan: ContactPlan, m: float, X, F):
+    """A_x(X) @ F -> (..., H+1, 9): rows t < H are
+    [0, dt/m sum c f, dt sum c (r - com_t) x f]; the terminal block is zero."""
+    cF = plan.cnt[..., None] * F
+    dt = plan.dt[..., None]
+    lin = dt * torch.sum(cF, dim=-2) / m
+    arm = plan.r - X[..., :-1, None, 0:3]
+    ang = dt * torch.sum(_cross(arm, cF), dim=-2)
+    return _pad_row(torch.cat([torch.zeros_like(lin), lin, ang], dim=-1))
+
+
+def ax_applyT(plan: ContactPlan, m: float, X, Y):
+    """A_x(X)^T @ Y -> force space (..., H, n_eff, 3)."""
+    y_lin = Y[..., :-1, 3:6]
+    y_ang = Y[..., :-1, 6:9]
+    dt = plan.dt[..., None, None]
+    arm = plan.r - X[..., :-1, None, 0:3]
+    out = dt * (y_lin[..., None, :] / m + _cross(y_ang[..., None, :].expand_as(arm), arm))
+    return plan.cnt[..., None] * out
+
+
+def bx_vec(plan: ContactPlan, X):
+    """b_x(X): Delta-state targets of the force subproblem."""
+    dX = X[..., 1:, :] - X[..., :-1, :]
+    z = torch.zeros_like(plan.dt)
+    grav = torch.stack([z, z, _G * plan.dt, z, z, z], dim=-1)
+    rows = torch.cat([torch.zeros_like(dX[..., 0:3]), dX[..., 3:9] + grav], dim=-1)
+    return _pad_row(rows)
+
+
+# --- X-subproblem operators:  A_f(F) X  and  b_f(F) ---
+
+
+def af_apply(plan: ContactPlan, m: float, F, X):
+    """A_f(F) @ X -> (..., H+1, 9): Euler-step rows t < H plus the row that
+    pins X_0."""
+    Xt, Xt1 = X[..., :-1, :], X[..., 1:, :]
+    dt = plan.dt[..., None]
+    cF_tot = torch.sum(plan.cnt[..., None] * F, dim=-2)
+    com_rows = Xt[..., 0:3] - Xt1[..., 0:3] + dt * Xt1[..., 3:6]
+    vel_rows = Xt[..., 3:6] - Xt1[..., 3:6]
+    ang_rows = Xt[..., 6:9] - Xt1[..., 6:9] + dt * _cross(cF_tot, Xt[..., 0:3])
+    rows = torch.cat([com_rows, vel_rows, ang_rows], dim=-1)
+    return torch.cat([rows, X[..., 0:1, :]], dim=-2)
+
+
+def af_applyT(plan: ContactPlan, m: float, F, Y):
+    """A_f(F)^T @ Y -> state space (..., H+1, 9)."""
+    yt = Y[..., :-1, :]
+    dt = plan.dt[..., None]
+    cF_tot = torch.sum(plan.cnt[..., None] * F, dim=-2)
+    contrib_t = torch.cat(
+        [yt[..., 0:3] + dt * _cross(yt[..., 6:9], cF_tot), yt[..., 3:6], yt[..., 6:9]],
+        dim=-1,
+    )
+    contrib_t1 = torch.cat(
+        [-yt[..., 0:3], dt * yt[..., 0:3] - yt[..., 3:6], -yt[..., 6:9]], dim=-1
+    )
+    zero = torch.zeros_like(Y[..., :1, :])
+    return (
+        torch.cat([contrib_t, zero], dim=-2)
+        + torch.cat([zero, contrib_t1], dim=-2)
+        + torch.cat([Y[..., -1:, :], torch.zeros_like(yt)], dim=-2)
+    )
+
+
+def bf_vec(plan: ContactPlan, m: float, F, x_init):
+    """b_f(F): force-driven increments + initial state."""
+    cF = plan.cnt[..., None] * F
+    dt = plan.dt[..., None]
+    lin = -dt * torch.sum(cF, dim=-2) / m
+    z = torch.zeros_like(plan.dt)
+    lin = lin + torch.stack([z, z, _G * plan.dt], dim=-1)
+    ang = dt * torch.sum(_cross(cF, plan.r), dim=-2)
+    rows = torch.cat([torch.zeros_like(lin), lin, ang], dim=-1)
+    return torch.cat([rows, x_init[..., None, :]], dim=-2)

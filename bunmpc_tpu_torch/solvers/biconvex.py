@@ -1,0 +1,200 @@
+"""Batched biconvex ADMM for centroidal dynamics — K1's plain version.
+
+Counterpart of ``bunmpc_tpu/solvers/biconvex.py`` (reference
+src/motion_planner/biconvex.cpp:6-151): alternate a force QP (projected
+FISTA, power-iteration step, exact friction-cone projection) and a state QP
+(exact block-Thomas solve clipped to the kinematic box), update the scaled
+dual with the over-relaxed dynamics violation, and escalate rho on stalled
+problems, until ``||A_f X - b_f|| < exit_tol``.
+
+Masks are per problem: a problem that converges is frozen and its result
+depends on nothing but its own data, which is what lets the CUDA kernel
+(``solvers/cuda_admm.py``) let each problem leave its loops on its own.
+
+Only the configuration the main path runs is ported; the other values of
+``step_mode``, ``x_solver``, ``precondition``, ``soc_mode`` and
+``log_statistics`` raise instead of falling through.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..mpc import centroidal as cd
+from . import block_thomas, fista
+
+
+@dataclasses.dataclass(frozen=True)
+class BiconvexConfig:
+    rho: float = 1e5
+    max_admm_iters: int = 100
+    fista_max_iters: int = 150
+    fista_tol: float = 1e-5
+    exit_tol: float = 1e-3
+    beta: float = 1.5
+    L0_x: float = 2.25e6
+    L0_f: float = 506.25
+    mu: float = 1.0  # friction coefficient (fista.hpp:60)
+    use_soc: bool = True
+    soc_mode: str = "exact"
+    momentum: str = "reference"
+    log_statistics: bool = False
+    step_mode: str = "power"
+    power_iters: int = 8
+    power_safety: float = 1.25
+    precondition: bool = False
+    # outer-loop acceleration: dual over-relaxation + stall-gated geometric
+    # rho escalation with dual rescaling and divergence backoff
+    dual_relax: float = 1.8
+    rho_growth: float = 3.0
+    rho_growth_every: int = 10
+    rho_max_scale: float = 81.0
+    rho_stall_gate: bool = True
+    rho_stall_improve: float = 0.0
+    rho_backoff_thresh: float = 2.0
+    x_solver: str = "thomas"
+
+
+class CostX(NamedTuple):
+    """Diagonal state cost against X_ref (rows 0..H-1 W_X, row H W_X_ter)."""
+
+    W: torch.Tensor  # (..., H+1, 9)
+    X_ref: torch.Tensor  # (..., H+1, 9)
+
+
+class BiconvexResult(NamedTuple):
+    X: torch.Tensor  # (..., H+1, 9)
+    F: torch.Tensor  # (..., H, n_eff, 3)
+    P: torch.Tensor  # (..., H+1, 9) scaled dual
+    viol_norm: torch.Tensor  # (...,) final ||A_f X - b_f||
+    admm_iters: torch.Tensor  # (...,)
+
+
+def _check_config(cfg: BiconvexConfig):
+    unported = {
+        "step_mode": (cfg.step_mode, "power"),
+        "x_solver": (cfg.x_solver, "thomas"),
+        "precondition": (cfg.precondition, False),
+        "soc_mode": (cfg.soc_mode, "exact"),
+        "momentum": (cfg.momentum, "reference"),
+        "use_soc": (cfg.use_soc, True),
+        "log_statistics": (cfg.log_statistics, False),
+    }
+    for name, (got, ported) in unported.items():
+        if got != ported:
+            raise NotImplementedError(
+                f"BiconvexConfig.{name}={got!r} is not ported (only {ported!r})"
+            )
+
+
+def kinematic_box_bounds(plan: cd.ContactPlan, b_lo, b_hi):
+    """CoM box around the support polygon (reference
+    create_bound_constraints, biconvex.cpp:48-56): active at knots with any
+    contact, +-inf otherwise; velocities and momenta are free."""
+    any_cnt = torch.sum(plan.cnt, dim=-1) > 0  # (..., H)
+    r_max = torch.amax(plan.r, dim=-2)
+    r_min = torch.amin(plan.r, dim=-2)
+    inf = torch.full_like(r_max, float("inf"))
+    lb_com = torch.where(any_cnt[..., None], r_max + b_lo, -inf)
+    ub_com = torch.where(any_cnt[..., None], r_min + b_hi, inf)
+    H = plan.cnt.shape[-2]
+    shape = lb_com.shape[:-2] + (H + 1, 9)
+    lb = torch.full(shape, -float("inf"), dtype=plan.r.dtype, device=plan.r.device)
+    ub = torch.full(shape, float("inf"), dtype=plan.r.dtype, device=plan.r.device)
+    lb[..., :H, 0:3] = lb_com
+    ub[..., :H, 0:3] = ub_com
+    return lb, ub
+
+
+def solve(
+    plan: cd.ContactPlan,
+    m: float,
+    x_init,  # (..., 9)
+    cost_x: CostX,
+    W_F,  # (..., H, n_eff, 3)
+    X_wm,  # (..., H+1, 9)
+    F_wm,  # (..., H, n_eff, 3)
+    P_wm,  # (..., H+1, 9)
+    cfg: BiconvexConfig,
+    x_bounds=None,  # optional (lb, ub) from kinematic_box_bounds
+    F_ref=None,  # optional (..., H, n_eff, 3) force regularization point
+) -> BiconvexResult:
+    _check_config(cfg)
+    batch_shape = x_init.shape[:-1]
+    dtype, device = x_init.dtype, x_init.device
+    proj_f = fista.soc_projector(cfg.mu)
+    proj_x = (lambda z: z) if x_bounds is None else fista.box_projector(*x_bounds)
+    fcfg = fista.FistaConfig(max_iters=cfg.fista_max_iters, tol=cfg.fista_tol)
+
+    def solve_f(X, F0, P, rho_k):
+        """min F'W_F F + rho ||A_x F - b_x + P||^2 (or F - F_ref)."""
+        rho = rho_k[..., None, None, None]
+        bP = P - cd.bx_vec(plan, X)
+
+        def quad_op(y):
+            return 2.0 * (W_F * y + rho * cd.ax_applyT(plan, m, X, cd.ax_apply(plan, m, X, y)))
+
+        def grad(y):
+            reg = y if F_ref is None else y - F_ref
+            return 2.0 * (
+                W_F * reg + rho * cd.ax_applyT(plan, m, X, cd.ax_apply(plan, m, X, y) + bP)
+            )
+
+        L = fista.power_iteration_L(
+            quad_op, F0.shape, F0, 3, cfg.power_iters, cfg.power_safety
+        )
+        return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3)
+
+    def solve_x(F, P, rho_k):
+        X = block_thomas.solve_x_exact(plan, m, F, cost_x.W, cost_x.X_ref, P, rho_k, x_init)
+        return proj_x(X)
+
+    X, F, P = X_wm, F_wm, P_wm
+    rho_k = torch.full(batch_shape, cfg.rho, dtype=dtype, device=device)
+    viol_n = torch.full(batch_shape, float("inf"), dtype=dtype, device=device)
+    viol_chk = viol_n.clone()
+    iters = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    done = torch.zeros(batch_shape, dtype=torch.bool, device=device)
+    for it in range(cfg.max_admm_iters):
+        if bool(done.all()):
+            break
+        F_new = solve_f(X, F, P, rho_k)
+        X_new = solve_x(F_new, P, rho_k)
+        v = cd.af_apply(plan, m, F_new, X_new) - cd.bf_vec(plan, m, F_new, x_init)
+        vn = torch.sqrt(torch.sum(v * v, dim=(-2, -1)))
+        P_new = P + cfg.dual_relax * v
+
+        act = ~done
+        X = torch.where(act[..., None, None], X_new, X)
+        F = torch.where(act[..., None, None, None], F_new, F)
+        P = torch.where(act[..., None, None], P_new, P)
+        viol_n = torch.where(act, vn, viol_n)
+        iters = torch.where(act, torch.full_like(iters, it + 1), iters)
+        done = done | (vn < cfg.exit_tol) | torch.isnan(vn)
+        if cfg.rho_growth != 1.0:
+            at_check = (((it + 1) % cfg.rho_growth_every) == 0) & ~done
+            capok = rho_k * cfg.rho_growth <= cfg.rho * cfg.rho_max_scale
+            one = torch.ones_like(rho_k)
+            if cfg.rho_stall_gate:
+                stalled = viol_n > cfg.rho_stall_improve * viol_chk
+                diverged = viol_n > cfg.rho_backoff_thresh * viol_chk
+                flook = rho_k >= cfg.rho * cfg.rho_growth * 0.999
+                grow = at_check & stalled & ~diverged & capok
+                back = at_check & diverged & flook
+                g = torch.where(grow, cfg.rho_growth * one, one)
+                g = torch.where(back, one / cfg.rho_growth, g)
+                viol_chk = torch.where(at_check, vn, viol_chk)
+            else:
+                g = torch.where(at_check & capok, cfg.rho_growth * one, one)
+            rho_k = rho_k * g
+            P = P / g[..., None, None]
+        if it == 0:  # seed the stall checkpoint with the first violation
+            viol_chk = vn
+    # the loop's P is scaled to the (possibly escalated) final rho; rescale to
+    # the base rho a warm-started solve restarts from
+    if cfg.rho_growth != 1.0:
+        P = P * (rho_k / cfg.rho)[..., None, None]
+    return BiconvexResult(X=X, F=F, P=P, viol_norm=viol_n, admm_iters=iters)

@@ -1,0 +1,144 @@
+"""The port stands alone: ``bunmpc_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, the robot constants are a byte-identical
+copy, entry points refuse a CUDA device that is not there, and the kernel
+wrappers take CPU tensors to their plain versions without a launch."""
+
+import ast
+import dataclasses
+import filecmp
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import bunmpc_tpu_torch
+from bunmpc_tpu_torch.mpc import ik as IK
+from bunmpc_tpu_torch.mpc import kino_dyn as KD
+from bunmpc_tpu_torch.mpc.centroidal import ContactPlan
+from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+from torch_port_helpers import admm_problem, to_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "bunmpc_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_or_jax_package_imports():
+    files = _port_files()
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "bunmpc_tpu"), f"{path} imports {mod}"
+
+
+def test_robot_asset_is_byte_identical():
+    ours = os.path.join(PKG, "robots", "assets", "solo12_model.npz")
+    theirs = os.path.join(REPO, "bunmpc_tpu", "robots", "assets", "solo12_model.npz")
+    assert filecmp.cmp(ours, theirs, shallow=False)
+
+
+def test_precision_settings():
+    assert bunmpc_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal applies to CPU-only hosts")
+    model = Solo12Config.load_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KD.make_cyclic_spec(model, trot, Solo12Config.q0())
+    spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0(), device="cpu")
+    gpu_spec = dataclasses.replace(spec, device=torch.device("cuda"))
+    q = np.tile(Solo12Config.q0(), (2, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KD.solve_mpc_batch(gpu_spec, q, np.zeros((2, 18)), np.zeros(2), np.zeros((2, 3)),
+                           np.zeros(2))
+
+
+@pytest.mark.parametrize(
+    "kwargs, exc",
+    [
+        (dict(fuse_prep=True), ValueError),
+        (dict(admm_backend="pallas"), ValueError),
+        (dict(ik_backend="xla"), ValueError),
+    ],
+)
+def test_unported_options_raise(kwargs, exc):
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0(), device="cpu")
+    q = torch.as_tensor(np.tile(Solo12Config.q0(), (2, 1)), dtype=torch.float64)
+    z = torch.zeros(2, dtype=torch.float64)
+    with pytest.raises(exc):
+        KD.solve_mpc_batch(spec, q, torch.zeros(2, 18, dtype=torch.float64), z,
+                           torch.zeros(2, 3, dtype=torch.float64), z, **kwargs)
+
+
+def test_admm_wrapper_takes_cpu_tensors_to_the_plain_version():
+    p = to_torch(admm_problem(2), torch.float64)
+    plan = ContactPlan(cnt=p["cnt"], r=p["r"], dt=p["dt"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=5e4, max_admm_iters=3)
+    args = (plan, 2.5, p["x_init"], p["W"], p["X_ref"], p["W_F"], p["X_wm"], p["F_wm"],
+            (p["lb"], p["ub"]), cfg)
+    before = cuda_admm.KERNEL.launches
+    out = cuda_admm.solve(*args)
+    ref = cuda_admm.solve_plain(*args)
+    assert cuda_admm.KERNEL.launches == before == 0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError):
+        cuda_admm.solve(*args[:-1], dataclasses.replace(cfg, x_solver="fista"))
+
+
+def test_ddp_wrapper_takes_cpu_tensors_to_the_plain_version():
+    model = Solo12Config.load_model()
+    eff = Solo12Config.eff_names
+    B, H, nv = 2, 2, model.nv
+    rng = np.random.default_rng(3)
+    f64 = torch.float64
+    x_reg = np.concatenate([Solo12Config.q0(), np.zeros(nv)])
+    tasks = IK.IkTasks(
+        ee_targets=torch.as_tensor(rng.normal(size=(B, H, 4, 3)) * 0.1, dtype=f64),
+        ee_wts=torch.ones(B, H, 4, dtype=f64),
+        com_ref=torch.zeros(B, H + 1, 3, dtype=f64),
+        mom_ref=torch.zeros(B, H + 1, 6, dtype=f64),
+        com_wt=1.0, mom_wt=1.0,
+        state_wt=torch.ones(2 * nv, dtype=f64),
+        x_reg=torch.as_tensor(x_reg, dtype=f64),
+        reg_wt_state=0.1, reg_wt_ctrl=1e-4,
+        ctrl_wt=torch.ones(nv, dtype=f64),
+        dts=torch.full((B, H), 0.05, dtype=f64),
+    )
+    w_stage, w_term, ctrl_w, xr = IK.dense_weights(model, eff, tasks)
+    x0 = torch.as_tensor(np.tile(x_reg, (B, 1)), dtype=f64)
+    args = (model, eff, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, xr, w_stage,
+            w_term, ctrl_w, tasks.dts)
+    cfg = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
+    before = cuda_ddp.KERNEL.launches
+    out = cuda_ddp.solve_ik_batch(*args, cfg=cfg)
+    ref = cuda_ddp.solve_ik_batch_plain(*args, cfg=cfg)
+    assert cuda_ddp.KERNEL.launches == before == 0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
