@@ -571,11 +571,12 @@ __global__ void admm_kernel(bk::AdmmParams<float> pr, int B, const float* cnt, c
   if (b < B) ADMM_CALL(float, b);
 }
 
-// Launch on the caller's stream; returns cudaGetLastError() (0 = launched).
-extern "C" int admm_launch_f32(ADMM_ARGS(float), int threads, void* stream) {
+// Launch on the caller's stream with `problems` problems (one thread each) per
+// block; returns cudaGetLastError() (0 = launched).
+extern "C" int admm_launch_f32(ADMM_ARGS(float), int problems, void* stream) {
   const bk::AdmmParams<float> pr = ADMM_PARAMS(float);
-  const int blocks = (B + threads - 1) / threads;
-  admm_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + problems - 1) / problems;
+  admm_kernel<<<blocks, problems, 0, (cudaStream_t)stream>>>(
       pr, B, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, Xo, Fo, viol, iters, fista,
       scratch);
   return (int)cudaGetLastError();

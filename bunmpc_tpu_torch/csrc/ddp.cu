@@ -1,5 +1,5 @@
 // K2: the whole kinematic Gauss-Newton DDP (the MPC's IK) of one problem per
-// CUDA thread.
+// group of 16 CUDA threads.
 //
 // Replaces bunmpc_tpu/solvers/pallas_ddp.py:_build_kernel/solve_ik_batch:
 // for n_iters iterations — Gauss-Newton stage data at every knot (FK, body
@@ -16,21 +16,25 @@
 // 4.2 MB at B=512), so it is bound by f32 arithmetic: per iteration and knot
 // the 18-direction tangent FK pass, the Gauss-Newton products and the Riccati
 // step (Quu solve, Kfb'Qux update); per iteration len(alphas)+1 cost-only/storing
-// rollouts. Design: one thread per problem; the robot constants come from the
-// port's RobotModel as one small argument buffer (read by every thread, so
-// each load is a broadcast); per-problem trajectories, gains and the 36x36
-// Riccati matrices live in a batch-last scratch buffer (element i of problem b
-// at i*B + b, coalesced over a warp), the FK caches and Jacobian rows in
-// registers/local memory. The Riccati products use the block structure of the
-// step Jacobians (6x6 base blocks plus scaled identities, as the Pallas kernel
-// does); a warp per problem is the next step.
+// rollouts. Design: LANES threads per problem run the DDP as phases separated
+// by block barriers: the knots' Gauss-Newton data (independent per knot) and
+// the alphas' cost-only rollouts are split over the lanes; lane 0 runs the
+// serial Riccati sweep and the line-search decision. The robot constants come
+// from the port's RobotModel as one small argument buffer (every thread reads
+// the same address, so each load is a broadcast); per-problem trajectories,
+// gains, the knots' 36x36 curvatures and the Riccati matrices live in a
+// batch-last scratch buffer (element i of problem b at i*B + b), the FK caches
+// and Jacobian rows in registers/local memory. The Riccati products use the
+// block structure of the step Jacobians (6x6 base blocks plus scaled
+// identities, as the Pallas kernel does). Splitting the Riccati step itself
+// over the lanes is the next step.
 //
 // Built by bunmpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC
 // (no fast math). Compiled with g++ instead (no __CUDACC__) it exports host
-// loops over the same per-problem function, in float and double, for the CPU
-// tests.
+// loops over the same per-problem phases (the lanes of a phase run one after
+// another), in float and double, for the CPU tests.
 
 #include "common.cuh"
 
@@ -41,6 +45,7 @@ constexpr int NQ = 19, NV = 18, NX = 37, NDX = 36;
 constexpr int NR = 3 * NE + 9 + NDX;  // 57 stage residual rows
 constexpr int NRT = 9 + NDX;          // 45 terminal rows
 constexpr int MAX_ALPHAS = 8;
+constexpr int LANES = 16;  // threads per problem (>= H+1 knots, >= alphas)
 
 // ---------------------------------------------------------------- model ----
 
@@ -504,7 +509,11 @@ struct DdpInputs {
 
 template <typename T>
 struct DdpWork {
-  Strided<T> xs, xs2, us, us2, kff, Kfb, Vxx, Qxx, Tmp, T1, Qux, Quu, Lc;
+  Strided<T> xs, us, kff, Kfb;              // trajectory and gains
+  Strided<T> Lx, Lxx, Fb;                   // per knot: GN gradient, curvature, [A6 | Jr6]
+  Strided<T> Vx, Vxx, Qx, Qu, Qux, Quu, Lc;  // the Riccati step
+  Strided<T> Tmp, T1;                       // its 18x18 and 36x36 temporaries
+  Strided<T> ca, xsA, usA;                  // per alpha: cost and candidate trajectory
 };
 
 template <typename T>
@@ -535,14 +544,13 @@ HD T term_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, int H
 }
 
 // forward rollout u_k = us_k + alpha kff_k + Kfb_k (x (-) xs_k); returns the
-// total cost; with store, writes the candidate into xs2/us2
+// total cost and writes the trajectory into xs_out/us_out
 template <typename T>
 HD T rollout(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
-             T alpha, bool zero_controls, bool store) {
+             T alpha, bool zero_controls, const Strided<T>& xs_out, const Strided<T>& us_out) {
   T x[NX], xn[NX], u[NV], xr[NX], dx[NDX];
   for (int i = 0; i < NX; ++i) x[i] = in.x0[i];
-  if (store)
-    for (int i = 0; i < NX; ++i) w.xs2[i] = x[i];
+  for (int i = 0; i < NX; ++i) xs_out[i] = x[i];
   T c = T(0);
   for (int k = 0; k < H; ++k) {
     if (zero_controls) {
@@ -558,10 +566,8 @@ HD T rollout(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w
     }
     c += stage_cost(mv, in, x, u, k);
     step(x, u, in.dts[k], xn);
-    if (store) {
-      for (int i = 0; i < NV; ++i) w.us2[k * NV + i] = u[i];
-      for (int i = 0; i < NX; ++i) w.xs2[(k + 1) * NX + i] = xn[i];
-    }
+    for (int i = 0; i < NV; ++i) us_out[k * NV + i] = u[i];
+    for (int i = 0; i < NX; ++i) xs_out[(k + 1) * NX + i] = xn[i];
     for (int i = 0; i < NX; ++i) x[i] = xn[i];
   }
   return c + term_cost(mv, in, x, H);
@@ -652,96 +658,118 @@ HD T blk_el(const Strided<T>& X, int ld, const T* M6, T s, int i, int j) {
   return v;
 }
 
-// Riccati sweep: gains kff/Kfb for every knot, from the terminal cost back
+// Gauss-Newton data of knot k (k == H: the terminal cost) at the current
+// trajectory: w.Lx[k], w.Lxx[k]; for k < H also the 6x6 base blocks of the
+// step Jacobians, w.Fb[k] = [A6 | Jr6]. Knots are independent of each other.
 template <typename T>
-HD void backward(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
-                 T reg) {
-  T x[NX], u[NV], Vx[NDX], Lx[NDX], r[NR];
+HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+                    int k) {
+  T x[NX], r[NR], g[NDX];
   Kin<T> kin;
-  for (int i = 0; i < NX; ++i) x[i] = w.xs[H * NX + i];
+  const bool term = k == H;
+  for (int i = 0; i < NX; ++i) x[i] = w.xs[k * NX + i];
   kinematics(mv, x, kin);
-  residual(mv, kin, x, (const T*)nullptr, in.com_ref + H * 3, in.mom_ref + H * 6,
-           in.x_reg + H * NX, true, r);
-  gn_accumulate(mv, kin, x, r, in.w_term, true, T(1), Vx, w.Vxx);
+  residual(mv, kin, x, term ? (const T*)nullptr : in.ee_t + k * NE * 3, in.com_ref + k * 3,
+           in.mom_ref + k * 6, in.x_reg + k * NX, term, r);
+  gn_accumulate(mv, kin, x, r, term ? in.w_term : in.w_stage + k * NR, term,
+                term ? T(1) : in.dts[k], g, sub(w.Lxx, (long)k * NDX * NDX));
+  for (int i = 0; i < NDX; ++i) w.Lx[k * NDX + i] = g[i];
+  if (term) return;
+  // the step x+ = (q (+) v+ dt, v+), v+ = v + u dt: Fx = [[A, Bd], [0, I]],
+  // Fu = [[C], [dt I]] with A = blk(A6, 1), Bd = blk(Jr6 dt, dt),
+  // C = blk(Jr6 dt^2, dt^2), where blk(M6, s) is a 6x6 base block followed by
+  // s times the 12x12 identity on the joints
+  const T dt = in.dts[k];
+  T w6[6], A6[36], Jr6[36];
+  for (int i = 0; i < 6; ++i) w6[i] = (x[NQ + i] + w.us[k * NV + i] * dt) * dt;
+  const T nw[6] = {-w6[0], -w6[1], -w6[2], -w6[3], -w6[4], -w6[5]};
+  se3_adjoint_exp(nw, nw + 3, A6);
+  se3_Jr(w6, w6 + 3, Jr6);
+  for (int i = 0; i < 36; ++i) {
+    w.Fb[k * 72 + i] = A6[i];
+    w.Fb[k * 72 + 36 + i] = Jr6[i];
+  }
+}
 
-  for (int k = H - 1; k >= 0; --k) {
-    const T dt = in.dts[k];
-    const T* wu = in.wu + k * NV;
-    for (int i = 0; i < NX; ++i) x[i] = w.xs[k * NX + i];
-    for (int i = 0; i < NV; ++i) u[i] = w.us[k * NV + i];
-    kinematics(mv, x, kin);
-    residual(mv, kin, x, in.ee_t + k * NE * 3, in.com_ref + k * 3, in.mom_ref + k * 6,
-             in.x_reg + k * NX, false, r);
-    gn_accumulate(mv, kin, x, r, in.w_stage + k * NR, false, dt, Lx, w.Qxx);  // Qxx = Lxx
+// knot k's A6, B6 = Jr6 dt, C6 = Jr6 dt^2
+template <typename T>
+HD void step_blocks(const DdpWork<T>& w, int k, T dt, T* A6, T* B6, T* C6) {
+  for (int i = 0; i < 36; ++i) {
+    A6[i] = w.Fb[k * 72 + i];
+    const T jr = w.Fb[k * 72 + 36 + i];
+    B6[i] = jr * dt;
+    C6[i] = jr * (dt * dt);
+  }
+}
 
-    // dynamics Jacobians of the semi-implicit step, by blocks:
-    // Fx = [[A, Bd], [0, I]], Fu = [[C], [dt I]] with A = blk(A6, 1),
-    // Bd = blk(B6, dt), C = blk(C6, dt^2), where blk(M6, s) is a 6x6 base
-    // block followed by s times the 12x12 identity on the joints
-    T w6[6], A6[36], Jr6[36], B6[36], C6[36];
-    for (int i = 0; i < 6; ++i) w6[i] = (x[NQ + i] + u[i] * dt) * dt;
-    const T nw[6] = {-w6[0], -w6[1], -w6[2], -w6[3], -w6[4], -w6[5]};
-    se3_adjoint_exp(nw, nw + 3, A6);
-    se3_Jr(w6, w6 + 3, Jr6);
-    const T dt2 = dt * dt;
-    for (int i = 0; i < 36; ++i) {
-      B6[i] = Jr6[i] * dt;
-      C6[i] = Jr6[i] * dt2;
+// One knot of the Riccati sweep, split over the lanes in six barrier-separated
+// steps: the quadrant products of Vxx with the step blocks; Qxx, Quu, Qux,
+// Qx, Qu; the Cholesky of Quu (lane 0, clamp rsqrt(max(d, 1e-20))); the gains
+// [kff | Kfb] = -Quu^-1 [Qu | Qux] column by column; Vx and Qxx + Kfb'Qux;
+// the symmetrized Vxx.
+template <typename T, class Exec>
+HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
+                     const Exec& exec) {
+  const T dt = in.dts[k], dt2 = dt * dt;
+  const T* wu = in.wu + k * NV;
+  const Strided<T> Qxx = sub(w.Lxx, (long)k * NDX * NDX);  // Lxx, made Qxx in place
+  const Strided<T> V11 = w.Vxx, V12 = sub(w.Vxx, NV), V21 = sub(w.Vxx, NV * NDX),
+                   V22 = sub(w.Vxx, NV * NDX + NV);
+  const Strided<T> AtV = w.Tmp, BtV = sub(w.Tmp, NV * NV), CtV = sub(w.Tmp, 2 * NV * NV),
+                   D = sub(w.Tmp, 3 * NV * NV);
+  exec([&](int lane) {
+    T A6[36], B6[36], C6[36];
+    step_blocks(w, k, dt, A6, B6, C6);
+    for (int e = lane; e < NV * NV; e += LANES) {
+      const int i = e / NV, j = e % NV;
+      AtV[e] = blkT_el(A6, T(1), V11, NDX, i, j);
+      BtV[e] = blkT_el(B6, dt, V11, NDX, i, j);
+      const T c = blkT_el(C6, dt2, V11, NDX, i, j);
+      CtV[e] = c;
+      D[e] = c + dt * V21[i * NDX + j];  // Fu' [V11; V21]
     }
-    // the four 18x18 quadrants of Vxx and the 18x18 temporaries
-    const Strided<T> V11 = w.Vxx, V12 = sub(w.Vxx, NV), V21 = sub(w.Vxx, NV * NDX),
-                     V22 = sub(w.Vxx, NV * NDX + NV);
-    const Strided<T> AtV = w.Tmp, BtV = sub(w.Tmp, NV * NV), CtV = sub(w.Tmp, 2 * NV * NV),
-                     D = sub(w.Tmp, 3 * NV * NV);
-    for (int i = 0; i < NV; ++i)
-      for (int j = 0; j < NV; ++j) {
-        AtV[i * NV + j] = blkT_el(A6, T(1), V11, NDX, i, j);
-        BtV[i * NV + j] = blkT_el(B6, dt, V11, NDX, i, j);
-        const T c = blkT_el(C6, dt2, V11, NDX, i, j);
-        CtV[i * NV + j] = c;
-        D[i * NV + j] = c + dt * V21[i * NDX + j];  // Fu' [V11; V21]
-      }
-    // Qxx = Lxx + Fx' Vxx Fx
-    for (int i = 0; i < NV; ++i)
-      for (int j = 0; j < NV; ++j) {
-        const T qq = blk_el(AtV, NV, A6, T(1), i, j);
-        const T qv = blk_el(AtV, NV, B6, dt, i, j) + blkT_el(A6, T(1), V12, NDX, i, j);
-        const T vv = blk_el(BtV, NV, B6, dt, i, j) + blkT_el(B6, dt, V12, NDX, i, j) +
-                     blk_el(V21, NDX, B6, dt, i, j) + V22[i * NDX + j];
-        w.Qxx[i * NDX + j] += qq;
-        w.Qxx[i * NDX + NV + j] += qv;
-        w.Qxx[(NV + j) * NDX + i] += qv;
-        w.Qxx[(NV + i) * NDX + NV + j] += vv;
-      }
-    // Quu = Luu + Fu' Vxx Fu + reg I ; Qux = Fu' Vxx Fx
-    for (int i = 0; i < NV; ++i)
-      for (int j = 0; j < NV; ++j) {
-        T quu = blk_el(CtV, NV, C6, dt2, i, j) + dt * blkT_el(C6, dt2, V12, NDX, i, j) +
-                dt * blk_el(V21, NDX, C6, dt2, i, j) + dt2 * V22[i * NDX + j];
-        if (i == j) quu += dt * wu[i] + reg;
-        w.Quu[i * NV + j] = quu;
-        w.Qux[i * NDX + j] = blk_el(D, NV, A6, T(1), i, j);
-        w.Qux[i * NDX + NV + j] = blk_el(D, NV, B6, dt, i, j) +
-                                  blkT_el(C6, dt2, V12, NDX, i, j) + dt * V22[i * NDX + j];
-      }
+  });
+  exec([&](int lane) {
+    T A6[36], B6[36], C6[36];
+    step_blocks(w, k, dt, A6, B6, C6);
+    for (int e = lane; e < NV * NV; e += LANES) {
+      const int i = e / NV, j = e % NV;
+      // Qxx = Lxx + Fx' Vxx Fx
+      const T qq = blk_el(AtV, NV, A6, T(1), i, j);
+      const T qv = blk_el(AtV, NV, B6, dt, i, j) + blkT_el(A6, T(1), V12, NDX, i, j);
+      const T vv = blk_el(BtV, NV, B6, dt, i, j) + blkT_el(B6, dt, V12, NDX, i, j) +
+                   blk_el(V21, NDX, B6, dt, i, j) + V22[i * NDX + j];
+      Qxx[i * NDX + j] += qq;
+      Qxx[i * NDX + NV + j] += qv;
+      Qxx[(NV + j) * NDX + i] += qv;
+      Qxx[(NV + i) * NDX + NV + j] += vv;
+      // Quu = Luu + Fu' Vxx Fu + reg I ; Qux = Fu' Vxx Fx
+      T quu = blk_el(CtV, NV, C6, dt2, i, j) + dt * blkT_el(C6, dt2, V12, NDX, i, j) +
+              dt * blk_el(V21, NDX, C6, dt2, i, j) + dt2 * V22[i * NDX + j];
+      if (i == j) quu += dt * wu[i] + reg;
+      w.Quu[e] = quu;
+      w.Qux[i * NDX + j] = blk_el(D, NV, A6, T(1), i, j);
+      w.Qux[i * NDX + NV + j] = blk_el(D, NV, B6, dt, i, j) +
+                                blkT_el(C6, dt2, V12, NDX, i, j) + dt * V22[i * NDX + j];
+    }
     // Qx = Lx + Fx' Vx ; Qu = Lu + Fu' Vx
-    T Qx[NDX], Qu[NV];
-    for (int a = 0; a < NV; ++a) {
-      T ax = Vx[a], bx = dt * Vx[a], cx = dt2 * Vx[a];
+    for (int a = lane; a < NV; a += LANES) {
+      T ax = w.Vx[a], bx = dt * w.Vx[a], cx = dt2 * w.Vx[a];
       if (a < 6) {
         ax = bx = cx = T(0);
-        for (int k = 0; k < 6; ++k) {
-          ax += A6[k * 6 + a] * Vx[k];
-          bx += B6[k * 6 + a] * Vx[k];
-          cx += C6[k * 6 + a] * Vx[k];
+        for (int m = 0; m < 6; ++m) {
+          ax += A6[m * 6 + a] * w.Vx[m];
+          bx += B6[m * 6 + a] * w.Vx[m];
+          cx += C6[m * 6 + a] * w.Vx[m];
         }
       }
-      Qx[a] = Lx[a] + ax;
-      Qx[NV + a] = Lx[NV + a] + bx + Vx[NV + a];
-      Qu[a] = dt * wu[a] * u[a] + cx + dt * Vx[NV + a];
+      w.Qx[a] = w.Lx[k * NDX + a] + ax;
+      w.Qx[NV + a] = w.Lx[k * NDX + NV + a] + bx + w.Vx[NV + a];
+      w.Qu[a] = dt * wu[a] * w.us[k * NV + a] + cx + dt * w.Vx[NV + a];
     }
-
-    // Cholesky of Quu, column by column with rank-1 updates
+  });
+  exec([&](int lane) {  // Cholesky of Quu, column by column with rank-1 updates
+    if (lane != 0) return;
     for (int i = 0; i < NV * NV; ++i) w.Lc[i] = T(0);
     for (int j = 0; j < NV; ++j) {
       const T inv = s_rsqrt(s_max(w.Quu[j * NV + j], T(1e-20)));
@@ -749,11 +777,12 @@ HD void backward(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T
       for (int a = j; a < NV; ++a)
         for (int b = j; b < NV; ++b) w.Quu[a * NV + b] -= w.Lc[a * NV + j] * w.Lc[b * NV + j];
     }
-    // [kff | Kfb] = -Quu^-1 [Qu | Qux], column by column
-    for (int c = 0; c <= NDX; ++c) {
+  });
+  exec([&](int lane) {  // [kff | Kfb] = -Quu^-1 [Qu | Qux]
+    for (int c = lane; c <= NDX; c += LANES) {
       T y[NV];
       for (int i = 0; i < NV; ++i) {
-        T s = c == 0 ? Qu[i] : w.Qux[i * NDX + c - 1];
+        T s = c == 0 ? w.Qu[i] : w.Qux[i * NDX + c - 1];
         for (int m = 0; m < i; ++m) s -= w.Lc[i * NV + m] * y[m];
         y[i] = s / w.Lc[i * NV + i];
       }
@@ -769,57 +798,95 @@ HD void backward(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T
           w.Kfb[(k * NV + i) * NDX + c - 1] = -y[i];
       }
     }
-    // Vx = Qx + Kfb'Qu ; Vxx = sym(Qxx + Kfb'Qux)
-    for (int a = 0; a < NDX; ++a) {
-      T s = Qx[a];
-      for (int i = 0; i < NV; ++i) s += w.Kfb[(k * NV + i) * NDX + a] * Qu[i];
-      Vx[a] = s;
+  });
+  exec([&](int lane) {  // Vx = Qx + Kfb'Qu ; T1 = Qxx + Kfb'Qux
+    for (int a = lane; a < NDX; a += LANES) {
+      T s = w.Qx[a];
+      for (int i = 0; i < NV; ++i) s += w.Kfb[(k * NV + i) * NDX + a] * w.Qu[i];
+      w.Vx[a] = s;
     }
-    for (int a = 0; a < NDX; ++a)
-      for (int b = 0; b < NDX; ++b) {
-        T s = w.Qxx[a * NDX + b];
-        for (int i = 0; i < NV; ++i) s += w.Kfb[(k * NV + i) * NDX + a] * w.Qux[i * NDX + b];
-        w.T1[a * NDX + b] = s;
-      }
-    for (int a = 0; a < NDX; ++a)
-      for (int b = 0; b < NDX; ++b)
-        w.Vxx[a * NDX + b] = T(0.5) * (w.T1[a * NDX + b] + w.T1[b * NDX + a]);
-  }
+    for (int e = lane; e < NDX * NDX; e += LANES) {
+      const int a = e / NDX, b = e % NDX;
+      T s = Qxx[e];
+      for (int i = 0; i < NV; ++i) s += w.Kfb[(k * NV + i) * NDX + a] * w.Qux[i * NDX + b];
+      w.T1[e] = s;
+    }
+  });
+  exec([&](int lane) {  // Vxx = sym(T1)
+    for (int e = lane; e < NDX * NDX; e += LANES) {
+      const int a = e / NDX, b = e % NDX;
+      w.Vxx[e] = T(0.5) * (w.T1[e] + w.T1[b * NDX + a]);
+    }
+  });
 }
 
-template <typename T>
+// The DDP of one problem as a sequence of phases run by LANES lanes; exec(f)
+// calls f(lane) on every lane and then waits for all of them (a block barrier
+// on the card, a loop over the lanes on the host). Lane 0 owns the serial
+// steps and the cost; the knots' Gauss-Newton data, the Riccati step's
+// products and solves, and the alphas' rollouts are split over the lanes.
+// Lanes exchange data through the scratch buffer only.
+template <typename T, class Exec>
 HD void ddp_problem(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
-                    int n_iters, int n_alpha, const T* alphas, T reg, T* cost_out) {
-  T cost = rollout(mv, in, w, H, T(0), true, true);
-  for (int i = 0; i < (H + 1) * NX; ++i) w.xs[i] = w.xs2[i];
-  for (int i = 0; i < H * NV; ++i) w.us[i] = w.us2[i];
+                    int n_iters, int n_alpha, const T* alphas, T reg, T* cost_out,
+                    const Exec& exec) {
+  const long nxs = (H + 1L) * NX, nus = (long)H * NV;
+  T cost = T(0);  // lane 0's
+  exec([&](int lane) {
+    if (lane != 0) return;
+    cost = rollout(mv, in, w, H, T(0), true, w.xsA, w.usA);  // zero controls
+    for (long i = 0; i < nxs; ++i) w.xs[i] = w.xsA[i];
+    for (long i = 0; i < nus; ++i) w.us[i] = w.usA[i];
+  });
   for (int it = 0; it < n_iters; ++it) {
-    backward(mv, in, w, H, reg);
-    T best_cost = T(3.0e38), best_alpha = T(0);
-    for (int a = 0; a < n_alpha; ++a) {
-      const T c = rollout(mv, in, w, H, alphas[a], false, false);
-      if (c < best_cost) {  // strict: the earliest alpha wins a tie
-        best_cost = c;
-        best_alpha = alphas[a];
+    exec([&](int lane) {
+      for (int k = lane; k <= H; k += LANES) knot_derivs(mv, in, w, H, k);
+    });
+    exec([&](int lane) {
+      for (int i = lane; i < NDX; i += LANES) w.Vx[i] = w.Lx[H * NDX + i];
+      for (int i = lane; i < NDX * NDX; i += LANES) w.Vxx[i] = w.Lxx[(long)H * NDX * NDX + i];
+    });
+    for (int k = H - 1; k >= 0; --k) riccati_knot(in, w, k, reg, exec);
+    exec([&](int lane) {  // every alpha's rollout, each into its own candidate
+      for (int a = lane; a < n_alpha; a += LANES)
+        w.ca[a] = rollout(mv, in, w, H, alphas[a], false, sub(w.xsA, a * nxs),
+                          sub(w.usA, a * nus));
+    });
+    exec([&](int lane) {
+      if (lane != 0) return;
+      int best = -1;
+      T best_cost = T(3.0e38);
+      for (int a = 0; a < n_alpha; ++a) {
+        if (w.ca[a] < best_cost) {  // strict: the earliest alpha wins a tie
+          best_cost = w.ca[a];
+          best = a;
+        }
       }
-    }
-    const T c_store = rollout(mv, in, w, H, best_alpha, false, true);
-    if (c_store < cost) {
-      for (int i = 0; i < (H + 1) * NX; ++i) w.xs[i] = w.xs2[i];
-      for (int i = 0; i < H * NV; ++i) w.us[i] = w.us2[i];
-    }
-    // cost = min(cost, c_store), NaN-propagating like jnp.minimum
-    cost = (cost != cost || c_store != c_store) ? cost + c_store
-                                                : (c_store < cost ? c_store : cost);
+      // the best candidate; with none below 3e38 the rollout at alpha 0
+      T c_store = best_cost;
+      if (best < 0) {
+        best = 0;
+        c_store = rollout(mv, in, w, H, T(0), false, w.xsA, w.usA);
+      }
+      if (c_store < cost) {
+        for (long i = 0; i < nxs; ++i) w.xs[i] = w.xsA[best * nxs + i];
+        for (long i = 0; i < nus; ++i) w.us[i] = w.usA[best * nus + i];
+      }
+      // cost = min(cost, c_store), NaN-propagating like jnp.minimum
+      cost = (cost != cost || c_store != c_store) ? cost + c_store
+                                                  : (c_store < cost ? c_store : cost);
+    });
   }
-  *cost_out = cost;
+  exec([&](int lane) {
+    if (lane == 0) *cost_out = cost;
+  });
 }
 
-template <typename T>
+template <typename T, class Exec>
 HD void ddp_one(int b, int B, int H, int n_iters, int n_alpha, T reg, const T* model,
                 const T* alphas, const T* x0, const T* ee_t, const T* com_ref, const T* mom_ref,
                 const T* x_reg, const T* w_stage, const T* w_term, const T* wu, const T* dts,
-                T* xs_out, T* us_out, T* cost, T* scratch) {
+                T* xs_out, T* us_out, T* cost, T* scratch, const Exec& exec) {
   const ModelView<T> mv{model};
   const DdpInputs<T> in{x0 + (long)b * NX,
                         ee_t + (long)b * H * NE * 3,
@@ -837,25 +904,51 @@ HD void ddp_one(int b, int B, int H, int n_iters, int n_alpha, T reg, const T* m
     return s;
   };
   DdpWork<T> w;
-  w.xs = take((H + 1) * NX); w.xs2 = take((H + 1) * NX);
-  w.us = take(H * NV); w.us2 = take(H * NV); w.kff = take(H * NV);
+  w.xs = take((H + 1) * NX); w.us = take(H * NV); w.kff = take(H * NV);
   w.Kfb = take((long)H * NV * NDX);
-  w.Vxx = take(NDX * NDX); w.Qxx = take(NDX * NDX);
+  w.Lx = take((H + 1) * NDX); w.Lxx = take((long)(H + 1) * NDX * NDX); w.Fb = take(H * 72);
+  w.Vx = take(NDX); w.Vxx = take(NDX * NDX); w.Qx = take(NDX); w.Qu = take(NV);
+  w.Qux = take(NDX * NV); w.Quu = take(NV * NV); w.Lc = take(NV * NV);
   w.Tmp = take(4 * NV * NV); w.T1 = take(NDX * NDX);
-  w.Qux = take(NDX * NV);
-  w.Quu = take(NV * NV); w.Lc = take(NV * NV);
-  ddp_problem(mv, in, w, H, n_iters, n_alpha, alphas, reg, cost + b);
-  for (long i = 0; i < (H + 1) * NX; ++i) xs_out[(long)b * (H + 1) * NX + i] = w.xs[i];
-  for (long i = 0; i < H * NV; ++i) us_out[(long)b * H * NV + i] = w.us[i];
+  w.ca = take(MAX_ALPHAS); w.xsA = take(MAX_ALPHAS * (H + 1L) * NX);
+  w.usA = take(MAX_ALPHAS * (long)H * NV);
+  ddp_problem(mv, in, w, H, n_iters, n_alpha, alphas, reg, cost + b, exec);
+  exec([&](int lane) {
+    if (lane != 0) return;
+    for (long i = 0; i < (H + 1) * NX; ++i) xs_out[(long)b * (H + 1) * NX + i] = w.xs[i];
+    for (long i = 0; i < H * NV; ++i) us_out[(long)b * H * NV + i] = w.us[i];
+  });
 }
+
+#ifdef __CUDACC__
+// a thread is one lane of one problem; a phase ends at a block barrier, which
+// every thread of the block reaches (the lanes of a problem past B skip the work)
+struct DeviceExec {
+  int lane;
+  bool active;
+  template <class F>
+  __device__ void operator()(const F& f) const {
+    if (active) f(lane);
+    __syncthreads();
+  }
+};
+#else
+struct HostExec {
+  template <class F>
+  void operator()(const F& f) const {
+    for (int lane = 0; lane < LANES; ++lane) f(lane);
+  }
+};
+#endif
 
 }  // namespace bk
 
 // Number of scratch elements per problem.
 extern "C" long ddp_scratch_size(int H) {
   using namespace bk;
-  return 2L * (H + 1) * NX + 3L * H * NV + (long)H * NV * NDX + 4L * NDX * NDX + NDX * NV +
-         2L * NV * NV;
+  return (H + 1L) * NX + 2L * H * NV + (long)H * NV * NDX + (H + 1L) * NDX +
+         (H + 1L) * NDX * NDX + 72L * H + 2L * NDX + NV + 3L * NDX * NDX + NDX * NV +
+         2L * NV * NV + MAX_ALPHAS * (1 + (H + 1L) * NX + (long)H * NV);
 }
 
 #define DDP_ARGS(T)                                                                        \
@@ -863,21 +956,23 @@ extern "C" long ddp_scratch_size(int H) {
       const T *x0, const T *ee_t, const T *com_ref, const T *mom_ref, const T *x_reg,      \
       const T *w_stage, const T *w_term, const T *wu, const T *dts, T *xs, T *us, T *cost, \
       T *scratch
-#define DDP_CALL(T, b)                                                                    \
+#define DDP_CALL(T, b, exec)                                                              \
   bk::ddp_one<T>(b, B, H, n_iters, n_alpha, T(reg), model, alphas, x0, ee_t, com_ref,     \
-                 mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch)
+                 mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch, exec)
 
 #ifdef __CUDACC__
 
 __global__ void ddp_kernel(DDP_ARGS(float)) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) DDP_CALL(float, b);
+  const int b = blockIdx.x * (blockDim.x / bk::LANES) + threadIdx.x / bk::LANES;
+  const bk::DeviceExec exec{(int)(threadIdx.x % bk::LANES), b < B};
+  DDP_CALL(float, b < B ? b : B - 1, exec);
 }
 
-// Launch on the caller's stream; returns cudaGetLastError() (0 = launched).
-extern "C" int ddp_launch_f32(DDP_ARGS(float), int threads, void* stream) {
-  const int blocks = (B + threads - 1) / threads;
-  ddp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+// Launch on the caller's stream with `problems` problems (LANES threads each)
+// per block; returns cudaGetLastError() (0 = launched).
+extern "C" int ddp_launch_f32(DDP_ARGS(float), int problems, void* stream) {
+  const int blocks = (B + problems - 1) / problems;
+  ddp_kernel<<<blocks, problems * bk::LANES, 0, (cudaStream_t)stream>>>(
       B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref, x_reg, w_stage,
       w_term, wu, dts, xs, us, cost, scratch);
   return (int)cudaGetLastError();
@@ -886,12 +981,12 @@ extern "C" int ddp_launch_f32(DDP_ARGS(float), int threads, void* stream) {
 #else  // host build for the CPU tests
 
 extern "C" int ddp_host_f32(DDP_ARGS(float)) {
-  for (int b = 0; b < B; ++b) DDP_CALL(float, b);
+  for (int b = 0; b < B; ++b) DDP_CALL(float, b, bk::HostExec{});
   return 0;
 }
 
 extern "C" int ddp_host_f64(DDP_ARGS(double)) {
-  for (int b = 0; b < B; ++b) DDP_CALL(double, b);
+  for (int b = 0; b < B; ++b) DDP_CALL(double, b, bk::HostExec{});
   return 0;
 }
 

@@ -4,9 +4,9 @@
 
 Builds K1 (csrc/admm.cu) and K2 (csrc/ddp.cu), assembles bench.py's Solo12
 trot problems (rng seed 0) at the given batch, and times each kernel by CUDA
-events for every thread-block size in ``--threads`` (problems per block; one
-problem per thread). Prints one JSON object with the card's name and power
-limit beside the times. Needs a CUDA device.
+events for every block size in ``--per-block`` (problems per thread block;
+K1 runs one thread per problem, K2 16). Prints one JSON object with the
+card's name and power limit beside the times. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--threads", type=int, nargs="+", default=[1, 2, 4, 8, 16, 32, 64])
+    ap.add_argument("--per-block", type=int, nargs="+", default=[1, 2, 4, 8, 16, 32])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a CUDA device")
@@ -65,19 +65,19 @@ def main(argv=None):
 
     stream = torch.cuda.current_stream().cuda_stream
     out = {"card": card, "batch": args.batch, "admm_ms": {}, "ddp_ms": {}}
-    for threads in args.threads:
+    for per_block in args.per_block:
         def admm():
             a, keep, _ = cuda_admm.kernel_args(*admm_in)
-            cuda_admm.KERNEL.launch("admm_launch_f32", a + [threads, stream],
+            cuda_admm.KERNEL.launch("admm_launch_f32", a + [per_block, stream],
                                     cuda_admm.ARGTYPES + [cuda_admm._I, cuda_admm._P])
 
         def ddp():
             a, keep, _ = cuda_ddp.kernel_args(*ddp_in)
-            cuda_ddp.KERNEL.launch("ddp_launch_f32", a + [threads, stream],
+            cuda_ddp.KERNEL.launch("ddp_launch_f32", a + [per_block, stream],
                                    cuda_ddp.ARGTYPES + [cuda_ddp._I, cuda_ddp._P])
 
-        out["admm_ms"][threads] = round(_time(admm, args.reps), 3)
-        out["ddp_ms"][threads] = round(_time(ddp, args.reps), 3)
+        out["admm_ms"][per_block] = round(_time(admm, args.reps), 3)
+        out["ddp_ms"][per_block] = round(_time(ddp, args.reps), 3)
     print(json.dumps(out))
 
 

@@ -1,6 +1,7 @@
 """Robot model constants for the batched PyTorch rigid-body stack.
 
-A copy of ``bunmpc_tpu/robots/model.py`` (numpy only): ``RobotModel`` is the
+A copy of the containers of ``bunmpc_tpu/robots/model.py`` (numpy only; the
+URDF-time inertia helpers stay there): ``RobotModel`` is the
 replacement for the Pinocchio ``Model``/``Data`` pair. Topology is *static*:
 every array here is a host-side numpy constant, so the kinematics unroll into
 a fixed chain of small batched tensor ops, and the CUDA kernels receive the
@@ -68,9 +69,6 @@ class RobotModel:
     def total_mass(self) -> float:
         return float(np.sum(self.mass))
 
-    def frame_names(self):
-        return tuple(self.frames.keys())
-
     def ancestors(self, body: int) -> Tuple[int, ...]:
         """Moving-joint indices on the path base -> ``body`` (static, host side)."""
         chain = []
@@ -80,32 +78,3 @@ class RobotModel:
             chain.append(j)
             b = int(self.parent[j])
         return tuple(reversed(chain))
-
-    def support_matrix(self) -> np.ndarray:
-        """(nb, nj) 0/1 matrix: entry (b, j) == 1 iff joint j supports body b."""
-        S = np.zeros((self.n_bodies, self.n_joints))
-        for b in range(self.n_bodies):
-            for j in self.ancestors(b):
-                S[b, j] = 1.0
-        return S
-
-
-def compose_inertia(m1, c1, I1, m2, c2, I2):
-    """Combine two (mass, com, inertia-about-com) triplets in a shared frame."""
-    m = m1 + m2
-    if m == 0.0:
-        return 0.0, np.zeros(3), np.zeros((3, 3))
-    c = (m1 * c1 + m2 * c2) / m
-    out = np.zeros((3, 3))
-    for mi, ci, Ii in ((m1, c1, I1), (m2, c2, I2)):
-        d = ci - c
-        out += Ii + mi * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
-    return m, c, out
-
-
-def transform_inertia(R, p, m, c, I):
-    """Express (m, c, I-about-com) given in frame B in frame A, where the pose
-    of B in A is (R, p)."""
-    c_new = R @ c + p
-    I_new = R @ I @ R.T
-    return m, c_new, I_new

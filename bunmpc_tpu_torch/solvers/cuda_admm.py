@@ -22,10 +22,11 @@ from . import biconvex
 
 KERNEL = Kernel("admm")
 NE = 4  # feet per problem the kernel is built for
-# problems per thread block: 4 was the fastest of 1..64 at B=512 on the H100
-# (python -m bunmpc_tpu_torch.profile_kernels); with fewer problems per warp
-# the early-converged ones idle less and a load touches fewer cache lines
-THREADS = 4
+# problems (= threads) per thread block: 4 was the fastest of 1..64 at B=512
+# on the H100 (python -m bunmpc_tpu_torch.profile_kernels); with fewer
+# problems per warp the early-converged ones idle less and a load touches
+# fewer cache lines
+PER_BLOCK = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,11 @@ _P = ctypes.c_void_p
 ARGTYPES = [_I] * 7 + [_D] * 11 + [_P] * 18
 
 
+def scratch_size(H: int) -> int:
+    """Scratch elements per problem (csrc/admm.cu: admm_scratch_size)."""
+    return 6 * (H + 1) * 9 + 5 * H * NE * 3 + H * 81
+
+
 def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
                 F_reg_ref=None):
     """Checked inputs, freshly allocated outputs/scratch, and the C argument
@@ -127,8 +133,7 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
     viol = torch.empty((B,), dtype=dtype, device=device)
     iters = torch.empty((B,), dtype=torch.int32, device=device)
     fista = torch.empty((B,), dtype=torch.int32, device=device)
-    n_scratch = 6 * (H + 1) * 9 + 5 * H * NE * 3 + H * 81  # admm.cu: admm_scratch_size
-    scratch = torch.empty((n_scratch, B), dtype=dtype, device=device)
+    scratch = torch.empty((scratch_size(H), B), dtype=dtype, device=device)
     ptrs = [plan.cnt, plan.r, plan.dt, x_init, W, ql, W_F, qF, lb, ub, X_wm, F_wm,
             X, F, viol, iters, fista, scratch]
     args = [
@@ -150,7 +155,7 @@ def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_
                                   x_bounds, cfg, F_reg_ref)
     with torch.cuda.device(x_init.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("admm_launch_f32", args + [THREADS, stream], ARGTYPES + [_I, _P])
+        KERNEL.launch("admm_launch_f32", args + [PER_BLOCK, stream], ARGTYPES + [_I, _P])
     del keep
     return out
 

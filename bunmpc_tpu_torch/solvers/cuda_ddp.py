@@ -2,8 +2,8 @@
 kernel.
 
 Counterpart of ``bunmpc_tpu/solvers/pallas_ddp.py`` (``solve_ik_batch`` ->
-``_build_kernel(...).kernel``); the kernel is ``csrc/ddp.cu`` (one problem
-per thread, see its header for the design and what bounds it).
+``_build_kernel(...).kernel``); the kernel is ``csrc/ddp.cu`` (16 threads per
+problem, see its header for the design and what bounds it).
 ``solve_ik_batch`` takes a batch of any size B (no padding).
 
 The robot constants (joint frames, axes, masses, CoMs, inertias, foot frames)
@@ -30,7 +30,8 @@ from . import ddp
 
 KERNEL = Kernel("ddp")
 NJ, NE = 12, 4  # joints and feet the kernel is built for
-THREADS = 32  # problems per thread block
+LANES = 16  # threads per problem (csrc/ddp.cu: LANES)
+PER_BLOCK = 4  # problems per thread block
 MAX_ALPHAS = 8
 
 
@@ -83,8 +84,9 @@ ARGTYPES = [_I, _I, _I, _I, _D] + [_P] * 15
 def scratch_size(H: int, nq: int, nv: int) -> int:
     """Scratch elements per problem (csrc/ddp.cu: ddp_scratch_size)."""
     nx, ndx = nq + nv, 2 * nv
-    return (2 * (H + 1) * nx + 3 * H * nv + H * nv * ndx + 4 * ndx * ndx + ndx * nv
-            + 2 * nv * nv)
+    return ((H + 1) * nx + 2 * H * nv + H * nv * ndx + (H + 1) * ndx + (H + 1) * ndx * ndx
+            + 72 * H + 2 * ndx + nv + 3 * ndx * ndx + ndx * nv + 2 * nv * nv
+            + MAX_ALPHAS * (1 + (H + 1) * nx + H * nv))
 
 
 def kernel_args(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_reg, w_stage,
@@ -151,6 +153,6 @@ def solve_ik_batch(
                                   w_stage, w_term, ctrl_weight, dts, cfg)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("ddp_launch_f32", args + [THREADS, stream], ARGTYPES + [_I, _P])
+        KERNEL.launch("ddp_launch_f32", args + [PER_BLOCK, stream], ARGTYPES + [_I, _P])
     del keep
     return out

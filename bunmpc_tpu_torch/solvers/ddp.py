@@ -52,13 +52,6 @@ def _step(model: RobotModel, x, u, dt):
     return torch.cat([q_next, v_next], dim=-1)
 
 
-def _perturb(model: RobotModel, x, dx):
-    """x (+) dx with dx in the 2*nv tangent space."""
-    nq, nv = model.nq, model.nv
-    q = K.integrate(model, x[..., :nq], dx[..., :nv])
-    return torch.cat([q, x[..., nq:] + dx[..., nv:]], dim=-1)
-
-
 def _state_diff(model: RobotModel, x1, x2):
     """Tangent difference x2 (-) x1 (2*nv,)."""
     nq = model.nq

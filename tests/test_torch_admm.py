@@ -8,6 +8,8 @@ package's own Pallas-vs-XLA gates (X 1e-4, F 1e-3, viol rtol 1e-3); f64 with
 the accelerated default schedule, X/F atol 1e-7 and equal iteration counts
 (the same algorithm in double precision)."""
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,6 +129,13 @@ def test_kernel_math_fista_cap_and_box(lib, problem):
     np.testing.assert_allclose(got[0], ref[0], atol=1e-9, rtol=0)
     np.testing.assert_allclose(got[1], ref[1], atol=1e-8, rtol=0)
     np.testing.assert_array_equal(got[3], ref[3])
+
+
+def test_scratch_layout_matches_kernel(lib):
+    lib.admm_scratch_size.restype = ctypes.c_long
+    lib.admm_scratch_size.argtypes = [ctypes.c_int]
+    for h in (1, 20, 30):
+        assert lib.admm_scratch_size(h) == cuda_admm.scratch_size(h)
 
 
 @pytest.mark.parametrize("runner", ["plain", "kernel_math"])

@@ -11,6 +11,8 @@ the controls are the velocity increments of xs over a knot, us_k =
 dt = 0.05; one iteration with one alpha in f32, the JAX package's
 Pallas-vs-XLA gates (xs 2e-4, us 2e-3, cost rtol 1e-4)."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,9 +178,16 @@ def test_kernel_math_single_iteration_f32(lib, data, one_f32):
     np.testing.assert_allclose(cost, one_f32[2], rtol=1e-4)
 
 
+def test_scratch_layout_matches_kernel(lib):
+    lib.ddp_scratch_size.restype = ctypes.c_long
+    lib.ddp_scratch_size.argtypes = [ctypes.c_int]
+    for h in (1, 3, 10):
+        assert lib.ddp_scratch_size(h) == cuda_ddp.scratch_size(h, 19, NV)
+
+
 def test_kernel_math_single_iteration_f64(lib, data):
     """One Gauss-Newton step in f64: the kernel's hand-derived tangent
-    Jacobians, dense Riccati and Cholesky against the plain version's
+    Jacobians, block-structured Riccati and Cholesky against the plain version's
     autodiff-chart Jacobians and batched LAPACK (the same step to rounding)."""
     d, x0s = data
     xs, us, cost = host_solve(lib, d, x0s, cuda_ddp.CudaDdpConfig(**ONE), torch.float64)
