@@ -1,4 +1,4 @@
-// K1: the whole biconvex centroidal ADMM of one MPC problem per CUDA thread.
+// K1: the whole biconvex centroidal ADMM of one MPC problem per CUDA warp.
 //
 // Replaces bunmpc_tpu/solvers/pallas_admm.py:_kernel/_admm_core (x_solver
 // "thomas"; the "fista" X-solver and precondition branches are not ported):
@@ -18,26 +18,28 @@
 // (<= fista_max_iters FISTA iterations + power_iters+1 operator applications
 // + one (H+1)-knot Thomas sweep). The Pallas kernel freezes a lane once it
 // converges, so a problem's result depends on its own data only; here each
-// problem leaves its loops on its own. Design: one thread per problem; the
-// per-problem work arrays live in a batch-last scratch buffer (element i of
-// problem b at i*B + b, so a warp's 32 problems touch one cache line), the
-// 9x9 blocks of the sweep in registers/local memory. This first version is
-// latency-bound (B/32 warps on the card); a warp per problem is the next
-// step.
+// problem leaves its loops on its own. Design: the 32 lanes of a warp share
+// one problem — the force operator by knot, the cone projection by foot, the
+// norms as per-lane partial sums, the Thomas sweep's block solve by column and
+// its Schur update by entry — with a warp barrier between phases, so problems
+// never wait for each other. The per-problem work arrays live in a batch-last
+// scratch buffer (element i of problem b at i*B + b); each 9x9 Cholesky runs
+// on one lane, the knot sweep stays sequential.
 //
 // Built by bunmpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC
 // (no fast math: the cone projection and the Cholesky factors are
 // precision-sensitive). Compiled with g++ instead (no __CUDACC__) it exports
-// host loops over the same per-problem function, in float and double, for
-// the CPU tests.
+// host loops over the same per-problem phases (the lanes of a phase run one
+// after another), in float and double, for the CPU tests.
 
 #include "common.cuh"
 
 namespace bk {
 
 constexpr int NE = 4;  // feet (the wrapper checks)
+constexpr int LANES = 32;  // threads per problem: one warp
 constexpr double G_ACC = 9.81;
 
 template <typename T>
@@ -57,73 +59,74 @@ struct AdmmInputs {
 template <typename T>
 struct AdmmWork {
   Strided<T> X, P, Xn, bP, dk, v, F, xk, yk, g, z, Wk;
+  Strided<T> part;          // per lane: partial sums (2 * LANES)
+  Strided<T> Cm, Lm, Sol, yv;  // the current knot's block, factor, [U | y], y
 };
 
-// out <- 2 (WF y + rho A_x(X)^T (A_x(X) y + bP)) [+ qF]; bP and qF optional.
-// A_x rows 0..2 are zero and A_x^T reads rows 3..8 of knots t < H only, so the
-// two stencils fuse per knot.
+// sum of the lanes' partial sums part[off .. off + LANES)
 template <typename T>
-HD void f_operator(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X,
-                   const Strided<T>& y, const Strided<T>* bP, T rho, bool add_qF,
-                   const Strided<T>& out) {
-  const int H = pr.H;
-  for (int t = 0; t < H; ++t) {
-    const T dt = in.dt[t];
-    const T com[3] = {X[t * 9 + 0], X[t * 9 + 1], X[t * 9 + 2]};
-    T lin[3] = {0, 0, 0}, ang[3] = {0, 0, 0};
-    for (int n = 0; n < NE; ++n) {
-      const T c = in.cnt[t * NE + n];
-      const int i0 = (t * NE + n) * 3;
-      T cf[3], arm[3], cr[3];
-      for (int k = 0; k < 3; ++k) {
-        cf[k] = c * y[i0 + k];
-        arm[k] = in.r[i0 + k] - com[k];
-      }
-      cross3(arm, cf, cr);
-      for (int k = 0; k < 3; ++k) {
-        lin[k] += cf[k];
-        ang[k] += cr[k];
-      }
-    }
-    T yl[3], ya[3];
+HD T sum_parts(const Strided<T>& part, int off) {
+  T s = T(0);
+  for (int l = 0; l < LANES; ++l) s += part[off + l];
+  return s;
+}
+
+// rows of knot t of out <- 2 (WF y + rho A_x(X)^T (A_x(X) y + bP)) [+ qF]; bP
+// and qF optional. A_x rows 0..2 are zero and A_x^T reads rows 3..8 of knots
+// t < H only, so the two stencils fuse per knot.
+template <typename T>
+HD void f_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X,
+                        const Strided<T>& y, const Strided<T>* bP, T rho, bool add_qF,
+                        const Strided<T>& out, int t) {
+  const T dt = in.dt[t];
+  const T com[3] = {X[t * 9 + 0], X[t * 9 + 1], X[t * 9 + 2]};
+  T lin[3] = {0, 0, 0}, ang[3] = {0, 0, 0};
+  for (int n = 0; n < NE; ++n) {
+    const T c = in.cnt[t * NE + n];
+    const int i0 = (t * NE + n) * 3;
+    T cf[3], arm[3], cr[3];
     for (int k = 0; k < 3; ++k) {
-      yl[k] = dt * lin[k] / pr.m;
-      ya[k] = dt * ang[k];
-      if (bP) {
-        yl[k] += (*bP)[t * 9 + 3 + k];
-        ya[k] += (*bP)[t * 9 + 6 + k];
-      }
+      cf[k] = c * y[i0 + k];
+      arm[k] = in.r[i0 + k] - com[k];
     }
-    for (int n = 0; n < NE; ++n) {
-      const T c = in.cnt[t * NE + n];
-      const int i0 = (t * NE + n) * 3;
-      T arm[3], cr[3];
-      for (int k = 0; k < 3; ++k) arm[k] = in.r[i0 + k] - com[k];
-      cross3(ya, arm, cr);
-      for (int k = 0; k < 3; ++k) {
-        const T o = c * (dt * (yl[k] / pr.m + cr[k]));
-        T val = T(2) * (in.WF[i0 + k] * y[i0 + k] + rho * o);
-        if (add_qF) val += in.qF[i0 + k];
-        out[i0 + k] = val;
-      }
+    cross3(arm, cf, cr);
+    for (int k = 0; k < 3; ++k) {
+      lin[k] += cf[k];
+      ang[k] += cr[k];
+    }
+  }
+  T yl[3], ya[3];
+  for (int k = 0; k < 3; ++k) {
+    yl[k] = dt * lin[k] / pr.m;
+    ya[k] = dt * ang[k];
+    if (bP) {
+      yl[k] += (*bP)[t * 9 + 3 + k];
+      ya[k] += (*bP)[t * 9 + 6 + k];
+    }
+  }
+  for (int n = 0; n < NE; ++n) {
+    const T c = in.cnt[t * NE + n];
+    const int i0 = (t * NE + n) * 3;
+    T arm[3], cr[3];
+    for (int k = 0; k < 3; ++k) arm[k] = in.r[i0 + k] - com[k];
+    cross3(ya, arm, cr);
+    for (int k = 0; k < 3; ++k) {
+      const T o = c * (dt * (yl[k] / pr.m + cr[k]));
+      T val = T(2) * (in.WF[i0 + k] * y[i0 + k] + rho * o);
+      if (add_qF) val += in.qF[i0 + k];
+      out[i0 + k] = val;
     }
   }
 }
 
-// b_x(X) (rows t < H; the terminal row is zero)
+// element i of b_x(X) (rows t < H; the terminal row is zero)
 template <typename T>
-HD void bx_vec(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X,
-               const Strided<T>& out) {
-  const int H = pr.H;
-  for (int t = 0; t < H; ++t) {
-    for (int k = 0; k < 3; ++k) out[t * 9 + k] = T(0);
-    for (int k = 3; k < 9; ++k) {
-      T d = X[(t + 1) * 9 + k] - X[t * 9 + k];
-      if (k == 5) d += T(G_ACC) * in.dt[t];
-      out[t * 9 + k] = d;
-    }
-  }
-  for (int k = 0; k < 9; ++k) out[H * 9 + k] = T(0);
+HD T bx_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X, int i) {
+  const int t = i / 9, k = i % 9;
+  if (t == pr.H || k < 3) return T(0);
+  T d = X[(t + 1) * 9 + k] - X[t * 9 + k];
+  if (k == 5) d += T(G_ACC) * in.dt[t];
+  return d;
 }
 
 template <typename T>
@@ -184,30 +187,36 @@ HD void af_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T
   }
 }
 
-// out <- A_f(F)^T Y
+// row t of A_f(F)^T Y: the contributions of constraint rows t-1 and t, and
+// for t = 0 of the pinning row
 template <typename T>
-HD void af_applyT(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
-                  const Strided<T>& Y, const Strided<T>& out) {
+HD void af_applyT_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
+                      const Strided<T>& Y, int t, T* row) {
   const int H = pr.H;
-  for (int i = 0; i < (H + 1) * 9; ++i) out[i] = T(0);
-  for (int t = 0; t < H; ++t) {
+  for (int k = 0; k < 9; ++k) row[k] = T(0);
+  if (t > 0) {
+    const T dt = in.dt[t - 1];
+    const int s = (t - 1) * 9;
+    for (int k = 0; k < 3; ++k) {
+      row[k] += -Y[s + k];
+      row[3 + k] += dt * Y[s + k] - Y[s + 3 + k];
+      row[6 + k] += -Y[s + 6 + k];
+    }
+  }
+  if (t < H) {
     const T dt = in.dt[t];
     T cF[3], ya[3], cr[3];
     cf_total(in, F, t, cF);
     for (int k = 0; k < 3; ++k) ya[k] = Y[t * 9 + 6 + k];
     cross3(ya, cF, cr);
     for (int k = 0; k < 3; ++k) {
-      out[t * 9 + k] += Y[t * 9 + k] + dt * cr[k];
-      out[t * 9 + 3 + k] += Y[t * 9 + 3 + k];
-      out[t * 9 + 6 + k] += Y[t * 9 + 6 + k];
-    }
-    for (int k = 0; k < 3; ++k) {
-      out[(t + 1) * 9 + k] += -Y[t * 9 + k];
-      out[(t + 1) * 9 + 3 + k] += dt * Y[t * 9 + k] - Y[t * 9 + 3 + k];
-      out[(t + 1) * 9 + 6 + k] += -Y[t * 9 + 6 + k];
+      row[k] += Y[t * 9 + k] + dt * cr[k];
+      row[3 + k] += Y[t * 9 + 3 + k];
+      row[6 + k] += Y[t * 9 + 6 + k];
     }
   }
-  for (int k = 0; k < 9; ++k) out[k] += Y[H * 9 + k];
+  if (t == 0)
+    for (int k = 0; k < 9; ++k) row[k] += Y[H * 9 + k];
 }
 
 // exact per-foot friction-cone projection (pallas_admm.py:218-228)
@@ -332,142 +341,221 @@ HD void u_block(const AdmmInputs<T>& in, const Strided<T>& F, int k, T rho, T* U
   for (int i = 0; i < 81; ++i) U[i] *= T(2) * rho;
 }
 
-// exact X-subproblem minimizer clipped to the box -> w.Xn
-template <typename T>
+// exact X-subproblem minimizer clipped to the box -> w.Xn. The knot sweep is
+// sequential; within a knot the lanes share the [U | y] solve (a column
+// each), the Schur update of the next block and the back-substitution rows;
+// the 9x9 Cholesky is lane 0's.
+template <typename T, class Exec>
 HD void thomas_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T>& w,
-                 const Strided<T>& F, T rho) {
+                 const Strided<T>& F, T rho, const Exec& exec) {
   const int H = pr.H;
   // rhs = -q + 2 rho A_f'(b_f - P), kept in w.dk and overwritten by d_k
-  for (int t = 0; t <= H; ++t) {
-    T row[9];
-    bf_row(pr, in, F, t, row);
-    for (int k = 0; k < 9; ++k) w.v[t * 9 + k] = row[k] - w.P[t * 9 + k];
-  }
-  af_applyT(pr, in, F, w.v, w.dk);
-  for (int i = 0; i < (H + 1) * 9; ++i) w.dk[i] = -in.ql[i] + T(2) * rho * w.dk[i];
-
-  T C[81], L[81], U[81], y[9];
-  m_block(pr, in, F, 0, rho, C);
-  for (int i = 0; i < 9; ++i) y[i] = w.dk[i];
-  for (int k = 0; k <= H; ++k) {
-    chol9(C, L);
-    if (k < H) {
-      u_block(in, F, k, rho, U);
-      T sol[90];  // [U_k | y_k], 9 x 10
-      for (int i = 0; i < 9; ++i) {
-        for (int j = 0; j < 9; ++j) sol[i * 10 + j] = U[i * 9 + j];
-        sol[i * 10 + 9] = y[i];
-      }
-      chol_solve9(L, sol, 10, 10);
-      for (int i = 0; i < 9; ++i) {
-        for (int j = 0; j < 9; ++j) w.Wk[k * 81 + i * 9 + j] = sol[i * 10 + j];
-        w.dk[k * 9 + i] = sol[i * 10 + 9];
-      }
-      // C_{k+1} = M_{k+1} - U_k' W_k ; y_{k+1} = rhs_{k+1} - U_k' d_k
-      m_block(pr, in, F, k + 1, rho, C);
-      for (int a = 0; a < 9; ++a) {
-        for (int b = 0; b < 9; ++b) {
-          T s = T(0);
-          for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * sol[j * 10 + b];
-          C[a * 9 + b] -= s;
-        }
-        T s = T(0);
-        for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * sol[j * 10 + 9];
-        y[a] = w.dk[(k + 1) * 9 + a] - s;
-      }
-    } else {
-      chol_solve9(L, y, 1, 1);
-      for (int i = 0; i < 9; ++i) w.dk[k * 9 + i] = y[i];
+  exec([&](int lane) {
+    for (int t = lane; t <= H; t += LANES) {
+      T row[9];
+      bf_row(pr, in, F, t, row);
+      for (int k = 0; k < 9; ++k) w.v[t * 9 + k] = row[k] - w.P[t * 9 + k];
     }
+  });
+  exec([&](int lane) {
+    for (int t = lane; t <= H; t += LANES) {
+      T row[9];
+      af_applyT_row(pr, in, F, w.v, t, row);
+      for (int k = 0; k < 9; ++k) w.dk[t * 9 + k] = -in.ql[t * 9 + k] + T(2) * rho * row[k];
+    }
+  });
+  exec([&](int lane) {
+    T M[81];
+    m_block(pr, in, F, 0, rho, M);
+    for (int e = lane; e < 81; e += LANES) w.Cm[e] = M[e];
+    for (int a = lane; a < 9; a += LANES) w.yv[a] = w.dk[a];
+  });
+  for (int k = 0; k <= H; ++k) {
+    exec([&](int lane) {
+      if (lane != 0) return;
+      T C[81], L[81];
+      for (int e = 0; e < 81; ++e) C[e] = w.Cm[e];
+      chol9(C, L);
+      for (int e = 0; e < 81; ++e) w.Lm[e] = L[e];
+    });
+    if (k == H) {
+      exec([&](int lane) {
+        if (lane != 0) return;
+        T L[81], y[9];
+        for (int e = 0; e < 81; ++e) L[e] = w.Lm[e];
+        for (int a = 0; a < 9; ++a) y[a] = w.yv[a];
+        chol_solve9(L, y, 1, 1);
+        for (int a = 0; a < 9; ++a) w.dk[H * 9 + a] = y[a];
+      });
+      break;
+    }
+    exec([&](int lane) {  // [U_k | y_k]
+      T U[81];
+      u_block(in, F, k, rho, U);
+      for (int e = lane; e < 90; e += LANES) {
+        const int i = e / 10, j = e % 10;
+        w.Sol[e] = j < 9 ? U[i * 9 + j] : w.yv[i];
+      }
+    });
+    exec([&](int lane) {  // C_k^-1 [U_k | y_k], a column per lane
+      for (int c = lane; c < 10; c += LANES) {
+        T L[81], col[9];
+        for (int e = 0; e < 81; ++e) L[e] = w.Lm[e];
+        for (int i = 0; i < 9; ++i) col[i] = w.Sol[i * 10 + c];
+        chol_solve9(L, col, 1, 1);
+        for (int i = 0; i < 9; ++i) w.Sol[i * 10 + c] = col[i];
+      }
+    });
+    exec([&](int lane) {
+      // W_k, d_k; C_{k+1} = M_{k+1} - U_k' W_k ; y_{k+1} = rhs_{k+1} - U_k' d_k
+      T U[81], M[81];
+      u_block(in, F, k, rho, U);
+      m_block(pr, in, F, k + 1, rho, M);
+      for (int e = lane; e < 81; e += LANES) {
+        const int a = e / 9, b = e % 9;
+        w.Wk[k * 81 + e] = w.Sol[a * 10 + b];
+        T s = T(0);
+        for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * w.Sol[j * 10 + b];
+        w.Cm[e] = M[e] - s;
+      }
+      for (int a = lane; a < 9; a += LANES) {
+        w.dk[k * 9 + a] = w.Sol[a * 10 + 9];
+        T s = T(0);
+        for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * w.Sol[j * 10 + 9];
+        w.yv[a] = w.dk[(k + 1) * 9 + a] - s;
+      }
+    });
   }
   // back-substitution x_k = d_k - W_k x_{k+1}, then the box clip
-  for (int i = 0; i < 9; ++i) w.Xn[H * 9 + i] = w.dk[H * 9 + i];
+  exec([&](int lane) {
+    for (int a = lane; a < 9; a += LANES) w.Xn[H * 9 + a] = w.dk[H * 9 + a];
+  });
   for (int k = H - 1; k >= 0; --k)
-    for (int a = 0; a < 9; ++a) {
-      T s = T(0);
-      for (int j = 0; j < 9; ++j) s += w.Wk[k * 81 + a * 9 + j] * w.Xn[(k + 1) * 9 + j];
-      w.Xn[k * 9 + a] = w.dk[k * 9 + a] - s;
-    }
-  for (int i = 0; i < (H + 1) * 9; ++i)
-    w.Xn[i] = s_min(s_max(w.Xn[i], in.lb[i]), in.ub[i]);
+    exec([&](int lane) {
+      for (int a = lane; a < 9; a += LANES) {
+        T s = T(0);
+        for (int j = 0; j < 9; ++j) s += w.Wk[k * 81 + a * 9 + j] * w.Xn[(k + 1) * 9 + j];
+        w.Xn[k * 9 + a] = w.dk[k * 9 + a] - s;
+      }
+    });
+  exec([&](int lane) {
+    for (int i = lane; i < (H + 1) * 9; i += LANES)
+      w.Xn[i] = s_min(s_max(w.Xn[i], in.lb[i]), in.ub[i]);
+  });
 }
 
-template <typename T>
+// The ADMM of one problem on LANES lanes; exec(f) calls f(lane) on every lane
+// and then waits for all of them (a warp barrier on the card, a loop over the
+// lanes on the host). Code outside exec runs on every lane alike: the loop
+// decisions are taken from partial sums the lanes left in the scratch buffer,
+// so the lanes of a problem always agree; problems never wait for each other.
+template <typename T, class Exec>
 HD void admm_problem(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T>& w,
-                     T* viol_out, int* iters_out, int* fista_out) {
+                     T* viol_out, int* iters_out, int* fista_out, const Exec& exec) {
   const int H = pr.H;
   const int nX = (H + 1) * 9, nF = H * NE * 3;
-  for (int i = 0; i < nX; ++i) w.P[i] = T(0);
+  exec([&](int lane) {
+    for (int i = lane; i < nX; i += LANES) w.P[i] = T(0);
+  });
   T rho = pr.rho, viol2 = T(3.0e38), chk = T(3.0e38);
   int iters = 0, fista_total = 0;
   const T tol2 = pr.fista_tol * pr.fista_tol;
   const T exit2 = pr.exit_tol * pr.exit_tol;
   for (int it = 0; it < pr.max_admm_iters; ++it) {
     // ---- F subproblem: power-iteration step, then projected FISTA ----
-    bx_vec(pr, in, w.X, w.bP);
-    for (int i = 0; i < nX; ++i) w.bP[i] = w.P[i] - w.bP[i];
-    for (int i = 0; i < nF; ++i) w.z[i] = T(1);
+    exec([&](int lane) {
+      for (int i = lane; i < nX; i += LANES) w.bP[i] = w.P[i] - bx_el(pr, in, w.X, i);
+      for (int i = lane; i < nF; i += LANES) w.z[i] = T(1);
+    });
     for (int p = 0; p < pr.power_iters; ++p) {
-      f_operator(pr, in, w.X, w.z, (const Strided<T>*)nullptr, rho, false, w.g);
-      T s = T(0);
-      for (int i = 0; i < nF; ++i) s += w.g[i] * w.g[i];
-      const T nrm = s_sqrt(s) + T(1e-30);
-      for (int i = 0; i < nF; ++i) w.z[i] = w.g[i] / nrm;
+      exec([&](int lane) {
+        for (int t = lane; t < H; t += LANES)
+          f_operator_knot(pr, in, w.X, w.z, (const Strided<T>*)nullptr, rho, false, w.g, t);
+      });
+      exec([&](int lane) {
+        T s = T(0);
+        for (int i = lane; i < nF; i += LANES) s += w.g[i] * w.g[i];
+        w.part[lane] = s;
+      });
+      const T nrm = s_sqrt(sum_parts(w.part, 0)) + T(1e-30);
+      exec([&](int lane) {
+        for (int i = lane; i < nF; i += LANES) w.z[i] = w.g[i] / nrm;
+      });
     }
-    f_operator(pr, in, w.X, w.z, (const Strided<T>*)nullptr, rho, false, w.g);
-    T num = T(0), den = T(0);
-    for (int i = 0; i < nF; ++i) {
-      num += w.z[i] * w.g[i];
-      den += w.z[i] * w.z[i];
-    }
-    const T Lf = pr.power_safety * num / (den + T(1e-30));
+    exec([&](int lane) {
+      for (int t = lane; t < H; t += LANES)
+        f_operator_knot(pr, in, w.X, w.z, (const Strided<T>*)nullptr, rho, false, w.g, t);
+    });
+    exec([&](int lane) {
+      T num = T(0), den = T(0);
+      for (int i = lane; i < nF; i += LANES) {
+        num += w.z[i] * w.g[i];
+        den += w.z[i] * w.z[i];
+      }
+      w.part[lane] = num;
+      w.part[LANES + lane] = den;
+      for (int i = lane; i < nF; i += LANES) w.xk[i] = w.yk[i] = w.F[i];
+    });
+    const T Lf = pr.power_safety * sum_parts(w.part, 0) / (sum_parts(w.part, LANES) + T(1e-30));
 
-    for (int i = 0; i < nF; ++i) w.xk[i] = w.yk[i] = w.F[i];
     T tk = T(1);
     for (int k = 0; k < pr.fista_max_iters; ++k) {
-      f_operator(pr, in, w.X, w.yk, &w.bP, rho, true, w.g);
-      for (int i = 0; i < nF; ++i) w.g[i] = w.yk[i] - w.g[i] / Lf;  // y_next (pre-projection)
-      for (int c = 0; c < H * NE; ++c) {
-        T f[3] = {w.g[c * 3], w.g[c * 3 + 1], w.g[c * 3 + 2]};
-        soc_project(pr.mu, f);
-        w.g[c * 3] = f[0];
-        w.g[c * 3 + 1] = f[1];
-        w.g[c * 3 + 2] = f[2];
-      }
-      T g2 = T(0);
-      for (int i = 0; i < nF; ++i) {
-        const T d = w.g[i] - w.yk[i];
-        g2 += d * d;
-      }
+      exec([&](int lane) {
+        for (int t = lane; t < H; t += LANES)
+          f_operator_knot(pr, in, w.X, w.yk, &w.bP, rho, true, w.g, t);
+      });
+      exec([&](int lane) {  // y_next = proj(y - grad / L), a foot per lane
+        T s = T(0);
+        for (int c = lane; c < H * NE; c += LANES) {
+          T f[3];
+          for (int q = 0; q < 3; ++q) f[q] = w.yk[c * 3 + q] - w.g[c * 3 + q] / Lf;
+          soc_project(pr.mu, f);
+          for (int q = 0; q < 3; ++q) {
+            w.g[c * 3 + q] = f[q];
+            const T d = f[q] - w.yk[c * 3 + q];
+            s += d * d;
+          }
+        }
+        w.part[lane] = s;
+      });
+      const T g2 = sum_parts(w.part, 0);
       const T tn = T(1) + s_sqrt(T(1) + T(4) * tk * tk) / T(2);  // reference momentum
       const T beta = (tk - T(1)) / tn;
-      for (int i = 0; i < nF; ++i) {
-        const T yn = w.g[i];
-        w.yk[i] = yn + beta * (yn - w.xk[i]);
-        w.xk[i] = yn;
-      }
+      exec([&](int lane) {
+        for (int i = lane; i < nF; i += LANES) {
+          const T yn = w.g[i];
+          w.yk[i] = yn + beta * (yn - w.xk[i]);
+          w.xk[i] = yn;
+        }
+      });
       tk = tn;
       fista_total += 1;
       if (!(g2 >= tol2)) break;
     }
 
     // ---- X subproblem: exact block-Thomas solve, box clip ----
-    thomas_x(pr, in, w, w.xk, rho);
+    thomas_x(pr, in, w, w.xk, rho, exec);
 
     // ---- dual update, convergence, rho schedule ----
-    T v2 = T(0);
-    for (int t = 0; t <= H; ++t) {
-      T a[9], b[9];
-      af_row(pr, in, w.xk, w.Xn, t, a);
-      bf_row(pr, in, w.xk, t, b);
-      for (int k = 0; k < 9; ++k) {
-        const T vv = a[k] - b[k];
-        v2 += vv * vv;
-        w.P[t * 9 + k] += pr.dual_relax * vv;
+    exec([&](int lane) {
+      T s = T(0);
+      for (int t = lane; t <= H; t += LANES) {
+        T a[9], b[9];
+        af_row(pr, in, w.xk, w.Xn, t, a);
+        bf_row(pr, in, w.xk, t, b);
+        for (int k = 0; k < 9; ++k) {
+          const T vv = a[k] - b[k];
+          s += vv * vv;
+          w.P[t * 9 + k] += pr.dual_relax * vv;
+        }
       }
-    }
-    for (int i = 0; i < nX; ++i) w.X[i] = w.Xn[i];
-    for (int i = 0; i < nF; ++i) w.F[i] = w.xk[i];
+      w.part[lane] = s;
+    });
+    const T v2 = sum_parts(w.part, 0);
+    exec([&](int lane) {
+      for (int i = lane; i < nX; i += LANES) w.X[i] = w.Xn[i];
+      for (int i = lane; i < nF; i += LANES) w.F[i] = w.xk[i];
+    });
     viol2 = v2;
     iters += 1;
     const bool act = (viol2 >= exit2) && (viol2 == viol2);
@@ -488,22 +576,27 @@ HD void admm_problem(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Adm
         g = (cond && capok && act) ? pr.rho_growth : T(1);
       }
       rho = rho * g;
-      for (int i = 0; i < nX; ++i) w.P[i] = w.P[i] / g;
+      exec([&](int lane) {
+        for (int i = lane; i < nX; i += LANES) w.P[i] = w.P[i] / g;
+      });
     }
     if (it == 0) chk = s_min(chk, viol2);  // seed the stall checkpoint
     if (!act) break;
   }
-  *viol_out = s_sqrt(viol2);
-  *iters_out = iters;
-  *fista_out = fista_total;
+  exec([&](int lane) {
+    if (lane != 0) return;
+    *viol_out = s_sqrt(viol2);
+    *iters_out = iters;
+    *fista_out = fista_total;
+  });
 }
 
 // the per-problem views for problem b of a batch of B
-template <typename T>
+template <typename T, class Exec>
 HD void admm_one(int b, int B, const AdmmParams<T>& pr, const T* cnt, const T* r, const T* dt,
                  const T* x_init, const T* W, const T* ql, const T* WF, const T* qF,
                  const T* lb, const T* ub, const T* X0, const T* F0, T* Xo, T* Fo, T* viol,
-                 int* iters, int* fista, T* scratch) {
+                 int* iters, int* fista, T* scratch, const Exec& exec) {
   const int H = pr.H;
   const long nX = (H + 1) * 9, nF = H * NE * 3;
   AdmmInputs<T> in{cnt + b * H * NE, r + b * nF, dt + b * H, x_init + b * 9,
@@ -518,12 +611,36 @@ HD void admm_one(int b, int B, const AdmmParams<T>& pr, const T* cnt, const T* r
   w.X = take(nX); w.P = take(nX); w.Xn = take(nX); w.bP = take(nX); w.dk = take(nX);
   w.v = take(nX); w.F = take(nF); w.xk = take(nF); w.yk = take(nF); w.g = take(nF);
   w.z = take(nF); w.Wk = take(H * 81L);
-  for (long i = 0; i < nX; ++i) w.X[i] = X0[b * nX + i];
-  for (long i = 0; i < nF; ++i) w.F[i] = F0[b * nF + i];
-  admm_problem(pr, in, w, viol + b, iters + b, fista + b);
-  for (long i = 0; i < nX; ++i) Xo[b * nX + i] = w.X[i];
-  for (long i = 0; i < nF; ++i) Fo[b * nF + i] = w.F[i];
+  w.part = take(2 * LANES); w.Cm = take(81); w.Lm = take(81); w.Sol = take(90); w.yv = take(9);
+  exec([&](int lane) {
+    for (long i = lane; i < nX; i += LANES) w.X[i] = X0[b * nX + i];
+    for (long i = lane; i < nF; i += LANES) w.F[i] = F0[b * nF + i];
+  });
+  admm_problem(pr, in, w, viol + b, iters + b, fista + b, exec);
+  exec([&](int lane) {
+    for (long i = lane; i < nX; i += LANES) Xo[b * nX + i] = w.X[i];
+    for (long i = lane; i < nF; i += LANES) Fo[b * nF + i] = w.F[i];
+  });
 }
+
+#ifdef __CUDACC__
+// a warp is one problem, a thread one lane; a phase ends at a warp barrier
+struct DeviceExec {
+  int lane;
+  template <class F>
+  __device__ void operator()(const F& f) const {
+    f(lane);
+    __syncwarp();
+  }
+};
+#else
+struct HostExec {
+  template <class F>
+  void operator()(const F& f) const {
+    for (int lane = 0; lane < LANES; ++lane) f(lane);
+  }
+};
+#endif
 
 template <typename T>
 AdmmParams<T> make_params(int H, int max_admm_iters, int fista_max_iters, int power_iters,
@@ -540,7 +657,9 @@ AdmmParams<T> make_params(int H, int max_admm_iters, int fista_max_iters, int po
 }  // namespace bk
 
 // Number of scratch elements per problem.
-extern "C" long admm_scratch_size(int H) { return 6L * (H + 1) * 9 + 5L * H * 4 * 3 + H * 81L; }
+extern "C" long admm_scratch_size(int H) {
+  return 6L * (H + 1) * 9 + 5L * H * 4 * 3 + H * 81L + 2L * bk::LANES + 81 + 81 + 90 + 9;
+}
 
 #define ADMM_ARGS(T)                                                                         \
   int B, int H, int max_admm_iters, int fista_max_iters, int power_iters,                   \
@@ -555,9 +674,9 @@ extern "C" long admm_scratch_size(int H) { return 6L * (H + 1) * 9 + 5L * H * 4 
                      rho_stall_gate, m, rho, fista_tol, exit_tol, mu, power_safety,        \
                      dual_relax, rho_growth, rho_max_scale, rho_stall_improve,             \
                      rho_backoff_thresh)
-#define ADMM_CALL(T, b)                                                                    \
+#define ADMM_CALL(T, b, exec)                                                              \
   bk::admm_one<T>(b, B, pr, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, Xo, Fo, viol, \
-                  iters, fista, scratch)
+                  iters, fista, scratch, exec)
 
 #ifdef __CUDACC__
 
@@ -567,16 +686,17 @@ __global__ void admm_kernel(bk::AdmmParams<float> pr, int B, const float* cnt, c
                             const float* lb, const float* ub, const float* X0,
                             const float* F0, float* Xo, float* Fo, float* viol, int* iters,
                             int* fista, float* scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) ADMM_CALL(float, b);
+  const int b = blockIdx.x * (blockDim.x / bk::LANES) + threadIdx.x / bk::LANES;
+  if (b >= B) return;  // the whole warp: no barrier is left waiting
+  ADMM_CALL(float, b, bk::DeviceExec{(int)(threadIdx.x % bk::LANES)});
 }
 
-// Launch on the caller's stream with `problems` problems (one thread each) per
+// Launch on the caller's stream with `problems` problems (a warp each) per
 // block; returns cudaGetLastError() (0 = launched).
 extern "C" int admm_launch_f32(ADMM_ARGS(float), int problems, void* stream) {
   const bk::AdmmParams<float> pr = ADMM_PARAMS(float);
   const int blocks = (B + problems - 1) / problems;
-  admm_kernel<<<blocks, problems, 0, (cudaStream_t)stream>>>(
+  admm_kernel<<<blocks, problems * bk::LANES, 0, (cudaStream_t)stream>>>(
       pr, B, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, Xo, Fo, viol, iters, fista,
       scratch);
   return (int)cudaGetLastError();
@@ -586,13 +706,13 @@ extern "C" int admm_launch_f32(ADMM_ARGS(float), int problems, void* stream) {
 
 extern "C" int admm_host_f32(ADMM_ARGS(float)) {
   const bk::AdmmParams<float> pr = ADMM_PARAMS(float);
-  for (int b = 0; b < B; ++b) ADMM_CALL(float, b);
+  for (int b = 0; b < B; ++b) ADMM_CALL(float, b, bk::HostExec{});
   return 0;
 }
 
 extern "C" int admm_host_f64(ADMM_ARGS(double)) {
   const bk::AdmmParams<double> pr = ADMM_PARAMS(double);
-  for (int b = 0; b < B; ++b) ADMM_CALL(double, b);
+  for (int b = 0; b < B; ++b) ADMM_CALL(double, b, bk::HostExec{});
   return 0;
 }
 

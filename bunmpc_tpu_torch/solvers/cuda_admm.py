@@ -2,7 +2,7 @@
 
 Counterpart of ``bunmpc_tpu/solvers/pallas_admm.py`` (``solve`` ->
 ``_kernel`` -> ``_admm_core``, x_solver "thomas"); the kernel is
-``csrc/admm.cu`` (one problem per thread, see its header for the design and
+``csrc/admm.cu`` (one warp per problem, see its header for the design and
 what bounds it). ``solve`` takes a batch of any size B (no padding).
 
 Dispatch: tensors on the CPU go to the plain version (``solvers/biconvex.py``);
@@ -22,11 +22,8 @@ from . import biconvex
 
 KERNEL = Kernel("admm")
 NE = 4  # feet per problem the kernel is built for
-# problems (= threads) per thread block: 4 was the fastest of 1..64 at B=512
-# on the H100 (python -m bunmpc_tpu_torch.profile_kernels); with fewer
-# problems per warp the early-converged ones idle less and a load touches
-# fewer cache lines
-PER_BLOCK = 4
+LANES = 32  # threads per problem: one warp (csrc/admm.cu: LANES)
+PER_BLOCK = 4  # problems per thread block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +89,7 @@ ARGTYPES = [_I] * 7 + [_D] * 11 + [_P] * 18
 
 def scratch_size(H: int) -> int:
     """Scratch elements per problem (csrc/admm.cu: admm_scratch_size)."""
-    return 6 * (H + 1) * 9 + 5 * H * NE * 3 + H * 81
+    return 6 * (H + 1) * 9 + 5 * H * NE * 3 + H * 81 + 2 * LANES + 81 + 81 + 90 + 9
 
 
 def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
