@@ -22,13 +22,15 @@ from ..utils.quat import axis_angle_rot, quat_to_rot, se3_difference, se3_integr
 _G = 9.81
 
 # model constants as tensors, one copy per (array, dtype, device); the array
-# itself is kept in the value so its id stays unique while cached
+# itself is kept in the value so its id stays unique while cached. Pass the
+# model's own arrays (``model.axis``), not views of them (``model.axis[j]``,
+# a new object per call), and index the cached tensor.
 _CONST_CACHE: dict = {}
 
 
 def const(arr, like: torch.Tensor) -> torch.Tensor:
-    """A model constant (numpy array or float) as a tensor of ``like``'s dtype
-    and device, converted once per (array, dtype, device)."""
+    """A model constant (a numpy array held by the model) as a tensor of
+    ``like``'s dtype and device, converted once per (array, dtype, device)."""
     key = (id(arr), like.dtype, like.device)
     hit = _CONST_CACHE.get(key)
     if hit is None:
@@ -55,9 +57,9 @@ def fk(model: RobotModel, q):
     for j in range(model.n_joints):
         b = int(model.parent[j])
         Rp, pp = Rs[b], ps[b]
-        Rrot = axis_angle_rot(model.axis[j], q[..., 7 + j])
-        Rs.append(Rp @ const(model.joint_rot[j], q) @ Rrot)
-        ps.append(pp + _mv(Rp, const(model.joint_pos[j], q)))
+        Rrot = axis_angle_rot(const(model.axis, q)[j], q[..., 7 + j])
+        Rs.append(Rp @ const(model.joint_rot, q)[j] @ Rrot)
+        ps.append(pp + _mv(Rp, const(model.joint_pos, q)[j]))
     return torch.stack(Rs, dim=-3), torch.stack(ps, dim=-2)
 
 
@@ -82,7 +84,7 @@ def body_velocities(model: RobotModel, q, v):
     for j in range(model.n_joints):
         b = int(model.parent[j])
         body = j + 1
-        a_w = _mv(R[..., body, :, :], const(model.axis[j], q))
+        a_w = _mv(R[..., body, :, :], const(model.axis, q)[j])
         r = p[..., body, :] - p[..., b, :]
         omegas.append(omegas[b] + a_w * v[..., 6 + j : 7 + j])
         vels.append(vels[b] + _cross(omegas[b], r))
@@ -142,7 +144,7 @@ def frame_jacobian(model: RobotModel, q, frame_name: str, R=None, p=None):
         cols[3 + k] = _cross(R0[..., :, k], rel)
     for j in model.ancestors(f.body):
         body = j + 1
-        a_w = _mv(R[..., body, :, :], const(model.axis[j], q))
+        a_w = _mv(R[..., body, :, :], const(model.axis, q)[j])
         cols[6 + j] = _cross(a_w, pf - p[..., body, :])
     return torch.stack(cols, dim=-1)
 

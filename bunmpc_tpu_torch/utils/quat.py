@@ -16,7 +16,6 @@ package, so forward-mode tangents never see 0/0.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 _EPS = 1e-9
@@ -101,8 +100,9 @@ def log3_quat(q):
 
 
 def axis_angle_rot(axis, theta):
-    """Rodrigues: rotation about a fixed (numpy, shape (3,)) axis by theta (...,)."""
-    axis = torch.as_tensor(np.asarray(axis), dtype=theta.dtype, device=theta.device)
+    """Rodrigues: rotation about a fixed axis (shape (3,), array or tensor) by
+    theta (...,)."""
+    axis = torch.as_tensor(axis, dtype=theta.dtype, device=theta.device)
     c = torch.cos(theta)[..., None, None]
     s = torch.sin(theta)[..., None, None]
     k = skew(axis)

@@ -91,9 +91,9 @@ def ddp_ops(n_problems, H, cfg):
     backward sweep the kinematics (~3.5k ops), the 36-direction tangent pass
     (~60k), the Gauss-Newton products (~27k) and the block-structured Riccati
     step (~100k, most of it the 18x37 solve and the Kfb'Qux update); per knot
-    of each of len(alphas)+1 rollouts ~7k ops."""
+    of each alpha's rollout ~7k ops."""
     backward = (H + 1) * (3.5e3 + 60e3 + 27e3) + H * 100e3
-    rollouts = (len(cfg.alphas) + 1) * H * 7e3
+    rollouts = len(cfg.alphas) * H * 7e3
     first = H * 7e3
     return n_problems * (first + cfg.n_iters * (backward + rollouts))
 

@@ -76,3 +76,38 @@ def test_ddp_kernel_matches_plain(main_path):
     torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
     torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
     torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+
+
+def test_any_batch_size_gives_the_same_rows(main_path):
+    """Problems never wait for or read each other: the first 5 problems
+    solved alone (a ragged last block, lanes of absent problems idle) equal
+    their rows of the 512-problem solve, bit for bit."""
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    spec, prob = main_path
+    cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, fista_max_iters=30)
+    plan = prob["plan"]
+    full = (plan, spec.model.total_mass, prob["x_init"], prob["W"], prob["X_ref"],
+            prob["W_F"], prob["X_wm"], prob["F_wm"], prob["x_bounds"])
+
+    def rows(a):
+        return a[:5].contiguous()
+
+    part = (type(plan)(cnt=rows(plan.cnt), r=rows(plan.r), dt=rows(plan.dt)),
+            spec.model.total_mass, *[rows(a) for a in full[2:8]],
+            tuple(rows(a) for a in full[8]))
+    X, F, viol, iters = cuda_admm.solve(*full, cfg)
+    Xp, Fp, violp, itersp = cuda_admm.solve(*part, cfg)
+    assert torch.equal(X[:5], Xp) and torch.equal(F[:5], Fp) and torch.equal(iters[:5], itersp)
+
+    tasks, x0 = KD._build_ik_tasks(spec, prob, X)
+    ws, wt, cw, xr = IK.dense_weights(spec.model, spec.eff_frames, tasks)
+    args = (x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, xr, ws, wt, cw, tasks.dts)
+    xs, us, cost = cuda_ddp.solve_ik_batch(spec.model, spec.eff_frames, *args)
+    xs5, us5, cost5 = cuda_ddp.solve_ik_batch(spec.model, spec.eff_frames,
+                                              *[rows(a) for a in args])
+    torch.cuda.synchronize()
+    assert torch.equal(xs[:5], xs5) and torch.equal(us[:5], us5) and torch.equal(cost[:5], cost5)

@@ -129,3 +129,18 @@ def test_integrate_and_difference(models, data):
     _close(d_t, JK.difference(jm, _j(q), _j(q2)))
     # round trip: integrate(q, difference(q, q2)) == q2
     _close(TK.integrate(tm, _t(q), d_t), q2, atol=1e-9)
+
+
+def test_constant_cache_is_bounded(models, data):
+    """Model constants are converted once per (array, dtype, device): repeated
+    solves do not grow the cache (a per-joint view would add entries on
+    every call)."""
+    tm, _ = models
+    q, v = _t(data["q"]), _t(data["v"])
+    TK.centroidal_state_and_frames(tm, q, v, TSolo.eff_names)
+    TK.frame_jacobian(tm, q, "FL_FOOT")
+    n = len(TK._CONST_CACHE)
+    for _ in range(3):
+        TK.centroidal_state_and_frames(tm, q, v, TSolo.eff_names)
+        TK.frame_jacobian(tm, q, "FL_FOOT")
+    assert len(TK._CONST_CACHE) == n

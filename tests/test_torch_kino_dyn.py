@@ -15,6 +15,7 @@ and against the committed native fixture.
   (:136-139).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -27,6 +28,8 @@ from bunmpc_tpu.mpc import kino_dyn as JKD
 from bunmpc_tpu.mpc.motions.solo12_cyclic import trot as jtrot
 from bunmpc_tpu.robots.solo12 import Solo12Config as JSolo
 from bunmpc_tpu.solvers.biconvex import BiconvexConfig as JBiconvexConfig
+from bunmpc_tpu_torch import convert
+from bunmpc_tpu_torch.kin import algorithms as TK
 from bunmpc_tpu_torch.mpc import kino_dyn as TKD
 from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TSolo
@@ -68,8 +71,8 @@ def plans(tspec):
 @pytest.mark.parametrize("field", list(TKD.MpcPlan._fields))
 def test_plain_path_matches_jax(plans, field):
     jplan, tplan = plans
-    got = getattr(tplan, field).numpy()
-    ref = np.asarray(getattr(jplan, field))
+    got = convert.plan_to_numpy(tplan)[field]
+    ref = convert.plan_to_numpy(jplan)[field]
     assert got.shape == ref.shape
     if field == "admm_iters":
         np.testing.assert_array_equal(got, ref)
@@ -92,6 +95,39 @@ def test_cuda_backends_on_cpu_run_the_plain_path(tspec):
     for field in ("xs_int", "us_int", "f_int", "X_opt", "F_opt", "xs", "us"):
         torch.testing.assert_close(getattr(got, field), getattr(ref, field), atol=0, rtol=0)
     assert torch.all(got.P_opt == 0)
+
+
+def test_model_from_jax_arrays():
+    """The JAX RobotModel's fields, carried over as numpy arrays, give the
+    port's model: same constants, same kinematics."""
+    jm = JSolo.load_model()
+    got = convert.model_from_arrays(dataclasses.asdict(jm))
+    ref = TSolo.load_model()
+    for f in dataclasses.fields(ref):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if f.name == "frames":
+            assert a.keys() == b.keys()
+            for n in a:
+                assert a[n].body == b[n].body
+                np.testing.assert_array_equal(a[n].pos, b[n].pos)
+                np.testing.assert_array_equal(a[n].rot, b[n].rot)
+        elif isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+    q = torch.as_tensor(np.tile(TSolo.q0(), (2, 1)))
+    for a, b in zip(TK.fk(got, q), TK.fk(ref, q)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_warm_start_from_arrays():
+    X = np.zeros((3, 21, 9))
+    F = np.ones((3, 20, 4, 3))
+    Xt, Ft = convert.warm_start_from_arrays(X, F, "cpu")
+    assert Xt.dtype == Ft.dtype == torch.float32 and Xt.is_contiguous()
+    assert tuple(Xt.shape) == (3, 21, 9) and float(Ft.sum()) == 3 * 20 * 12
+    with pytest.raises(ValueError):
+        convert.warm_start_from_arrays(X[:, :20], F, "cpu")
 
 
 def _fixture_problem(spec, dtype):
