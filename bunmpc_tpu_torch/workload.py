@@ -26,12 +26,13 @@ def trot_states(n: int, seed: int = 0):
     return q, v, t, v_des, w_des
 
 
-def random_ik_problems(model, eff_frames, n: int, H: int, device, dtype=torch.float32,
-                       seed: int = 3):
+def random_ik_problems(model, eff_frames, n: int, H: int, device):
     """The random IK problems of tests/test_pallas_ddp.py's full-size check
-    (distinct start states, shared random targets and weights) at batch n, as
-    the argument tuple of ``solvers/cuda_ddp.solve_ik_batch``."""
-    rng = np.random.default_rng(seed)
+    (rng seed 3; distinct start states, shared random targets and weights) at
+    batch n in float32, as the argument tuple of
+    ``solvers/cuda_ddp.solve_ik_batch``."""
+    rng = np.random.default_rng(3)
+    dtype = torch.float32
     nv = model.nv
 
     def rep(a):
