@@ -161,8 +161,8 @@ def main():
     # ---- 3. K1 against its plain version, on the card ----
     pinned = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", max_admm_iters=15,
                                       dual_relax=1.0, rho_growth=1.0)
-    Xk, Fk, vk, ik_ = cuda_admm.solve(*admm_in, pinned)
-    Xp, Fp, vp, ip_ = cuda_admm.solve_plain(*admm_in, pinned)
+    Xk, Fk, vk, _ = cuda_admm.solve(*admm_in, pinned)
+    Xp, Fp, vp, _ = cuda_admm.solve_plain(*admm_in, pinned)
     torch.cuda.synchronize()
     dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
     dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
