@@ -1,4 +1,5 @@
-// Shared helpers of the hand-written kernels (csrc/admm.cu, csrc/ddp.cu).
+// Shared helpers of the hand-written kernels (csrc/admm.cu, csrc/fused.cu,
+// csrc/ddp.cu).
 //
 // The per-problem math is written once, templated on the scalar type, as
 // __host__ __device__ functions: nvcc builds the float instantiation into the
@@ -33,6 +34,51 @@ HD float s_rsqrt(float x) {
 #endif
 }
 HD double s_rsqrt(double x) { return 1.0 / sqrt(x); }
+
+// round half to even, as jnp.round and torch.round do
+HD float s_rint(float x) { return rintf(x); }
+HD double s_rint(double x) { return rint(x); }
+HD float s_fmod(float x, float y) { return fmodf(x, y); }
+HD double s_fmod(double x, double y) { return fmod(x, y); }
+
+// floor modulo (the sign of y), as jnp.mod computes it
+template <typename T>
+HD T s_mod(T x, T y) {
+  const T r = s_fmod(x, y);
+  return (r != T(0) && ((r < T(0)) != (y < T(0)))) ? r + y : r;
+}
+
+// a * b and a + b each rounded on its own: nvcc contracts a * b + c into
+// one fused multiply-add, which would round the gait clock differently from
+// the plain version and move a contact flag that sits on a phase boundary
+HD float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+HD double mul_rn(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+HD float add_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+HD double add_rn(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
 
 template <typename T>
 HD T s_max(T a, T b) { return a > b ? a : b; }

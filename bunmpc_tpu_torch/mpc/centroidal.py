@@ -117,3 +117,41 @@ def bf_vec(plan: ContactPlan, m: float, F, x_init):
     ang = dt * torch.sum(_cross(cF, plan.r), dim=-2)
     rows = torch.cat([torch.zeros_like(lin), lin, ang], dim=-1)
     return torch.cat([rows, x_init[..., None, :]], dim=-2)
+
+
+# --- constraint-operator diagonals (Jacobi preconditioners) ---
+
+
+def af_diag(plan: ContactPlan, F):
+    """diag(A_f(F)^T A_f(F)) -> (..., H+1, 9), closed form from the stencil.
+
+    Per knot k and component group:
+      com_i: 1_{k<H} (1 + dt_k^2 (|cF_k|^2 - cF_{k,i}^2)) + 1_{k>=1} + 1_{k=0}
+      vel_i: 1_{k<H} + 1_{k>=1} (1 + dt_{k-1}^2) + 1_{k=0}
+      ang_i: 1_{k<H} + 1_{k>=1} + 1_{k=0}
+    (the k=0 extra 1 is the row that pins the whole of X_0)."""
+    cF_tot = torch.sum(plan.cnt[..., None] * F, dim=-2)  # (..., H, 3)
+    cf2 = torch.sum(cF_tot * cF_tot, dim=-1, keepdim=True)  # (..., H, 1)
+    dt2 = (plan.dt * plan.dt)[..., None]  # (..., H, 1)
+    one = torch.ones_like(cF_tot)  # (..., H, 3)
+    zero = torch.zeros_like(one[..., :1, :])
+    k_lt_H = torch.cat([one, zero], dim=-2)
+    k_ge_1 = torch.cat([zero, one], dim=-2)
+    k_eq_0 = torch.cat([one[..., :1, :], torch.zeros_like(one)], dim=-2)
+    cross_sq = torch.cat([dt2 * (cf2 - cF_tot * cF_tot), zero], dim=-2)
+    d_com = k_lt_H * (1.0 + cross_sq) + k_ge_1 + k_eq_0
+    dt2_prev = torch.cat([zero[..., :1], dt2], dim=-2)
+    d_vel = k_lt_H + k_ge_1 * (1.0 + dt2_prev) + k_eq_0
+    d_ang = k_lt_H + k_ge_1 + k_eq_0
+    return torch.cat([d_com, d_vel, d_ang], dim=-1)
+
+
+def ax_diag_iso(plan: ContactPlan, m: float, X):
+    """Per-contact isotropic diag(A_x(X)^T A_x(X)) -> (..., H, n_eff, 1): the
+    exact diagonal cnt dt^2 (1/m^2 + |arm|^2 - arm_i^2) averaged over i, so
+    that the metric is a multiple of the identity on each force 3-vector and
+    the friction-cone projection stays exact in the scaled space."""
+    arm = plan.r - X[..., :-1, None, 0:3]
+    arm2 = torch.sum(arm * arm, dim=-1, keepdim=True)
+    dt2 = (plan.dt * plan.dt)[..., None, None]
+    return plan.cnt[..., None] * dt2 * (1.0 / (m * m) + 2.0 * arm2 / 3.0)

@@ -9,6 +9,10 @@ examples/mpc/abstract_cyclic_gen.py:629-698, src/motion_planner/kino_dyn.cpp:
    the dynamics costs, the kinematic box and the warm starts;
 2. the centroidal ADMM — K1, ``solvers/cuda_admm.py`` (``admm_backend="cuda"``)
    or its plain version ``solvers/biconvex.py`` (``"torch"``);
+
+   with ``fuse_prep=True`` stages 1 and 2 are the FK pass of
+   ``_compact_inputs`` and then K3, ``solvers/cuda_fused.py``, which builds the
+   rest of the problem inside the ADMM kernel (its plain version on the CPU);
 3. the IK task build (``_build_ik_tasks`` + ``ik.dense_weights``);
 4. the kinematic GN-DDP — K2, ``solvers/cuda_ddp.py`` (``ik_backend="cuda"``)
    or its plain version ``mpc/ik.py`` + ``solvers/ddp.py`` (``"torch"``);
@@ -28,7 +32,7 @@ import torch
 
 from ..kin import algorithms as K
 from ..robots.model import RobotModel
-from ..solvers import biconvex, cuda_admm, cuda_ddp, ddp
+from ..solvers import biconvex, cuda_admm, cuda_ddp, cuda_fused, ddp
 from ..utils import quat as Q
 from . import gait as G
 from . import ik as IK
@@ -67,6 +71,10 @@ class CyclicMpcSpec:
     bx: float = 0.45
     by: float = 0.45
     bz: float = 0.45
+    # ADMM warm start: "tiled" = the current centroidal state over the horizon
+    # (kino_dyn.cpp:83-99), the Solo family's; "vdes" = xy and velocity rows
+    # riding the command, which only the fused path (K3) builds
+    warm_start_style: str = "tiled"
 
     @property
     def n_eff(self) -> int:
@@ -177,6 +185,9 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     p = spec.params
     if p.f_reg_style != "zero":
         raise NotImplementedError(f"f_reg_style={p.f_reg_style!r} is not ported")
+    if spec.warm_start_style != "tiled":
+        raise NotImplementedError(
+            f"warm_start_style={spec.warm_start_style!r} is built by the fused path only")
     m = spec.model.total_mass
     dtype, device = q.dtype, q.device
     H = spec.horizon
@@ -252,6 +263,56 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
         W=W.contiguous(), X_ref=X_ref, W_F=W_F.contiguous(), x_bounds=x_bounds,
         X_wm=X_wm, F_wm=F_wm,
     )
+
+
+def make_prep_consts(spec: CyclicMpcSpec) -> cuda_fused.PrepConsts:
+    """The static constants of K3's prologue for this (robot, gait)."""
+    p = spec.params
+    g = spec.gait
+    return cuda_fused.PrepConsts(
+        gait_period=float(g.gait_period),
+        gait_dt=float(g.gait_dt),
+        stance_percent=tuple(float(x) for x in g.stance_percent),
+        phase_offset=tuple(float(x) for x in g.phase_offset),
+        foot_size=float(spec.planner.foot_size),
+        nom_ht=float(p.nom_ht),
+        ori_correction=tuple(float(x) for x in p.ori_correction),
+        gait_horizon=float(p.gait_horizon),
+        izz_yaw=float((np.asarray(spec.I_comp) @ np.array([0.0, 0.0, 1.0]))[2]),
+        W_X=tuple(float(x) for x in np.asarray(p.W_X)),
+        W_X_ter=tuple(float(x) for x in np.asarray(p.W_X_ter)),
+        W_F=tuple(float(x) for x in np.asarray(p.W_F)),
+        bx=float(spec.bx),
+        by=float(spec.by),
+        bz=float(spec.bz),
+        warm_start_vdes=spec.warm_start_style == "vdes",
+        f_reg_weight=p.f_reg_style == "weight",
+    )
+
+
+def _compact_inputs(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
+    """The fused path's first stage, batched: the kinematics K3 does not
+    rebuild (the FK pass for the centroidal state and the feet, the yaw-frame
+    hip offsets, the orientation-correction momentum). Returns
+    ``(q, t, v_des_w, x_init, ee_pos, hip_world, amom)`` with q origin-reset."""
+    m = spec.model.total_mass
+    dtype, device = q.dtype, q.device
+    B = q.shape[0]
+    q = q.clone()
+    q[:, 0:2] = 0.0  # origin reset (abstract_cyclic_gen.py:632-633)
+    t = t.to(dtype)
+    v_des_w = (Q.quat_to_rot(q[:, 3:7]) @ v_des[..., None])[..., 0]
+    com, h_lin, h_ang, ee_pos = K.centroidal_state_and_frames(
+        spec.model, q, v, spec.eff_frames
+    )
+    x_init = torch.cat([com, h_lin / m, h_ang], dim=-1)
+    R_yaw = Q.quat_to_rot(Q.yaw_quat(q[:, 3:7]))
+    hip_off = torch.as_tensor(spec.planner.hip_offsets, dtype=dtype, device=device)
+    hip_world = (R_yaw[:, None, :, :] @ hip_off[..., None])[..., 0]  # (B, ne, 3)
+    ident = torch.as_tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device).expand(B, 4)
+    ori_des = torch.where((w_des != 0.0)[:, None], q[:, 3:7], ident)
+    amom = Q.log3_quat(Q.quat_mul(Q.yaw_quat(ori_des), Q.quat_conj(q[:, 3:7])))
+    return q, t, v_des_w, x_init, ee_pos.contiguous(), hip_world.contiguous(), amom
 
 
 def _build_ik_tasks(spec: CyclicMpcSpec, prob, dyn_X):
@@ -355,20 +416,34 @@ def solve_mpc_batch(
     fuse_prep: bool = False,
 ) -> MpcPlan:
     """Batched kino-dynamic MPC. ``"cuda"`` backends run the hand-written
-    kernels (K1 returns no dual, so ``P_opt`` is zeros); ``"torch"`` runs the
-    plain versions and returns the dual. Any B is accepted."""
+    kernels (K1 and K3 return no dual, so ``P_opt`` is zeros); ``"torch"``
+    runs the plain versions and returns the dual. ``fuse_prep=True`` builds
+    the problem inside the ADMM kernel (K3; flat ground, as the JAX package's
+    fused path) and needs ``admm_backend="cuda"``. Any B is accepted."""
     if admm_backend not in ("cuda", "torch"):
         raise ValueError(f"admm_backend must be 'cuda' or 'torch', got {admm_backend!r}")
     if ik_backend not in ("cuda", "torch"):
         raise ValueError(f"ik_backend must be 'cuda' or 'torch', got {ik_backend!r}")
-    if fuse_prep:
-        raise ValueError("fuse_prep=True (fused problem assembly, K3) is not ported")
+    if fuse_prep and admm_backend != "cuda":
+        # the JAX package falls back to the unfused path here without a word
+        raise ValueError("fuse_prep=True runs the fused kernel (K3): admm_backend must be 'cuda'")
     p = spec.params
     m = spec.model.total_mass
     q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
-    prob = _prepare_problem(spec, q, v, t, v_des, w_des)
 
-    if admm_backend == "cuda":
+    if fuse_prep:
+        if admm_cfg is None:
+            admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
+        qr, t_, v_des_w, x_init, ee, hip, amom = _compact_inputs(spec, q, v, t, v_des, w_des)
+        X, F, viol, iters, cnt, r, dts, swing = cuda_fused.solve_from_state(
+            t_, v_des_w, w_des, x_init, ee, hip, amom, m, make_prep_consts(spec), admm_cfg,
+            spec.horizon, spec.n_eff,
+        )
+        prob = dict(q=qr, v=v, x_init=x_init, plan=G.ContactPlan(cnt=cnt, r=r, dt=dts),
+                    swing_mask=swing)
+        P = torch.zeros_like(X)
+    elif admm_backend == "cuda":
+        prob = _prepare_problem(spec, q, v, t, v_des, w_des)
         if admm_cfg is None:
             admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
         X, F, viol, iters = cuda_admm.solve(
@@ -377,6 +452,7 @@ def solve_mpc_batch(
         )
         P = torch.zeros_like(X)
     else:
+        prob = _prepare_problem(spec, q, v, t, v_des, w_des)
         if admm_cfg is None:
             admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
         dyn = biconvex.solve(

@@ -1,12 +1,13 @@
-"""Time the two hand-written kernels on the card at the main path's inputs.
+"""Time the hand-written kernels on the card at the main path's inputs.
 
     python -m bunmpc_tpu_torch.profile_kernels [--batch 512] [--reps 5]
 
-Builds K1 (csrc/admm.cu) and K2 (csrc/ddp.cu), assembles bench.py's Solo12
-trot problems (rng seed 0) at the given batch, and times each kernel by CUDA
-events for every block size in ``--per-block`` (problems per thread block;
-K1 runs 32 threads per problem, K2 16). Prints one JSON object with the
-card's name and power limit beside the times. Needs a CUDA device.
+Builds K1 (csrc/admm.cu), K2 (csrc/ddp.cu) and K3 (csrc/fused.cu), assembles
+bench.py's Solo12 trot problems (rng seed 0) at the given batch, and times
+each kernel by CUDA events for every block size in ``--per-block`` (problems
+per thread block; K1 and K3 run 32 threads per problem, K2 16). K1 and K3
+run bench.py's ADMM config. Prints one JSON object with the card's name and
+power limit beside the times. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--reps", type=int, default=5)
-    # at 255 registers a thread, 16 K1 problems (512 threads) exceed an SM's
+    # at 255 registers a thread, 16 K1 or K3 problems (512 threads) exceed an SM's
     # 65,536 registers and the launch is refused
     ap.add_argument("--per-block", type=int, nargs="+", default=[1, 2, 4, 8])
     args = ap.parse_args(argv)
@@ -44,7 +45,7 @@ def main(argv=None):
     from .mpc import kino_dyn as KD
     from .mpc.motions.solo12_cyclic import trot
     from .robots.solo12 import Solo12Config
-    from .solvers import cuda_admm, cuda_ddp
+    from .solvers import cuda_admm, cuda_ddp, cuda_fused
     from .workload import trot_states
 
     card = subprocess.run(
@@ -65,8 +66,12 @@ def main(argv=None):
     ddp_in = (model, spec.eff_frames, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref,
               x_reg, w_stage, w_term, ctrl_w, tasks.dts, cuda_ddp.CudaDdpConfig())
 
+    _, t, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
+    fused_in = (t, vdw, inputs[4], x_init, ee, hip, amom, model.total_mass,
+                KD.make_prep_consts(spec), admm_cfg, spec.horizon, spec.n_eff)
+
     stream = torch.cuda.current_stream().cuda_stream
-    out = {"card": card, "batch": args.batch, "admm_ms": {}, "ddp_ms": {}}
+    out = {"card": card, "batch": args.batch, "admm_ms": {}, "ddp_ms": {}, "fused_ms": {}}
     for per_block in args.per_block:
         def admm():
             a, keep, _ = cuda_admm.kernel_args(*admm_in)
@@ -78,8 +83,14 @@ def main(argv=None):
             cuda_ddp.KERNEL.launch("ddp_launch_f32", a + [per_block, stream],
                                    cuda_ddp.ARGTYPES + [cuda_ddp._I, cuda_ddp._P])
 
+        def fused():
+            a, keep, _ = cuda_fused.kernel_args(*fused_in)
+            cuda_fused.KERNEL.launch("fused_launch_f32", a + [per_block, stream],
+                                     cuda_fused.ARGTYPES + [cuda_fused._I, cuda_fused._P])
+
         out["admm_ms"][per_block] = round(_time(admm, args.reps), 3)
         out["ddp_ms"][per_block] = round(_time(ddp, args.reps), 3)
+        out["fused_ms"][per_block] = round(_time(fused, args.reps), 3)
     print(json.dumps(out))
 
 

@@ -3,17 +3,18 @@
 Counterpart of ``bunmpc_tpu/solvers/biconvex.py`` (reference
 src/motion_planner/biconvex.cpp:6-151): alternate a force QP (projected
 FISTA, power-iteration step, exact friction-cone projection) and a state QP
-(exact block-Thomas solve clipped to the kinematic box), update the scaled
-dual with the over-relaxed dynamics violation, and escalate rho on stalled
-problems, until ``||A_f X - b_f|| < exit_tol``.
+(``x_solver="thomas"``: the exact block-Thomas solve clipped to the kinematic
+box; ``"fista"``: projected FISTA onto the box), update the scaled dual with
+the over-relaxed dynamics violation, and escalate rho on stalled problems,
+until ``||A_f X - b_f|| < exit_tol``. ``precondition=True`` runs both FISTA
+solves in a Jacobi metric (``centroidal.ax_diag_iso``, ``af_diag``).
 
 Masks are per problem: a problem that converges is frozen and its result
 depends on nothing but its own data, which is what lets the CUDA kernel
 (``solvers/cuda_admm.py``) let each problem leave its loops on its own.
 
-Only the configuration the main path runs is ported; the other values of
-``step_mode``, ``x_solver``, ``precondition``, ``soc_mode`` and
-``log_statistics`` raise instead of falling through.
+The other values of ``step_mode``, ``soc_mode``, ``momentum``, ``use_soc``
+and ``log_statistics`` are not ported and raise instead of falling through.
 """
 
 from __future__ import annotations
@@ -74,10 +75,10 @@ class BiconvexResult(NamedTuple):
 
 
 def _check_config(cfg: BiconvexConfig):
+    if cfg.x_solver not in ("thomas", "fista"):
+        raise ValueError(f"x_solver must be 'thomas' or 'fista', got {cfg.x_solver!r}")
     unported = {
         "step_mode": (cfg.step_mode, "power"),
-        "x_solver": (cfg.x_solver, "thomas"),
-        "precondition": (cfg.precondition, False),
         "soc_mode": (cfg.soc_mode, "exact"),
         "momentum": (cfg.momentum, "reference"),
         "use_soc": (cfg.use_soc, True),
@@ -128,6 +129,7 @@ def solve(
     proj_f = fista.soc_projector(cfg.mu)
     proj_x = (lambda z: z) if x_bounds is None else fista.box_projector(*x_bounds)
     fcfg = fista.FistaConfig(max_iters=cfg.fista_max_iters, tol=cfg.fista_tol)
+    q_x = -2.0 * cost_x.W * cost_x.X_ref
 
     def solve_f(X, F0, P, rho_k):
         """min F'W_F F + rho ||A_x F - b_x + P||^2 (or F - F_ref)."""
@@ -143,14 +145,54 @@ def solve(
                 W_F * reg + rho * cd.ax_applyT(plan, m, X, cd.ax_apply(plan, m, X, y) + bP)
             )
 
+        if cfg.precondition:
+            # per-contact isotropic diag of 2(W_F + rho A_x^T A_x)
+            wf_iso = torch.mean(W_F, dim=-1, keepdim=True)
+            d0 = 2.0 * (wf_iso + rho * cd.ax_diag_iso(plan, m, X)) + 1e-12
+            return _diag_fista(F0, quad_op, grad, proj_f, d0, 3)
         L = fista.power_iteration_L(
             quad_op, F0.shape, F0, 3, cfg.power_iters, cfg.power_safety
         )
         return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3)
 
-    def solve_x(F, P, rho_k):
-        X = block_thomas.solve_x_exact(plan, m, F, cost_x.W, cost_x.X_ref, P, rho_k, x_init)
-        return proj_x(X)
+    def solve_x(F, X0, P, rho_k):
+        if cfg.x_solver == "thomas":
+            X = block_thomas.solve_x_exact(
+                plan, m, F, cost_x.W, cost_x.X_ref, P, rho_k, x_init
+            )
+            return proj_x(X)
+        # projected FISTA (reference biconvex.cpp:90-96)
+        rho = rho_k[..., None, None]
+        bP = P - cd.bf_vec(plan, m, F, x_init)
+
+        def quad_op(y):
+            return 2.0 * (
+                cost_x.W * y + rho * cd.af_applyT(plan, m, F, cd.af_apply(plan, m, F, y))
+            )
+
+        def grad(y):
+            return 2.0 * (
+                cost_x.W * y + rho * cd.af_applyT(plan, m, F, cd.af_apply(plan, m, F, y) + bP)
+            ) + q_x
+
+        if cfg.precondition:
+            d0 = 2.0 * (cost_x.W + rho * cd.af_diag(plan, F)) + 1e-12
+            return _diag_fista(X0, quad_op, grad, proj_x, d0, 2)
+        L = fista.power_iteration_L(
+            quad_op, X0.shape, X0, 2, cfg.power_iters, cfg.power_safety
+        )
+        return fista.solve_fixed_step(X0, grad, proj_x, L, fcfg, n_var_dims=2)
+
+    def _diag_fista(x0, quad_op, grad, proj, d0, n_var_dims):
+        """FISTA in the Jacobi metric D = lam d0, lam the power-iteration
+        estimate of the largest eigenvalue of d0^-1/2 H d0^-1/2."""
+        sq = torch.sqrt(d0)
+        lam = fista.power_iteration_L(
+            lambda z: quad_op(z / sq) / sq, x0.shape, x0, n_var_dims, cfg.power_iters,
+            cfg.power_safety,
+        )
+        D = lam.reshape(lam.shape + (1,) * n_var_dims) * d0
+        return fista.solve_diag_step(x0, grad, proj, D, fcfg, n_var_dims=n_var_dims)
 
     X, F, P = X_wm, F_wm, P_wm
     rho_k = torch.full(batch_shape, cfg.rho, dtype=dtype, device=device)
@@ -162,7 +204,7 @@ def solve(
         if bool(done.all()):
             break
         F_new = solve_f(X, F, P, rho_k)
-        X_new = solve_x(F_new, P, rho_k)
+        X_new = solve_x(F_new, X, P, rho_k)
         v = cd.af_apply(plan, m, F_new, X_new) - cd.bf_vec(plan, m, F_new, x_init)
         vn = torch.sqrt(torch.sum(v * v, dim=(-2, -1)))
         P_new = P + cfg.dual_relax * v

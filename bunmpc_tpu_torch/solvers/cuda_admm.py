@@ -1,9 +1,10 @@
 """K1: the batched biconvex centroidal ADMM as a hand-written CUDA kernel.
 
 Counterpart of ``bunmpc_tpu/solvers/pallas_admm.py`` (``solve`` ->
-``_kernel`` -> ``_admm_core``, x_solver "thomas"); the kernel is
-``csrc/admm.cu`` (one warp per problem, see its header for the design and
-what bounds it). ``solve`` takes a batch of any size B (no padding).
+``_kernel`` -> ``_admm_core``, every x_solver and precondition branch); the
+kernel is ``csrc/admm.cu`` over the per-problem code of ``csrc/admm_core.cuh``
+(one warp per problem, see their headers for the design and what bounds it).
+``solve`` takes a batch of any size B (no padding).
 
 Dispatch: tensors on the CPU go to the plain version (``solvers/biconvex.py``);
 tensors on a CUDA device go to the kernel, or the call raises.
@@ -24,13 +25,13 @@ KERNEL = Kernel("admm")
 NE = 4  # feet per problem the kernel is built for
 LANES = 32  # threads per problem: one warp (csrc/admm.cu: LANES)
 PER_BLOCK = 4  # problems per thread block
+BIG = 3.4e38  # the kernels' stand-in for an infinite bound (< the f32 maximum)
 
 
 @dataclasses.dataclass(frozen=True)
 class CudaAdmmConfig:
     """The fields and defaults of ``PallasAdmmConfig`` (without
-    ``interpret``). Only ``x_solver="thomas"`` and ``precondition=False`` are
-    ported."""
+    ``interpret``)."""
 
     rho: float = 1e5
     max_admm_iters: int = 100
@@ -52,10 +53,8 @@ class CudaAdmmConfig:
 
 
 def _check_config(cfg: CudaAdmmConfig):
-    if cfg.x_solver != "thomas":
-        raise NotImplementedError(f"x_solver={cfg.x_solver!r} is not ported (only 'thomas')")
-    if cfg.precondition:
-        raise NotImplementedError("precondition=True is not ported")
+    if cfg.x_solver not in ("thomas", "fista"):
+        raise ValueError(f"x_solver must be 'thomas' or 'fista', got {cfg.x_solver!r}")
 
 
 def plain_config(cfg: CudaAdmmConfig) -> biconvex.BiconvexConfig:
@@ -67,7 +66,8 @@ def plain_config(cfg: CudaAdmmConfig) -> biconvex.BiconvexConfig:
         dual_relax=cfg.dual_relax, rho_growth=cfg.rho_growth,
         rho_growth_every=cfg.rho_growth_every, rho_max_scale=cfg.rho_max_scale,
         rho_stall_gate=cfg.rho_stall_gate, rho_stall_improve=cfg.rho_stall_improve,
-        rho_backoff_thresh=cfg.rho_backoff_thresh, x_solver="thomas",
+        rho_backoff_thresh=cfg.rho_backoff_thresh, precondition=cfg.precondition,
+        x_solver=cfg.x_solver,
     )
 
 
@@ -84,12 +84,24 @@ def solve_plain(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
 _I = ctypes.c_int
 _D = ctypes.c_double
 _P = ctypes.c_void_p
-ARGTYPES = [_I] * 7 + [_D] * 11 + [_P] * 18
+ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 18
+
+
+def config_args(H: int, m: float, cfg: CudaAdmmConfig) -> list:
+    """The scalar ADMM settings of a C entry point (csrc/admm_core.cuh:
+    ADMM_CFG_ARGS), 8 ints then 11 doubles."""
+    return [
+        H, cfg.max_admm_iters, cfg.fista_max_iters, cfg.power_iters, cfg.rho_growth_every,
+        int(cfg.rho_stall_gate), int(cfg.x_solver == "fista"), int(cfg.precondition),
+        float(m), cfg.rho, cfg.fista_tol, cfg.exit_tol, cfg.mu, cfg.power_safety,
+        cfg.dual_relax, cfg.rho_growth, cfg.rho_max_scale, cfg.rho_stall_improve,
+        cfg.rho_backoff_thresh,
+    ]
 
 
 def scratch_size(H: int) -> int:
-    """Scratch elements per problem (csrc/admm.cu: admm_scratch_size)."""
-    return 6 * (H + 1) * 9 + 5 * H * NE * 3 + H * 81 + 2 * LANES + 81 + 81 + 90 + 9
+    """Scratch elements per problem (csrc/admm_core.cuh: admm_scratch_elems)."""
+    return 11 * (H + 1) * 9 + 7 * H * NE * 3 + H * 81 + 2 * LANES + 81 + 81 + 90 + 9
 
 
 def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
@@ -122,9 +134,8 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
         qF = torch.zeros_like(W_F)
     else:
         qF = (-2.0 * W_F * F_reg_ref).contiguous()
-    big = 3.4e38
-    lb = torch.clamp(x_bounds[0], -big, big)
-    ub = torch.clamp(x_bounds[1], -big, big)
+    lb = torch.clamp(x_bounds[0], -BIG, BIG)
+    ub = torch.clamp(x_bounds[1], -BIG, BIG)
     X = torch.empty_like(X_wm)
     F = torch.empty_like(F_wm)
     viol = torch.empty((B,), dtype=dtype, device=device)
@@ -133,13 +144,7 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
     scratch = torch.empty((scratch_size(H), B), dtype=dtype, device=device)
     ptrs = [plan.cnt, plan.r, plan.dt, x_init, W, ql, W_F, qF, lb, ub, X_wm, F_wm,
             X, F, viol, iters, fista, scratch]
-    args = [
-        B, H, cfg.max_admm_iters, cfg.fista_max_iters, cfg.power_iters,
-        cfg.rho_growth_every, int(cfg.rho_stall_gate),
-        float(m), cfg.rho, cfg.fista_tol, cfg.exit_tol, cfg.mu, cfg.power_safety,
-        cfg.dual_relax, cfg.rho_growth, cfg.rho_max_scale, cfg.rho_stall_improve,
-        cfg.rho_backoff_thresh,
-    ] + [t.data_ptr() for t in ptrs]
+    args = [B] + config_args(H, m, cfg) + [t.data_ptr() for t in ptrs]
     return args, ptrs, (X, F, viol, iters, fista)
 
 
@@ -159,7 +164,7 @@ def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_
 
 def fista_iterations(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
                      F_reg_ref=None):
-    """FISTA iterations the kernel runs per problem on these inputs (B,) —
+    """F-step FISTA iterations the kernel runs per problem on these inputs (B,) —
     the data-dependent part of its arithmetic, for measuring."""
     return _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
                    F_reg_ref)[4]

@@ -82,14 +82,28 @@ def solve_fixed_step(
 ):
     """Projected FISTA with the fixed step 1/L; returns the solution."""
     batch_shape = x0.shape[: x0.ndim - n_var_dims]
-    L = _expand(torch.broadcast_to(L, batch_shape), n_var_dims)
+    return solve_diag_step(
+        x0, grad_fn, proj_fn, _expand(torch.broadcast_to(L, batch_shape), n_var_dims), cfg,
+        n_var_dims,
+    )
+
+
+def solve_diag_step(
+    x0, grad_fn: Callable, proj_fn: Callable, D, cfg: FistaConfig, n_var_dims: int = 1
+):
+    """Projected FISTA in a diagonal metric, ``y <- proj(y - grad / D)`` with
+    ``D`` broadcastable to ``x0`` (counterpart of ``fista.solve_diag_step``).
+    With D = lam_max(D0^-1/2 H D0^-1/2) * safety * D0 for a Jacobi estimate D0
+    of diag(H) this is plain FISTA on z = D^1/2 x: exact for a box, and for
+    the friction cone when D is isotropic on each 3-vector."""
+    batch_shape = x0.shape[: x0.ndim - n_var_dims]
     x_k, y_k = x0, x0
     t_k = torch.ones(batch_shape, dtype=x0.dtype, device=x0.device)
     done = torch.zeros(batch_shape, dtype=torch.bool, device=x0.device)
     for _ in range(cfg.max_iters):
         if bool(done.all()):
             break
-        y_next = proj_fn(y_k - grad_fn(y_k) / L)
+        y_next = proj_fn(y_k - grad_fn(y_k) / D)
         d = y_next - y_k
         g = torch.sqrt(_vdot(d, d, n_var_dims))
         t_next = 1.0 + torch.sqrt(1.0 + 4.0 * t_k * t_k) / 2.0

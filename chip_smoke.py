@@ -5,15 +5,18 @@ Run from the root of the repository on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``bunmpc_tpu_torch/csrc/``, holds
-each kernel against its plain PyTorch version on the card, holds K1 against
-the committed native fixture, drives the main path — the batched Solo12 trot
-MPC solve of ``bench.py`` (B=512, f32) through
-``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` — checks its
-outputs, times it, and prints one ``kernels`` JSON line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Every phase fails the
-run (non-zero exit) on a miss; without CUDA, or without the repository next
-to it, it exits non-zero and prints no result.
+It builds the hand-written kernels from ``bunmpc_tpu_torch/csrc/`` (K1 the
+ADMM, K2 the GN-DDP, K3 the fused problem assembly + ADMM), holds each kernel
+and each of K1's branches against its plain PyTorch version on the card,
+holds K1 against the committed native fixture, and drives two paths of the
+batched Solo12 trot MPC solve of ``bench.py`` (B=512, f32): the main path
+``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` (K1, K2) and the
+fused path with ``fuse_prep=True`` (K3, K2). It checks their outputs, counts
+each kernel's launches in each path's run, times both, and prints one
+``kernels`` JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
+on a miss; without CUDA, or without the repository next to it, it exits
+non-zero and prints no result.
 """
 
 import json
@@ -98,6 +101,32 @@ def ddp_ops(n_problems, H, cfg):
     return n_problems * (first + cfg.n_iters * (backward + rollouts))
 
 
+def prep_ops(n_problems, H):
+    """Arithmetic of K3's prologue (csrc/fused.cu), counted per problem: per
+    knot-foot pair the phase, contact flag, touchdown and swing point (~40
+    ops), per knot and foot of the location carry ~10, per knot the costs,
+    the box over the feet and the warm start (~100)."""
+    return n_problems * (H * 4 * 40.0 + H * 4 * 10.0 + (H + 1) * 100.0)
+
+
+def rows(a, n):
+    """The first n problems of a tensor, a tuple of them or a ContactPlan."""
+    if isinstance(a, tuple):
+        return tuple(rows(x, n) for x in a)
+    if hasattr(a, "cnt"):
+        return type(a)(cnt=rows(a.cnt, n), r=rows(a.r, n), dt=rows(a.dt, n))
+    return a[:n].contiguous() if hasattr(a, "contiguous") else a
+
+
+def as_f64(a):
+    """A tensor, a tuple of them or a ContactPlan in float64."""
+    if isinstance(a, tuple):
+        return tuple(as_f64(x) for x in a)
+    if hasattr(a, "cnt"):
+        return type(a)(cnt=as_f64(a.cnt), r=as_f64(a.r), dt=as_f64(a.dt))
+    return a.double() if hasattr(a, "double") else a
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / H100_HBM_BYTES * 1e3
     t_ops = n_ops / H100_F32_FLOPS * 1e3
@@ -126,7 +155,7 @@ def main():
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
     from bunmpc_tpu_torch.robots.solo12 import Solo12Config
-    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
     from bunmpc_tpu_torch.solvers.ddp import DdpConfig
 
     t_start = time.time()
@@ -137,9 +166,9 @@ def main():
     log(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 2. build (both kernels, nvcc in parallel) ----
+    # ---- 2. build (every kernel, nvcc in parallel) ----
     t0 = time.time()
-    reports = _build.build(["admm", "ddp"], force=True)
+    reports = _build.build(["admm", "ddp", "fused"], force=True)
     build_s = time.time() - t0
     log(f"[2] build: {build_s:.1f} s")
     for name, rep in reports.items():
@@ -178,6 +207,37 @@ def main():
     log(f"  K1 F: |d| max {float((Fk - Fp).abs().max()):.3e} (force scale "
         f"{float(Fp.abs().max()):.1f} N)")
     check(bool(torch.isfinite(Xk).all() and torch.isfinite(Fk).all()), "K1 output not finite")
+
+    # ---- 3b. K1's other branches against the plain version run in f64 ----
+    # 64 problems, 15 pinned iterations (reference schedule); the gates are
+    # the JAX package's fista gates (tests/test_pallas_admm.py:69-72: X 5e-3,
+    # F 2e-1, viol rel 1e-3), except viol rel 5e-3 for fista+precondition:
+    # there the capped, preconditioned X-FISTA amplifies f32 rounding into
+    # jumps on single problems, so an f32 run may land ~2.5e-3 from f64 on
+    # these inputs whatever its code: the g++ build of the same kernel math
+    # does (the card's build, which contracts into fused multiply-adds, lands
+    # far closer), and so does the plain version at fista_max_iters 149
+    sub = rows(admm_in, 64)
+    sub64 = as_f64(sub)
+    for name, kw, viol_tol in (("fista", dict(x_solver="fista"), 1e-3),
+                               ("thomas+precondition", dict(precondition=True), 1e-3),
+                               ("fista+precondition", dict(x_solver="fista", precondition=True),
+                                5e-3)):
+        cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
+                                       rho_growth=1.0, **kw)
+        Xb, Fb, vb, _ = cuda_admm.solve(*sub, cfg)
+        Xr, Fr, vr, _ = cuda_admm.solve_plain(*sub64, cfg)
+        X3, _, v3, _ = cuda_admm.solve_plain(*sub, cfg)
+        torch.cuda.synchronize()
+        dX, dF = float((Xb.double() - Xr).abs().max()), float((Fb.double() - Fr).abs().max())
+        dv = float(((vb.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
+        dv3 = float(((v3.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
+        log(f"[3b] K1 {name} (15 iters) vs plain f64: |dX| {dX:.3e} (< 5e-3), |dF| {dF:.3e} "
+            f"(< 2e-1), viol rel {dv:.3e} (< {viol_tol}); plain f32 vs plain f64: |dX| "
+            f"{float((X3.double() - Xr).abs().max()):.3e}, viol rel {dv3:.3e}")
+        check(dX < 5e-3 and dF < 2e-1 and dv < viol_tol,
+              f"K1 {name} disagrees with its plain version")
+        check(bool(torch.isfinite(Xb).all() and torch.isfinite(Fb).all()), f"K1 {name} not finite")
 
     # ---- 4. K2 against its plain version, on the card ----
     # (a) one iteration, one alpha, on the random IK problems of the JAX
@@ -239,6 +299,32 @@ def main():
         f"|dX| {fdX:.3e} (< 1e-3), |dF| {fdF:.3e} (< 5e-3)")
     check(float(vf[0]) < 1e-4 and fdX < 1e-3 and fdF < 5e-3, "K1 misses the native fixture")
 
+    # ---- 5b. K3 against its plain version, on the card ----
+    H = spec.horizon
+    pc = KD.make_prep_consts(spec)
+    ci = KD._compact_inputs(spec, *inputs)
+    k3_in = (ci[1], ci[2], inputs[4], ci[3], ci[4], ci[5], ci[6], m, pc)
+    for name, cfg in (("pinned (15 iters)", pinned), ("bench config", bench_cfg)):
+        K = cuda_fused.solve_from_state(*k3_in, cfg, H, spec.n_eff)
+        P = cuda_fused.solve_from_state_plain(*k3_in, cfg, H, spec.n_eff)
+        torch.cuda.synchronize()
+        dr, ddt = float((K[5] - P[5]).abs().max()), float((K[6] - P[6]).abs().max())
+        log(f"[5b] K3 {name}: cnt equal {torch.equal(K[4], P[4])}, swing equal "
+            f"{torch.equal(K[7], P[7])}, |dr| {dr:.3e} (< 1e-5), |ddt| {ddt:.3e} (< 1e-5); "
+            f"iters kernel mean {K[3].float().mean():.2f}, plain {P[3].float().mean():.2f}")
+        check(torch.equal(K[4], P[4]) and torch.equal(K[7], P[7]), "K3 contact plan flags differ")
+        check(dr < 1e-5 and ddt < 1e-5, "K3 contact locations or knot durations differ")
+        check(bool(torch.isfinite(K[0]).all() and torch.isfinite(K[1]).all()), "K3 not finite")
+        if cfg is pinned:
+            dX, dF = float((K[0] - P[0]).abs().max()), float((K[1] - P[1]).abs().max())
+            dv = float(((K[2] - P[2]).abs() / P[2].abs().clamp_min(1e-30)).max())
+            log(f"  K3 pinned: |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), viol rel "
+                f"{dv:.3e} (< 1e-3)")
+            check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K3 pinned case disagrees")
+        else:
+            k3_err = quantile_gate("K3 X", K[0], P[0])
+            k3_iters = K[3]
+
     # ---- 6. the main path, end to end ----
     ddp_cfg = DdpConfig()
 
@@ -246,13 +332,21 @@ def main():
         return KD.solve_mpc_batch(spec, *inputs, admm_cfg=bench_cfg, ddp_cfg=ddp_cfg,
                                   admm_backend="cuda", ik_backend="cuda")
 
-    cuda_admm.KERNEL.launches = 0
-    cuda_ddp.KERNEL.launches = 0
+    kernels_of = {"admm": cuda_admm.KERNEL, "ddp": cuda_ddp.KERNEL, "fused": cuda_fused.KERNEL}
+
+    def zero_counts():
+        for k in kernels_of.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels_of.items()}
+
+    zero_counts()
     plans = solve()
     torch.cuda.synchronize()
-    launches = {"admm": cuda_admm.KERNEL.launches, "ddp": cuda_ddp.KERNEL.launches}
+    launches = counts()
     log(f"[6] main path launches: {launches}")
-    check(launches == {"admm": 1, "ddp": 1}, "each kernel must launch once per solve")
+    check(launches == {"admm": 1, "ddp": 1, "fused": 0}, "K1 and K2 must launch once per solve")
     expect = {"xs_int": (B, spec.n_int, 37), "us_int": (B, spec.n_int, 18),
               "f_int": (B, spec.n_int, 12), "X_opt": (B, 21, 9), "F_opt": (B, 20, 4, 3),
               "xs": (B, 11, 37), "us": (B, 10, 18)}
@@ -311,25 +405,94 @@ def main():
         "stage_ms": stages, "card": card,
     }))
 
+    # ---- 6b. the fused path (fuse_prep=True: compact inputs, K3, IK, K2), end to end ----
+    def solve_fused():
+        return KD.solve_mpc_batch(spec, *inputs, admm_cfg=bench_cfg, ddp_cfg=ddp_cfg,
+                                  admm_backend="cuda", ik_backend="cuda", fuse_prep=True)
+
+    zero_counts()
+    fplans = solve_fused()
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"[6b] fused path launches: {launches}")
+    check(launches == {"admm": 0, "ddp": 1, "fused": 1}, "K3 and K2 must launch once per solve")
+    for name, shape in expect.items():
+        a = getattr(fplans, name)
+        check(tuple(a.shape) == shape, f"fused {name}: shape {tuple(a.shape)}, expected {shape}")
+        check(bool(torch.isfinite(a).all()), f"fused {name}: not finite")
+    fconv = float((fplans.dyn_violation < 1e-3).float().mean())
+    log(f"[6b] converged_frac {fconv:.4f} (>= 0.99), admm iters mean "
+        f"{fplans.admm_iters.float().mean():.2f}")
+    check(fconv >= 0.99, "fused path converged_frac below 0.99")
+    log(f"[6b] fused path vs the main path (both on the kernels, {B} problems):")
+    quantile_gate("xs", fplans.xs, plans.xs)
+    quantile_gate("X_opt", fplans.X_opt, plans.X_opt)
+    solve_fused()
+    torch.cuda.synchronize()
+    freps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        solve_fused()
+        torch.cuda.synchronize()
+        freps.append(time.perf_counter() - t0)
+    fmed = float(np.median(freps))
+    ev[0].record()
+    qr, t_, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
+    ev[1].record()
+    X, F, viol, iters, cnt, r, dts, swing = cuda_fused.solve_from_state(
+        t_, vdw, inputs[4], x_init, ee, hip, amom, m, pc, bench_cfg, H, spec.n_eff)
+    ev[2].record()
+    fpr = dict(q=qr, v=inputs[1], x_init=x_init, plan=type(plan)(cnt=cnt, r=r, dt=dts),
+               swing_mask=swing)
+    tk, x0s = KD._build_ik_tasks(spec, fpr, X)
+    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
+    ev[3].record()
+    ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
+                                              tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
+    ev[4].record()
+    KD._finish_from_ik(spec, fpr, X, F, viol, iters, ixs, ius, icost, torch.zeros_like(X))
+    ev[5].record()
+    torch.cuda.synchronize()
+    fstage_names = ["compact", "k3", "ik_build", "k2_ddp", "interp"]
+    fstages = {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(fstage_names)}
+    log(json.dumps({
+        "metric": "fused_trot_mpc_solves_per_sec", "value": round(B / fmed, 1), "batch": B,
+        "converged_frac": fconv, "rep_times_s": [round(r, 5) for r in freps],
+        "stage_ms": fstages, "card": card,
+    }))
+
     # ---- 7. the kernels line ----
-    cuda_admm.KERNEL.launches = 0
-    cuda_ddp.KERNEL.launches = 0
+    zero_counts()
     solve()
     torch.cuda.synchronize()
-    main_launches = {"admm": cuda_admm.KERNEL.launches, "ddp": cuda_ddp.KERNEL.launches}
-    check(main_launches == {"admm": 1, "ddp": 1}, "main path launches")
+    main_launches = counts()
+    check(main_launches == {"admm": 1, "ddp": 1, "fused": 0}, "main path launches")
+    zero_counts()
+    solve_fused()
+    torch.cuda.synchronize()
+    fused_launches = counts()
+    check(fused_launches == {"admm": 0, "ddp": 1, "fused": 1}, "fused path launches")
 
     k1_ms = cuda_ms(torch, lambda: cuda_admm.solve(*admm_in, bench_cfg), 5)
     k1_plain_ms = cuda_ms(torch, lambda: cuda_admm.solve_plain(*admm_in, bench_cfg), 1)
+    k3_ms = cuda_ms(torch, lambda: cuda_fused.solve_from_state(*k3_in, bench_cfg, H, 4), 5)
+    k3_plain_ms = cuda_ms(
+        torch, lambda: cuda_fused.solve_from_state_plain(*k3_in, bench_cfg, H, 4), 1)
     k2_ms = cuda_ms(torch, lambda: cuda_ddp.solve_ik_batch(*ddp_in, cfg=full), 3)
     k2_plain_ms = cuda_ms(torch, lambda: cuda_ddp.solve_ik_batch_plain(*ddp_in, cfg=full), 1)
-    H, Hik = spec.horizon, spec.ik_hor
+    Hik = spec.ik_hor
     fista_total = cuda_admm.fista_iterations(*admm_in, bench_cfg)
+    k3_fista = cuda_fused.fista_iterations(*k3_in, bench_cfg, H, 4)
     # K1 reads cnt, r, dt, x_init, W, q, W_F, qF, lb, ub, X_wm, F_wm and
     # writes X, F, viol, iters (f32/int32)
     nXk, nFk = (H + 1) * 9, H * 12
     k1_bytes = 4.0 * B * (H * 4 + nFk + H + 9 + 5 * nXk + 3 * nFk + nXk + nFk + 2)
     k1_bound, k1_by = bound_ms(k1_bytes, admm_ops(itk, fista_total, H, bench_cfg))
+    # K3 reads t, v_des_w, w_des, x_init, ee, hip, amom (41 floats) and
+    # writes X, F, viol, iters, cnt, r, dt, swing
+    k3_bytes = 4.0 * B * (41 + nXk + nFk + 2 + H * 4 + nFk + H + H * 4)
+    k3_bound, k3_by = bound_ms(
+        k3_bytes, admm_ops(k3_iters, k3_fista, H, bench_cfg) + prep_ops(B, H))
     nx, nv = 37, 18
     k2_bytes = 4.0 * B * (nx + Hik * 12 + (Hik + 1) * (3 + 6 + nx) + Hik * 57 + 45 + Hik * nv
                           + Hik + (Hik + 1) * nx + Hik * nv + 1)
@@ -343,6 +506,11 @@ def main():
          "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046", "launches": main_launches["ddp"],
          "max_abs_err": k2_err, "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4),
          "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None},
+        {"name": "fused", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/fused.cu",
+         "replaces": "bunmpc_tpu/solvers/pallas_admm.py:1028",
+         "launches": fused_launches["fused"], "max_abs_err": k3_err, "ms": round(k3_ms, 4),
+         "plain_ms": round(k3_plain_ms, 4), "bound_ms": round(k3_bound, 6), "bound_by": k3_by,
+         "library_ms": None},
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

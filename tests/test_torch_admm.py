@@ -1,12 +1,15 @@
 """K1's plain version (the port's batched ADMM, ``solvers/biconvex.py``) and
 K1's per-problem math (``csrc/admm.cu`` built for the host with g++) against
-the JAX package's ``biconvex.solve(x_solver="thomas")``, on the ``problem``
-fixture of tests/test_pallas_admm.py at B=8.
+the JAX package's ``biconvex.solve``, on the ``problem`` fixture of
+tests/test_pallas_admm.py: x_solver "thomas" at B=8; the other branches
+(x_solver "fista", with and without precondition) at B=4.
 
 Tolerances: f32 with the reference schedule and 15 iterations, the JAX
 package's own Pallas-vs-XLA gates (X 1e-4, F 1e-3, viol rtol 1e-3); f64 with
 the accelerated default schedule, X/F atol 1e-7 and equal iteration counts
-(the same algorithm in double precision)."""
+(the same algorithm in double precision); the fista branches in f32 with the
+reference schedule of tests/test_pallas_admm.py:43-46 and its fista gates
+(:69-72: X 5e-3, F 2e-1, viol rtol 1e-3)."""
 
 import ctypes
 
@@ -156,3 +159,46 @@ def test_batch_equals_single(lib, problem, runner):
         np.testing.assert_allclose(batch[0][i], single[0][0], atol=1e-12, rtol=0)
         np.testing.assert_allclose(batch[1][i], single[1][0], atol=1e-10, rtol=0)
         assert batch[3][i] == single[3][0]
+
+
+BRANCHES = {"fista": dict(x_solver="fista"),
+            "fista_precondition": dict(x_solver="fista", precondition=True)}
+REFERENCE_FISTA = dict(max_admm_iters=60, fista_max_iters=120, dual_relax=1.0, rho_growth=1.0)
+
+
+@pytest.fixture(scope="module")
+def problem4():
+    return admm_problem(4)
+
+
+@pytest.fixture(scope="module")
+def branch_runs(problem4):
+    """Per branch, the JAX package's solve and the plain version in f64."""
+    return {
+        name: (run_jax(problem4, jbc.BiconvexConfig(rho=RHO, **kw), jnp.float64),
+               run_torch(problem4, tbc.BiconvexConfig(rho=RHO, **kw), torch.float64))
+        for name, kw in BRANCHES.items()
+    }
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_plain_branch_f64(branch_runs, branch):
+    ref, got = branch_runs[branch]
+    assert_f64_match(got, ref)
+    assert np.all(got[2] < 1e-3)
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_kernel_math_branch_f64(lib, problem4, branch_runs, branch):
+    got = run_host(lib, problem4, cuda_admm.CudaAdmmConfig(rho=RHO, **BRANCHES[branch]),
+                   torch.float64)
+    assert_f64_match(got, branch_runs[branch][1])
+
+
+def test_kernel_math_fista_precondition_f32(lib, problem4):
+    kw = dict(x_solver="fista", precondition=True, **REFERENCE_FISTA)
+    ref = run_jax(problem4, jbc.BiconvexConfig(rho=RHO, **kw), jnp.float32)
+    got = run_host(lib, problem4, cuda_admm.CudaAdmmConfig(rho=RHO, **kw), torch.float32)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(got[0], ref[0], atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got[1], ref[1], atol=2e-1, rtol=0)

@@ -10,10 +10,13 @@ not need.)
 Gates: K1 with the reference schedule and 15 iterations, the JAX package's
 Pallas-vs-XLA gates (X 1e-4, F 1e-3, viol rtol 1e-3); K2 for one iteration
 with one alpha against the plain version in f64 (xs 2e-4, us 2e-3, cost rtol
-1e-4); the launch counters rise by one per kernel call."""
+1e-4); the launch counters rise by one per kernel call; K1, K2 and K3 give a
+5-problem batch the rows of the 512-problem batch, bit for bit."""
 
 import pytest
 import torch
+
+import torch_port_helpers  # noqa: F401  (one PyTorch thread per test worker)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +114,28 @@ def test_any_batch_size_gives_the_same_rows(main_path):
                                               *[rows(a) for a in args])
     torch.cuda.synchronize()
     assert torch.equal(xs[:5], xs5) and torch.equal(us[:5], us5) and torch.equal(cost[:5], cost5)
+
+
+def test_fused_any_batch_size_gives_the_same_rows(device, main_path):
+    """K3 (problem assembly + ADMM) on the first 5 problems, a ragged block,
+    equals its rows of the 512-problem launch bit for bit, plan included."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_fused
+
+    spec, _ = main_path
+    inputs = [torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in workload.trot_states(B)]
+    _, t, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
+    ins = (t, vdw, inputs[4], x_init, ee, hip, amom)
+    rest = (spec.model.total_mass, KD.make_prep_consts(spec),
+            cuda_admm.CudaAdmmConfig(rho=trot.rho, fista_max_iters=30), spec.horizon,
+            spec.n_eff)
+    before = cuda_fused.KERNEL.launches
+    full = cuda_fused.solve_from_state(*ins, *rest)
+    part = cuda_fused.solve_from_state(*[a[:5].contiguous() for a in ins], *rest)
+    torch.cuda.synchronize()
+    assert cuda_fused.KERNEL.launches == before + 2
+    for a, b in zip(full, part):
+        assert torch.equal(a[:5], b)

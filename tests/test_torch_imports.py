@@ -18,7 +18,7 @@ from bunmpc_tpu_torch.mpc import kino_dyn as KD
 from bunmpc_tpu_torch.mpc.centroidal import ContactPlan
 from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config
-from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
 
 from torch_port_helpers import admm_problem, to_torch
 
@@ -82,7 +82,7 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize(
     "kwargs, exc",
     [
-        (dict(fuse_prep=True), ValueError),
+        (dict(fuse_prep=True, admm_backend="torch"), ValueError),
         (dict(admm_backend="pallas"), ValueError),
         (dict(ik_backend="xla"), ValueError),
     ],
@@ -108,8 +108,27 @@ def test_admm_wrapper_takes_cpu_tensors_to_the_plain_version():
     assert cuda_admm.KERNEL.launches == before == 0
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        cuda_admm.solve(*args[:-1], dataclasses.replace(cfg, x_solver="fista"))
+    with pytest.raises(ValueError, match="x_solver"):
+        cuda_admm.solve(*args[:-1], dataclasses.replace(cfg, x_solver="cholesky"))
+
+
+def test_fused_wrapper_takes_cpu_tensors_to_the_plain_version():
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0(), device="cpu")
+    q = torch.as_tensor(np.tile(Solo12Config.q0(), (2, 1)), dtype=torch.float64)
+    z = torch.zeros(2, dtype=torch.float64)
+    _, t, vdw, x_init, ee, hip, amom = KD._compact_inputs(
+        spec, q, torch.zeros(2, 18, dtype=torch.float64), z, torch.zeros(2, 3, dtype=torch.float64),
+        z)
+    cfg = cuda_admm.CudaAdmmConfig(rho=5e4, max_admm_iters=3)
+    args = (t, vdw, z, x_init, ee, hip, amom, spec.model.total_mass, KD.make_prep_consts(spec),
+            cfg, spec.horizon, spec.n_eff)
+    before = cuda_fused.KERNEL.launches
+    out = cuda_fused.solve_from_state(*args)
+    ref = cuda_fused.solve_from_state_plain(*args)
+    assert cuda_fused.KERNEL.launches == before == 0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert out[7].dtype == torch.bool
 
 
 def test_ddp_wrapper_takes_cpu_tensors_to_the_plain_version():

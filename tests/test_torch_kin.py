@@ -14,6 +14,8 @@ from bunmpc_tpu_torch.kin import algorithms as TK
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TSolo
 from bunmpc_tpu_torch.utils import quat as TQ
 
+import torch_port_helpers  # noqa: F401  (one PyTorch thread per test worker)
+
 ATOL = 1e-10
 B = 6
 

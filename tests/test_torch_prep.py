@@ -18,6 +18,8 @@ from bunmpc_tpu_torch.mpc import kino_dyn as TKD
 from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TSolo
 
+import torch_port_helpers  # noqa: F401  (one PyTorch thread per test worker)
+
 B = 8
 ATOL = 1e-9
 
