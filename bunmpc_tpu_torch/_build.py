@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface under ``build/bunmpc_tpu_torch/`` (listed in
 ``.gitignore``) at first use, and loaded with ``ctypes``. Only the sources in
 ``bunmpc_tpu_torch/csrc/`` go into a build. A library is rebuilt when a source
-is newer than it.
+is newer than it. A build with extra preprocessor defines (the profiling
+build, ``-DBK_PROFILE``) goes into a library of its own name.
 
 ``build_host`` compiles the same sources with ``g++`` for the host (the
 per-problem math is ``__host__ __device__``): a test-only build that lets the
@@ -28,6 +29,23 @@ NVCC_FLAGS = (
 )
 
 
+# Shared memory one thread block may use on sm_90 (H100, H200): 227 KB, above
+# 48 KB only as dynamic shared memory after cudaFuncSetAttribute (the
+# launchers do it).
+SMEM_PER_BLOCK = 232_448
+
+
+def fit_per_block(kernel: str, bytes_per_problem: int, want: int, what: str) -> int:
+    """Problems per block: ``want``, or as many as SMEM_PER_BLOCK holds at
+    ``bytes_per_problem`` each. Raises ValueError if not one fits."""
+    fit = SMEM_PER_BLOCK // bytes_per_problem
+    if fit < 1:
+        raise ValueError(
+            f"{kernel}: one problem at {what} needs {bytes_per_problem} bytes of shared memory, "
+            f"more than the {SMEM_PER_BLOCK} bytes a thread block may use")
+    return min(want, fit)
+
+
 def nvcc() -> str:
     """Path of nvcc: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc`` or PATH."""
     for cand in (
@@ -46,8 +64,9 @@ def _sources():
     return glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))
 
 
-def lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+def lib_path(name: str, defines=()) -> str:
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    return os.path.join(BUILD_DIR, f"lib{name}{tag}.so")
 
 
 def _stale(path: str) -> bool:
@@ -57,25 +76,27 @@ def _stale(path: str) -> bool:
     return any(os.path.getmtime(s) > t for s in _sources())
 
 
-def _compile_cmd(name: str, out: str):
-    return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+def _compile_cmd(name: str, out: str, defines=()):
+    return [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out,
+            os.path.join(CSRC, f"{name}.cu")]
 
 
-def build(names, force: bool = False) -> dict:
+def build(names, force: bool = False, defines=()) -> dict:
     """Compile ``csrc/<name>.cu`` for every stale name, all nvcc processes at
-    once; returns {name: ptxas report}. Raises with the compiler output if a
-    build fails."""
+    once, with ``-D`` for each of ``defines``; returns {name: ptxas report}.
+    Raises with the compiler output if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = lib_path(name)
+        out = lib_path(name, defines)
         if not force and not _stale(out):
             continue
         tmp = os.path.join(BUILD_DIR, f"lib{name}.{os.getpid()}.tmp.so")
         procs[name] = (
             tmp,
             subprocess.Popen(
-                _compile_cmd(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                _compile_cmd(name, tmp, defines), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
                 text=True,
             ),
         )
@@ -87,7 +108,7 @@ def build(names, force: bool = False) -> dict:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
         else:
-            os.replace(tmp, lib_path(name))
+            os.replace(tmp, lib_path(name, defines))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -107,18 +128,20 @@ def build_host(name: str, out_dir: str) -> str:
 
 
 class Kernel:
-    """One kernel library: lazy build + load, and the count of launches of
-    its kernel (incremented only where the kernel is launched)."""
+    """One kernel library (built with ``defines``): lazy build + load, and
+    the count of launches of its kernel (incremented only where the kernel
+    is launched)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, defines=()):
         self.name = name
+        self.defines = tuple(defines)
         self.launches = 0
         self._lib = None
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            build([self.name])
-            self._lib = ctypes.CDLL(lib_path(self.name))
+            build([self.name], defines=self.defines)
+            self._lib = ctypes.CDLL(lib_path(self.name, self.defines))
         return self._lib
 
     def launch(self, symbol: str, args, argtypes) -> None:

@@ -17,15 +17,23 @@
 //           dual rescaling, per-problem convergence (NaN freezes a problem).
 //
 // Design: the 32 lanes of a warp share one problem — the operators by knot,
-// the cone projection by foot, the norms as per-lane partial sums, the Thomas
-// sweep's block solve by column and its Schur update by entry — with a warp
+// each F-step FISTA iteration by knot in one phase (a knot's gradient reads
+// its own forces only, so its lane takes them through the cone projection
+// and the momentum update), the norms as per-lane partial sums, the Thomas
+// sweep's block solve by column with the Schur update of that column, each
+// lane building only the entries of M_{k+1} and U_k it needs; the sweep's 9x9
+// Cholesky runs on one lane in registers (thomas_x says why) — with a warp
 // barrier between phases, so problems never wait for each other. The Pallas
 // kernel freezes a lane once it converges, so a problem's result depends on
-// its own data only; here each problem leaves its loops on its own. The
-// per-problem work arrays live in a batch-last scratch buffer (element i of
-// problem b at i*B + b); each 9x9 Cholesky runs on one lane, the knot sweep
-// stays sequential. Compiled with g++ (no __CUDACC__) the same phases run on
-// the host with the lanes of a phase one after another, for the CPU tests.
+// its own data only; here each problem leaves its loops on its own. A
+// problem's work arrays and its inputs (staged once) live in its slice of the
+// block's shared memory (admm_layout; opted in past 48 KB), so the dependent
+// accesses of every phase cost shared-memory latency, not a device-memory
+// round trip; the per-problem code is force-inlined (common.cuh: HD), so
+// those accesses compile to shared-memory loads. The knot sweep stays
+// sequential. Compiled with g++ (no __CUDACC__) the same phases run on the
+// host with the lanes of a phase one after another and the slice a plain
+// array, for the CPU tests.
 
 #pragma once
 
@@ -34,8 +42,9 @@
 namespace bk {
 
 constexpr int NE = 4;  // feet (the wrappers check)
-constexpr int LANES = 32;  // threads per problem: one warp
 constexpr double G_ACC = 9.81;
+// profiling-build phase slots (common.cuh: Prof)
+enum { PH_TOTAL, PH_F_POWER, PH_F_FISTA, PH_THOMAS, PH_CHOL, PH_DUAL, PH_X_FISTA, PH_PROLOGUE };
 
 template <typename T>
 struct AdmmParams {
@@ -45,63 +54,88 @@ struct AdmmParams {
       rho_max_scale, rho_stall_improve, rho_backoff_thresh;
 };
 
-// read-only inputs of one problem, (B, ...) row-major, offset to problem b
+// read-only inputs of one problem (staged in its shared-memory slice)
 template <typename T>
 struct AdmmInputs {
   const T *cnt, *r, *dt, *x_init, *W, *ql, *WF, *qF, *lb, *ub;
 };
 
-// per-problem work arrays (batch-last scratch)
+// One problem's work arrays, in its slice of the block's shared memory.
 template <typename T>
 struct AdmmWork {
-  Strided<T> X, P, Xn, bP, dk, v, F, xk, yk, g, z, Wk;
-  Strided<T> part;          // per lane: partial sums (2 * LANES)
-  Strided<T> Cm, Lm, Sol, yv;  // the current knot's block, factor, [U | y], y
-  Strided<T> Fu, Fd;        // F-step: preconditioned operand, metric
-  Strided<T> Xy, Xg, Xz, Xu, Xd;  // X-step FISTA: momentum point, gradient, power vector, operand, metric
+  T *X, *P, *Xn, *bP, *dk, *v, *F, *xk, *yk, *g, *z;
+  T* part;      // per lane: partial sums (2 * LANES)
+  T *Fu, *Fd;   // F-step: preconditioned operand, metric
+  // the X-step's arrays, by x_solver ("thomas" and "fista" share the room):
+  T *Wk, *Cm, *Lm, *yv;  // the sweep's W_k; the current knot's block, its factor, y
+  T *Xy, *Xg, *Xz, *Xu, *Xd;  // X-FISTA: momentum point, gradient, power vector, operand, metric
 };
 
-// Scratch elements per problem of the layout make_work cuts.
-HD long admm_scratch_elems(int H) {
+// Element offsets of one problem's shared-memory slice: the work arrays,
+// then the inputs, staged there once (AdmmInputs, in its order).
+struct AdmmLayout {
+  long X, P, Xn, bP, dk, v, F, xk, yk, g, z, part, Fu, Fd, Wk, Cm, Lm, yv, Xy, Xg, Xz, Xu, Xd;
+  long cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, n;
+};
+
+HD AdmmLayout admm_layout(int H) {
   const long nX = (H + 1) * 9L, nF = H * NE * 3L;
-  return 11 * nX + 7 * nF + H * 81L + 2L * LANES + 81 + 81 + 90 + 9;
+  long o = 0;
+  auto take = [&](long n) {
+    const long at = o;
+    o += n;
+    return at;
+  };
+  AdmmLayout L;
+  L.X = take(nX); L.P = take(nX); L.Xn = take(nX); L.bP = take(nX); L.dk = take(nX);
+  L.v = take(nX); L.F = take(nF); L.xk = take(nF); L.yk = take(nF); L.g = take(nF);
+  L.z = take(nF); L.part = take(2 * LANES); L.Fu = take(nF); L.Fd = take(nF);
+  const long xstep = o;
+  L.Wk = take(H * 81L); L.Cm = take(81); L.Lm = take(81); L.yv = take(9);
+  const long thomas_end = o;
+  o = xstep;
+  L.Xy = take(nX); L.Xg = take(nX); L.Xz = take(nX); L.Xu = take(nX); L.Xd = take(nX);
+  o = s_max(o, thomas_end);
+  L.cnt = take(H * NE); L.r = take(nF); L.dt = take(H); L.x_init = take(9); L.W = take(nX);
+  L.ql = take(nX); L.WF = take(nF); L.qF = take(nF); L.lb = take(nX); L.ub = take(nX);
+  L.n = o;
+  return L;
 }
 
-// The work arrays of problem b in a batch-last scratch buffer of B problems.
 template <typename T>
-HD AdmmWork<T> make_work(T* scratch, int b, int B, int H) {
-  const long nX = (H + 1) * 9L, nF = H * NE * 3L;
-  long off = 0;
-  auto take = [&](long n) {
-    Strided<T> s{scratch + off * B + b, B};
-    off += n;
-    return s;
-  };
+HD AdmmWork<T> admm_work(T* sh, const AdmmLayout& L) {
   AdmmWork<T> w;
-  w.X = take(nX); w.P = take(nX); w.Xn = take(nX); w.bP = take(nX); w.dk = take(nX);
-  w.v = take(nX); w.F = take(nF); w.xk = take(nF); w.yk = take(nF); w.g = take(nF);
-  w.z = take(nF); w.Wk = take(H * 81L);
-  w.part = take(2 * LANES); w.Cm = take(81); w.Lm = take(81); w.Sol = take(90); w.yv = take(9);
-  w.Fu = take(nF); w.Fd = take(nF);
-  w.Xy = take(nX); w.Xg = take(nX); w.Xz = take(nX); w.Xu = take(nX); w.Xd = take(nX);
+  w.X = sh + L.X; w.P = sh + L.P; w.Xn = sh + L.Xn; w.bP = sh + L.bP; w.dk = sh + L.dk;
+  w.v = sh + L.v; w.F = sh + L.F; w.xk = sh + L.xk; w.yk = sh + L.yk; w.g = sh + L.g;
+  w.z = sh + L.z; w.part = sh + L.part; w.Fu = sh + L.Fu; w.Fd = sh + L.Fd;
+  w.Wk = sh + L.Wk; w.Cm = sh + L.Cm; w.Lm = sh + L.Lm; w.yv = sh + L.yv;
+  w.Xy = sh + L.Xy; w.Xg = sh + L.Xg; w.Xz = sh + L.Xz; w.Xu = sh + L.Xu; w.Xd = sh + L.Xd;
   return w;
+}
+
+// the staged inputs (the staging itself is the caller's)
+template <typename T>
+HD AdmmInputs<T> admm_inputs(T* sh, const AdmmLayout& L) {
+  return AdmmInputs<T>{sh + L.cnt, sh + L.r,  sh + L.dt, sh + L.x_init, sh + L.W,
+                       sh + L.ql,  sh + L.WF, sh + L.qF, sh + L.lb,     sh + L.ub};
 }
 
 // sum of the lanes' partial sums part[off .. off + LANES)
 template <typename T>
-HD T sum_parts(const Strided<T>& part, int off) {
+HD T sum_parts(const T* part, int off) {
   T s = T(0);
   for (int l = 0; l < LANES; ++l) s += part[off + l];
   return s;
 }
 
-// rows of knot t of out <- 2 (WF y + rho A_x(X)^T (A_x(X) y + bP)) [+ qF]; bP
-// and qF optional. A_x rows 0..2 are zero and A_x^T reads rows 3..8 of knots
-// t < H only, so the two stencils fuse per knot.
+// knot t's rows of 2 (WF y + rho A_x(X)^T (A_x(X) y + bP)) [+ qF] into out
+// (the knot's NE * 3 entries); bP and qF optional. A_x rows 0..2 are zero and
+// A_x^T reads rows 3..8 of knots t < H only, so the two stencils fuse per
+// knot, and knot t's rows read y at knot t only.
 template <typename T>
-HD void f_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X,
-                        const Strided<T>& y, const Strided<T>* bP, T rho, bool add_qF,
-                        const Strided<T>& out, int t) {
+HD void f_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* X,
+                        const T* y, const T* bP, T rho, bool add_qF,
+                        T* out, int t) {
   const T dt = in.dt[t];
   const T com[3] = {X[t * 9 + 0], X[t * 9 + 1], X[t * 9 + 2]};
   T lin[3] = {0, 0, 0}, ang[3] = {0, 0, 0};
@@ -124,8 +158,8 @@ HD void f_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const 
     yl[k] = dt * lin[k] / pr.m;
     ya[k] = dt * ang[k];
     if (bP) {
-      yl[k] += (*bP)[t * 9 + 3 + k];
-      ya[k] += (*bP)[t * 9 + 6 + k];
+      yl[k] += bP[t * 9 + 3 + k];
+      ya[k] += bP[t * 9 + 6 + k];
     }
   }
   for (int n = 0; n < NE; ++n) {
@@ -138,14 +172,14 @@ HD void f_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const 
       const T o = c * (dt * (yl[k] / pr.m + cr[k]));
       T val = T(2) * (in.WF[i0 + k] * y[i0 + k] + rho * o);
       if (add_qF) val += in.qF[i0 + k];
-      out[i0 + k] = val;
+      out[n * 3 + k] = val;
     }
   }
 }
 
 // element i of b_x(X) (rows t < H; the terminal row is zero)
 template <typename T>
-HD T bx_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X, int i) {
+HD T bx_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* X, int i) {
   const int t = i / 9, k = i % 9;
   if (t == pr.H || k < 3) return T(0);
   T d = X[(t + 1) * 9 + k] - X[t * 9 + k];
@@ -154,7 +188,7 @@ HD T bx_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X
 }
 
 template <typename T>
-HD void cf_total(const AdmmInputs<T>& in, const Strided<T>& F, int t, T* cF) {
+HD void cf_total(const AdmmInputs<T>& in, const T* F, int t, T* cF) {
   cF[0] = cF[1] = cF[2] = T(0);
   for (int n = 0; n < NE; ++n) {
     const T c = in.cnt[t * NE + n];
@@ -164,7 +198,7 @@ HD void cf_total(const AdmmInputs<T>& in, const Strided<T>& F, int t, T* cF) {
 
 // b_f(F): rows t < H [0, -dt sum(cF)/m + g dt e_z, dt sum cF x r], row H x_init
 template <typename T>
-HD void bf_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F, int t,
+HD void bf_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F, int t,
                T* row) {
   if (t == pr.H) {
     for (int k = 0; k < 9; ++k) row[k] = in.x_init[k];
@@ -193,8 +227,8 @@ HD void bf_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T
 
 // A_f(F) X, row t
 template <typename T>
-HD void af_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
-               const Strided<T>& X, int t, T* row) {
+HD void af_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F, const T* X,
+               int t, T* row) {
   if (t == pr.H) {
     for (int k = 0; k < 9; ++k) row[k] = X[k];
     return;
@@ -214,8 +248,8 @@ HD void af_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T
 // row t of A_f(F)^T Y: the contributions of constraint rows t-1 and t, and
 // for t = 0 of the pinning row
 template <typename T>
-HD void af_applyT_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
-                      const Strided<T>& Y, int t, T* row) {
+HD void af_applyT_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F,
+                      const T* Y, int t, T* row) {
   const int H = pr.H;
   for (int k = 0; k < 9; ++k) row[k] = T(0);
   if (t > 0) {
@@ -245,18 +279,17 @@ HD void af_applyT_row(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const St
 
 // rows of knot t of v <- A_f(F) y [+ bP]
 template <typename T>
-HD void x_residual_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
-                        const Strided<T>& y, const Strided<T>* bP, const Strided<T>& v, int t) {
+HD void x_residual_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F,
+                        const T* y, const T* bP, T* v, int t) {
   T row[9];
   af_row(pr, in, F, y, t, row);
-  for (int k = 0; k < 9; ++k) v[t * 9 + k] = bP ? row[k] + (*bP)[t * 9 + k] : row[k];
+  for (int k = 0; k < 9; ++k) v[t * 9 + k] = bP ? row[k] + bP[t * 9 + k] : row[k];
 }
 
 // rows of knot t of out <- 2 (W y + rho A_f(F)^T v) [+ q]
 template <typename T>
-HD void x_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F,
-                        const Strided<T>& y, const Strided<T>& v, T rho, bool add_q,
-                        const Strided<T>& out, int t) {
+HD void x_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F,
+                        const T* y, const T* v, T rho, bool add_q, T* out, int t) {
   T row[9];
   af_applyT_row(pr, in, F, v, t, row);
   for (int k = 0; k < 9; ++k) {
@@ -269,7 +302,7 @@ HD void x_operator_knot(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const 
 
 // element i (knot t, component k) of diag(A_f(F)^T A_f(F)) (centroidal.af_diag)
 template <typename T>
-HD T af_diag_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F, int i) {
+HD T af_diag_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* F, int i) {
   const int H = pr.H, t = i / 9, k = i % 9, grp = k / 3;
   const T lt = t < H ? T(1) : T(0), ge = t >= 1 ? T(1) : T(0), eq = t == 0 ? T(1) : T(0);
   if (grp == 0) {
@@ -293,7 +326,7 @@ HD T af_diag_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<
 // the F-step metric d0 of contact (t, n): 2 (mean(WF) + rho cnt dt^2
 // (1/m^2 + 2|arm|^2/3)) + 1e-12 (centroidal.ax_diag_iso)
 template <typename T>
-HD T f_metric(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& X, T rho, int c) {
+HD T f_metric(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* X, T rho, int c) {
   const int t = c / NE, i0 = c * 3;
   T arm2 = T(0);
   for (int k = 0; k < 3; ++k) {
@@ -331,8 +364,7 @@ HD void soc_project(T mu, T* f) {
 // a vector of ones, then the Rayleigh quotient. z, g, u: work arrays of n
 // elements (u only with PRE).
 template <bool PRE, typename T, class Apply, class Exec>
-HD T power_lambda(const AdmmParams<T>& pr, int n, const Strided<T>& d, const Strided<T>& z,
-                  const Strided<T>& g, const Strided<T>& u, const Strided<T>& part,
+HD T power_lambda(const AdmmParams<T>& pr, int n, const T* d, T* z, T* g, T* u, T* part,
                   const Apply& apply, const Exec& exec) {
   exec([&](int lane) {
     for (int i = lane; i < n; i += LANES) z[i] = T(1);
@@ -376,29 +408,23 @@ HD T power_lambda(const AdmmParams<T>& pr, int n, const Strided<T>& d, const Str
 }
 
 // Projected FISTA iterations from x = y = the values already in xk and yk.
-// grad() writes the gradient at yk into g; step(lane) overwrites the lane's
-// elements of g with the projected step from yk and leaves their squared
-// change in part[lane]. Returns the iterations run.
+// grad() writes the gradient at yk; step(lane, beta) takes the lane's
+// elements of yk to the projected step yn, leaves their squared change in
+// part[lane] and applies the momentum update to them at once (yk <- yn +
+// beta (yn - xk), xk <- yn: an element's update reads no other element).
+// Returns the iterations run.
 template <typename T, class Grad, class Step, class Exec>
-HD int fista_loop(const AdmmParams<T>& pr, int n, const Strided<T>& xk, const Strided<T>& yk,
-                  const Strided<T>& g, const Strided<T>& part, const Grad& grad,
-                  const Step& step, const Exec& exec) {
+HD int fista_loop(const AdmmParams<T>& pr, const T* part, const Grad& grad, const Step& step,
+                  const Exec& exec) {
   const T tol2 = pr.fista_tol * pr.fista_tol;
   T tk = T(1);
   int k = 0;
   while (k < pr.fista_max_iters) {
-    grad();
-    exec(step);
-    const T g2 = sum_parts(part, 0);
     const T tn = T(1) + s_sqrt(T(1) + T(4) * tk * tk) / T(2);  // reference momentum
     const T beta = (tk - T(1)) / tn;
-    exec([&](int lane) {
-      for (int i = lane; i < n; i += LANES) {
-        const T yn = g[i];
-        yk[i] = yn + beta * (yn - xk[i]);
-        xk[i] = yn;
-      }
-    });
+    grad();
+    exec([&](int lane) { step(lane, beta); });
+    const T g2 = sum_parts(part, 0);
     tk = tn;
     ++k;
     if (!(g2 >= tol2)) break;
@@ -413,6 +439,7 @@ HD int f_step(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T
               const Exec& exec) {
   const int H = pr.H;
   const int nX = (H + 1) * 9, nF = H * NE * 3;
+  long long t = exec.prof.now();
   exec([&](int lane) {
     for (int i = lane; i < nX; i += LANES) w.bP[i] = w.P[i] - bx_el(pr, in, w.X, i);
     if (PRE) {
@@ -422,13 +449,15 @@ HD int f_step(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T
       }
     }
   });
-  auto apply = [&](const Strided<T>& y, const Strided<T>& out) {
+  auto apply = [&](const T* y, T* out) {
     exec([&](int lane) {
       for (int t = lane; t < H; t += LANES)
-        f_operator_knot(pr, in, w.X, y, (const Strided<T>*)nullptr, rho, false, out, t);
+        f_operator_knot(pr, in, w.X, y, (const T*)nullptr, rho, false, out + t * NE * 3, t);
     });
   };
   const T Lf = power_lambda<PRE>(pr, nF, w.Fd, w.z, w.g, w.Fu, w.part, apply, exec);
+  exec.prof.add(PH_F_POWER, t);
+  t = exec.prof.now();
   exec([&](int lane) {
     for (int i = lane; i < nF; i += LANES) {
       w.xk[i] = w.yk[i] = w.F[i];
@@ -437,40 +466,45 @@ HD int f_step(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T
       }
     }
   });
-  auto grad = [&]() {
-    exec([&](int lane) {
-      for (int t = lane; t < H; t += LANES)
-        f_operator_knot(pr, in, w.X, w.yk, &w.bP, rho, true, w.g, t);
-    });
-  };
-  auto step = [&](int lane) {  // y_next = proj(y - grad / D), a foot per lane
+  // a FISTA iteration is one phase, a knot per lane: knot t's gradient reads
+  // the forces at knot t only, so its lane takes them on through the step
+  auto step = [&](int lane, T beta) {  // y_next = proj(y - grad / D) of the knot's feet
     T s = T(0);
-    for (int c = lane; c < H * NE; c += LANES) {
-      T f[3];
-      for (int q = 0; q < 3; ++q) {
-        if (PRE) {
-          f[q] = w.yk[c * 3 + q] - w.g[c * 3 + q] / w.Fd[c * 3 + q];
-        } else {
-          f[q] = w.yk[c * 3 + q] - w.g[c * 3 + q] / Lf;
+    for (int t = lane; t < H; t += LANES) {
+      T gk[NE * 3];
+      f_operator_knot(pr, in, w.X, w.yk, w.bP, rho, true, gk, t);
+      for (int n = 0; n < NE; ++n) {
+        const int c = t * NE + n;
+        T f[3];
+        for (int q = 0; q < 3; ++q) {
+          if (PRE) {
+            f[q] = w.yk[c * 3 + q] - gk[n * 3 + q] / w.Fd[c * 3 + q];
+          } else {
+            f[q] = w.yk[c * 3 + q] - gk[n * 3 + q] / Lf;
+          }
         }
-      }
-      soc_project(pr.mu, f);
-      for (int q = 0; q < 3; ++q) {
-        w.g[c * 3 + q] = f[q];
-        const T dd = f[q] - w.yk[c * 3 + q];
-        s += dd * dd;
+        soc_project(pr.mu, f);
+        for (int q = 0; q < 3; ++q) {
+          const int i = c * 3 + q;
+          const T yn = f[q], dd = yn - w.yk[i];
+          s += dd * dd;
+          w.yk[i] = yn + beta * (yn - w.xk[i]);
+          w.xk[i] = yn;
+        }
       }
     }
     w.part[lane] = s;
   };
-  return fista_loop(pr, nF, w.xk, w.yk, w.g, w.part, grad, step, exec);
+  const int k = fista_loop(pr, w.part, [] {}, step, exec);
+  exec.prof.add(PH_F_FISTA, t);
+  return k;
 }
 
 // The X subproblem by projected FISTA onto the box from x = X: w.Xn <- X_new,
 // in the Jacobi metric with PRE.
 template <bool PRE, typename T, class Exec>
 HD void fista_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T>& w,
-                const Strided<T>& F, T rho, const Exec& exec) {
+                const T* F, T rho, const Exec& exec) {
   const int H = pr.H;
   const int nX = (H + 1) * 9;
   exec([&](int lane) {  // bP <- P - b_f(F), the metric, the start point
@@ -486,10 +520,10 @@ HD void fista_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork
       }
     }
   });
-  auto apply = [&](const Strided<T>& y, const Strided<T>& out) {
+  auto apply = [&](const T* y, T* out) {
     exec([&](int lane) {
       for (int t = lane; t <= H; t += LANES)
-        x_residual_knot(pr, in, F, y, (const Strided<T>*)nullptr, w.v, t);
+        x_residual_knot(pr, in, F, y, (const T*)nullptr, w.v, t);
     });
     exec([&](int lane) {
       for (int t = lane; t <= H; t += LANES) x_operator_knot(pr, in, F, y, w.v, rho, false, out, t);
@@ -503,13 +537,13 @@ HD void fista_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork
   }
   auto grad = [&]() {
     exec([&](int lane) {
-      for (int t = lane; t <= H; t += LANES) x_residual_knot(pr, in, F, w.Xy, &w.bP, w.v, t);
+      for (int t = lane; t <= H; t += LANES) x_residual_knot(pr, in, F, w.Xy, w.bP, w.v, t);
     });
     exec([&](int lane) {
       for (int t = lane; t <= H; t += LANES) x_operator_knot(pr, in, F, w.Xy, w.v, rho, true, w.Xg, t);
     });
   };
-  auto step = [&](int lane) {  // y_next = clip(y - grad / D, lb, ub)
+  auto step = [&](int lane, T beta) {  // y_next = clip(y - grad / D, lb, ub)
     T s = T(0);
     for (int i = lane; i < nX; i += LANES) {
       const T y = w.Xy[i];
@@ -520,56 +554,38 @@ HD void fista_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork
         yn = y - w.Xg[i] / Lx;
       }
       yn = s_min(s_max(yn, in.lb[i]), in.ub[i]);
-      w.Xg[i] = yn;
       s += (yn - y) * (yn - y);
+      w.Xy[i] = yn + beta * (yn - w.Xn[i]);
+      w.Xn[i] = yn;
     }
     w.part[lane] = s;
   };
-  fista_loop(pr, nX, w.Xn, w.Xy, w.Xg, w.part, grad, step, exec);
+  fista_loop(pr, w.part, grad, step, exec);
 }
 
-// lower Cholesky factor of a 9x9 SPD block, right-looking (pallas_admm.py:316-331)
+// solve (L L') y = y in place for one 9-vector, L lower (only the lower
+// triangle is read)
 template <typename T>
-HD void chol9(const T* A_in, T* L) {
-  T A[81];
-  for (int i = 0; i < 81; ++i) {
-    A[i] = A_in[i];
-    L[i] = T(0);
-  }
+HD void chol_solve9(const T* L, T* y) {
+  BK_UNROLL
   for (int j = 0; j < 9; ++j) {
-    const T d = s_sqrt(s_max(A[j * 9 + j], T(1e-30)));
-    T col[9];
-    for (int i = 0; i < 9; ++i) col[i] = i > j ? A[i * 9 + j] / d : (i == j ? d : T(0));
-    for (int i = 0; i < 9; ++i) L[i * 9 + j] = col[i];
-    for (int i = 0; i < 9; ++i)
-      for (int k = 0; k < 9; ++k) A[i * 9 + k] -= col[i] * col[k];
+    const T yj = y[j] / L[j * 9 + j];
+    BK_UNROLL
+    for (int i = j + 1; i < 9; ++i) y[i] -= L[i * 9 + j] * yj;
+    y[j] = yj;
   }
-}
-
-// solve (L L') Y = Y in place, Y (9, m) row-major with row stride ld
-template <typename T>
-HD void chol_solve9(const T* L, T* Y, int m, int ld) {
-  for (int j = 0; j < 9; ++j) {
-    const T dj = L[j * 9 + j];
-    for (int c = 0; c < m; ++c) {
-      const T yj = Y[j * ld + c] / dj;
-      for (int i = j + 1; i < 9; ++i) Y[i * ld + c] -= L[i * 9 + j] * yj;
-      Y[j * ld + c] = yj;
-    }
-  }
+  BK_UNROLL
   for (int j = 8; j >= 0; --j) {
-    const T dj = L[j * 9 + j];
-    for (int c = 0; c < m; ++c) {
-      const T yj = Y[j * ld + c] / dj;
-      for (int i = 0; i < j; ++i) Y[i * ld + c] -= L[j * 9 + i] * yj;
-      Y[j * ld + c] = yj;
-    }
+    const T yj = y[j] / L[j * 9 + j];
+    BK_UNROLL
+    for (int i = 0; i < j; ++i) y[i] -= L[j * 9 + i] * yj;
+    y[j] = yj;
   }
 }
 
 // G = dt skew(cF_t)
 template <typename T>
-HD void g_block(const AdmmInputs<T>& in, const Strided<T>& F, int t, T* G) {
+HD void g_block(const AdmmInputs<T>& in, const T* F, int t, T* G) {
   T c[3];
   cf_total(in, F, t, c);
   const T dt = in.dt[t];
@@ -578,66 +594,62 @@ HD void g_block(const AdmmInputs<T>& in, const Strided<T>& F, int t, T* G) {
   G[6] = -dt * c[1]; G[7] = dt * c[0];  G[8] = T(0);
 }
 
-// M_k = 2 W_k + 2 rho (1_{k<H} D_k'D_k + 1_{k>0} E_{k-1}'E_{k-1} + 1_{k=0} I)
+// entry (i, j) of M_k = 2 W_k + 2 rho A, A = 1_{k<H} D_k'D_k + 1_{k>0}
+// E_{k-1}'E_{k-1} + 1_{k=0} I, with G = g_block(k) for k < H:
+//   D'D = [[I+G'G, 0, G'],[0,I,0],[G,0,I]],
+//   E'E = [[I, -dt I, 0],[-dt I, (1+dt^2) I, 0],[0,0,I]]
+// (each entry gets its terms in this order)
 template <typename T>
-HD void m_block(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Strided<T>& F, int k,
-                T rho, T* M) {
-  T A[81];
-  for (int i = 0; i < 81; ++i) A[i] = T(0);
-  if (k < pr.H) {  // D'D = [[I+G'G, 0, G'],[0,I,0],[G,0,I]]
-    T G[9];
-    g_block(in, F, k, G);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        T gtg = T(0);
-        for (int r = 0; r < 3; ++r) gtg += G[r * 3 + i] * G[r * 3 + j];
-        A[i * 9 + j] = (i == j ? T(1) : T(0)) + gtg;
-        A[i * 9 + 6 + j] = G[j * 3 + i];
-        A[(6 + i) * 9 + j] = G[i * 3 + j];
-      }
-    for (int i = 3; i < 9; ++i) A[i * 9 + i] += T(1);
-  }
-  if (k > 0) {  // E'E = [[I, -dt I, 0],[-dt I, (1+dt^2) I, 0],[0,0,I]]
-    const T dt = in.dt[k - 1];
-    for (int i = 0; i < 3; ++i) {
-      A[i * 9 + i] += T(1);
-      A[i * 9 + 3 + i] += -dt;
-      A[(3 + i) * 9 + i] += -dt;
-      A[(3 + i) * 9 + 3 + i] += T(1) + dt * dt;
-      A[(6 + i) * 9 + 6 + i] += T(1);
+HD T m_el(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const T* G, int k, T rho, int i,
+          int j) {
+  T A = T(0);
+  if (k < pr.H) {
+    if (i < 3 && j < 3) {
+      T gtg = T(0);
+      for (int r = 0; r < 3; ++r) gtg += G[r * 3 + i] * G[r * 3 + j];
+      A = (i == j ? T(1) : T(0)) + gtg;
+    } else if (i < 3 && j >= 6) {
+      A = G[(j - 6) * 3 + i];
+    } else if (i >= 6 && j < 3) {
+      A = G[(i - 6) * 3 + j];
     }
+    if (i == j && i >= 3) A += T(1);
   }
-  if (k == 0)
-    for (int i = 0; i < 9; ++i) A[i * 9 + i] += T(1);
-  for (int i = 0; i < 9; ++i)
-    for (int j = 0; j < 9; ++j)
-      M[i * 9 + j] = (i == j ? T(2) * in.W[k * 9 + i] : T(0)) + T(2) * rho * A[i * 9 + j];
+  if (k > 0) {
+    const T dt = in.dt[k - 1];
+    if (i == j) A += (i >= 3 && i < 6) ? T(1) + dt * dt : T(1);
+    if ((i < 3 && j == i + 3) || (j < 3 && i == j + 3)) A += -dt;
+  }
+  if (k == 0 && i == j) A += T(1);
+  return (i == j ? T(2) * in.W[k * 9 + i] : T(0)) + T(2) * rho * A;
 }
 
-// U_k = 2 rho D_k'E_k = 2 rho [[-I, dt I, -G'],[0,-I,0],[0,0,-I]]
+// entry (i, j) of U_k = 2 rho D_k'E_k = 2 rho [[-I, dt I, -G'],[0,-I,0],[0,0,-I]]
 template <typename T>
-HD void u_block(const AdmmInputs<T>& in, const Strided<T>& F, int k, T rho, T* U) {
-  T G[9];
-  g_block(in, F, k, G);
-  const T dt = in.dt[k];
-  for (int i = 0; i < 81; ++i) U[i] = T(0);
-  for (int i = 0; i < 3; ++i) {
-    U[i * 9 + i] = -T(1);
-    U[i * 9 + 3 + i] = dt;
-    for (int j = 0; j < 3; ++j) U[i * 9 + 6 + j] = -G[j * 3 + i];
-    U[(3 + i) * 9 + 3 + i] = -T(1);
-    U[(6 + i) * 9 + 6 + i] = -T(1);
-  }
-  for (int i = 0; i < 81; ++i) U[i] *= T(2) * rho;
+HD T u_el(const AdmmInputs<T>& in, const T* G, int k, T rho, int i, int j) {
+  T u = T(0);
+  if (i == j)
+    u = -T(1);
+  else if (i < 3 && j == i + 3)
+    u = in.dt[k];
+  else if (i < 3 && j >= 6)
+    u = -G[(j - 6) * 3 + i];
+  return u * (T(2) * rho);
 }
 
 // exact X-subproblem minimizer clipped to the box -> w.Xn. The knot sweep is
-// sequential; within a knot the lanes share the [U | y] solve (a column
-// each), the Schur update of the next block and the back-substitution rows;
-// the 9x9 Cholesky is lane 0's.
+// sequential. Within a knot: the 9x9 Cholesky of C_k (right-looking,
+// pallas_admm.py:316-331) on one lane with the block's lower triangle in
+// registers (a 9x9 factor is ~300 operations on a chain of square roots and
+// divisions: split over the lanes, one barrier-separated phase per column,
+// it took 2.6x longer on the card); the [U | y] solve a column per lane; the
+// Schur update of the next block's lower triangle and right-hand side by the
+// lane that solved the column it reads, building only the entries of M_{k+1}
+// and U_k it needs;
+// the back-substitution by row. Two phases a knot.
 template <typename T, class Exec>
 HD void thomas_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T>& w,
-                 const Strided<T>& F, T rho, const Exec& exec) {
+                 const T* F, T rho, const Exec& exec) {
   const int H = pr.H;
   // rhs = -q + 2 rho A_f'(b_f - P), kept in w.dk and overwritten by d_k
   exec([&](int lane) {
@@ -648,71 +660,85 @@ HD void thomas_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWor
     }
   });
   exec([&](int lane) {
+    T G[9];
+    g_block(in, F, 0, G);
     for (int t = lane; t <= H; t += LANES) {
       T row[9];
       af_applyT_row(pr, in, F, w.v, t, row);
       for (int k = 0; k < 9; ++k) w.dk[t * 9 + k] = -in.ql[t * 9 + k] + T(2) * rho * row[k];
     }
+    for (int e = lane; e < 81; e += LANES)  // C_0 = M_0 (the factor reads the lower triangle)
+      if (e % 9 <= e / 9) w.Cm[e] = m_el(pr, in, G, 0, rho, e / 9, e % 9);
   });
   exec([&](int lane) {
-    T M[81];
-    m_block(pr, in, F, 0, rho, M);
-    for (int e = lane; e < 81; e += LANES) w.Cm[e] = M[e];
     for (int a = lane; a < 9; a += LANES) w.yv[a] = w.dk[a];
   });
   for (int k = 0; k <= H; ++k) {
-    exec([&](int lane) {
+    const long long t_chol = exec.prof.now();
+    exec([&](int lane) {  // the factor on one lane, in registers
       if (lane != 0) return;
-      T C[81], L[81];
-      for (int e = 0; e < 81; ++e) C[e] = w.Cm[e];
-      chol9(C, L);
-      for (int e = 0; e < 81; ++e) w.Lm[e] = L[e];
+      T A[45];  // the lower triangle, packed by rows
+      BK_UNROLL
+      for (int a = 0; a < 9; ++a) {
+        BK_UNROLL
+        for (int b = 0; b <= a; ++b) A[a * (a + 1) / 2 + b] = w.Cm[a * 9 + b];
+      }
+      BK_UNROLL
+      for (int j = 0; j < 9; ++j) {
+        const T d = s_sqrt(s_max(A[j * (j + 1) / 2 + j], T(1e-30)));
+        T col[9];
+        BK_UNROLL
+        for (int i = j + 1; i < 9; ++i) col[i] = A[i * (i + 1) / 2 + j] / d;
+        w.Lm[j * 9 + j] = d;
+        BK_UNROLL
+        for (int i = j + 1; i < 9; ++i) w.Lm[i * 9 + j] = col[i];
+        BK_UNROLL
+        for (int a = j + 1; a < 9; ++a) {
+          BK_UNROLL
+          for (int b = j + 1; b <= a; ++b) A[a * (a + 1) / 2 + b] -= col[a] * col[b];
+        }
+      }
     });
+    exec.prof.add(PH_CHOL, t_chol);
     if (k == H) {
       exec([&](int lane) {
         if (lane != 0) return;
-        T L[81], y[9];
-        for (int e = 0; e < 81; ++e) L[e] = w.Lm[e];
+        T y[9];
         for (int a = 0; a < 9; ++a) y[a] = w.yv[a];
-        chol_solve9(L, y, 1, 1);
+        chol_solve9(w.Lm, y);
         for (int a = 0; a < 9; ++a) w.dk[H * 9 + a] = y[a];
       });
       break;
     }
-    exec([&](int lane) {  // [U_k | y_k]
-      T U[81];
-      u_block(in, F, k, rho, U);
-      for (int e = lane; e < 90; e += LANES) {
-        const int i = e / 10, j = e % 10;
-        w.Sol[e] = j < 9 ? U[i * 9 + j] : w.yv[i];
-      }
-    });
-    exec([&](int lane) {  // C_k^-1 [U_k | y_k], a column per lane
-      for (int c = lane; c < 10; c += LANES) {
-        T L[81], col[9];
-        for (int e = 0; e < 81; ++e) L[e] = w.Lm[e];
-        for (int i = 0; i < 9; ++i) col[i] = w.Sol[i * 10 + c];
-        chol_solve9(L, col, 1, 1);
-        for (int i = 0; i < 9; ++i) w.Sol[i * 10 + c] = col[i];
-      }
-    });
     exec([&](int lane) {
-      // W_k, d_k; C_{k+1} = M_{k+1} - U_k' W_k ; y_{k+1} = rhs_{k+1} - U_k' d_k
-      T U[81], M[81];
-      u_block(in, F, k, rho, U);
-      m_block(pr, in, F, k + 1, rho, M);
-      for (int e = lane; e < 81; e += LANES) {
-        const int a = e / 9, b = e % 9;
-        w.Wk[k * 81 + e] = w.Sol[a * 10 + b];
-        T s = T(0);
-        for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * w.Sol[j * 10 + b];
-        w.Cm[e] = M[e] - s;
-      }
-      for (int a = lane; a < 9; a += LANES) {
-        w.dk[k * 9 + a] = w.Sol[a * 10 + 9];
-        T s = T(0);
-        for (int j = 0; j < 9; ++j) s += U[j * 9 + a] * w.Sol[j * 10 + 9];
-        w.yv[a] = w.dk[(k + 1) * 9 + a] - s;
+      // column c of C_k^-1 [U_k | y_k] on lane c, and what it alone feeds:
+      // for c < 9 column c of W_k and the lower entries of column c of
+      // C_{k+1} = M_{k+1} - U_k' W_k; for c = 9 d_k and y_{k+1} = rhs_{k+1} -
+      // U_k' d_k
+      T G[9], G1[9];
+      g_block(in, F, k, G);
+      if (k + 1 < H) g_block(in, F, k + 1, G1);
+      for (int c = lane; c < 10; c += LANES) {
+        T col[9];
+        BK_UNROLL
+        for (int i = 0; i < 9; ++i) col[i] = c < 9 ? u_el(in, G, k, rho, i, c) : w.yv[i];
+        chol_solve9(w.Lm, col);
+        BK_UNROLL
+        for (int a = 0; a < 9; ++a) {  // col stays in registers: constant indices only
+          if (c < 9)
+            w.Wk[k * 81 + a * 9 + c] = col[a];
+          else
+            w.dk[k * 9 + a] = col[a];
+        }
+        for (int a = c < 9 ? c : 0; a < 9; ++a) {
+          T s = T(0);
+          BK_UNROLL
+          for (int j = 0; j < 9; ++j) s += u_el(in, G, k, rho, j, a) * col[j];
+          if (c < 9)
+            w.Cm[a * 9 + c] = m_el(pr, in, G1, k + 1, rho, a, c) - s;
+          else
+            w.yv[a] = w.dk[(k + 1) * 9 + a] - s;
+        }
       }
     });
   }
@@ -739,8 +765,8 @@ HD void thomas_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWor
 // in the Jacobi metric (PRE) or not; exec(f) calls f(lane) on every lane and
 // then waits for all of them (a warp barrier on the card, a loop over the
 // lanes on the host). Code outside exec runs on every lane alike: the loop
-// decisions are taken from partial sums the lanes left in the scratch
-// buffer, so the lanes of a problem always agree; problems never wait for
+// decisions are taken from partial sums the lanes left in w.part, so the
+// lanes of a problem always agree; problems never wait for
 // each other. Leaves X, F in w.X, w.F; fista_out counts the F-step's FISTA
 // iterations.
 template <bool XF, bool PRE, typename T, class Exec>
@@ -754,13 +780,18 @@ HD void admm_branch(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Admm
   T rho = pr.rho, viol2 = T(3.0e38), chk = T(3.0e38);
   int iters = 0, fista_total = 0;
   const T exit2 = pr.exit_tol * pr.exit_tol;
+  const long long t_all = exec.prof.now();
   for (int it = 0; it < pr.max_admm_iters; ++it) {
     fista_total += f_step<PRE>(pr, in, w, rho, exec);
+    long long t = exec.prof.now();
     if (XF) {
       fista_x<PRE>(pr, in, w, w.xk, rho, exec);
+      exec.prof.add(PH_X_FISTA, t);
     } else {
       thomas_x(pr, in, w, w.xk, rho, exec);
+      exec.prof.add(PH_THOMAS, t);
     }
+    t = exec.prof.now();
 
     // ---- dual update, convergence, rho schedule ----
     exec([&](int lane) {
@@ -807,8 +838,10 @@ HD void admm_branch(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Admm
       });
     }
     if (it == 0) chk = s_min(chk, viol2);  // seed the stall checkpoint
+    exec.prof.add(PH_DUAL, t);
     if (!act) break;
   }
+  exec.prof.add(PH_TOTAL, t_all);
   exec([&](int lane) {
     if (lane != 0) return;
     *viol_out = s_sqrt(viol2);
@@ -834,25 +867,6 @@ HD void admm_problem(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Adm
       admm_branch<false, false>(pr, in, w, viol_out, iters_out, fista_out, exec);
   }
 }
-
-#ifdef __CUDACC__
-// a warp is one problem, a thread one lane; a phase ends at a warp barrier
-struct DeviceExec {
-  int lane;
-  template <class F>
-  __device__ void operator()(const F& f) const {
-    f(lane);
-    __syncwarp();
-  }
-};
-#else
-struct HostExec {
-  template <class F>
-  void operator()(const F& f) const {
-    for (int lane = 0; lane < LANES; ++lane) f(lane);
-  }
-};
-#endif
 
 template <typename T>
 AdmmParams<T> make_params(int H, int max_admm_iters, int fista_max_iters, int power_iters,

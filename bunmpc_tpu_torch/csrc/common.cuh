@@ -11,7 +11,11 @@
 #include <cmath>
 
 #ifdef __CUDACC__
-#define HD __host__ __device__ inline
+// forced inline: a phase's lambdas, the work arrays' pointers and the
+// parameter structs stay in registers (a struct whose address escapes into
+// a call is kept on the stack, and a pointer loaded from there loses its
+// shared-memory address space)
+#define HD __host__ __device__ __forceinline__
 #else
 #define HD inline
 #endif
@@ -80,20 +84,48 @@ HD double add_rn(double a, double b) {
 #endif
 }
 
+// Phase clocks of the profiling build (nvcc -DBK_PROFILE, built and read by
+// `python -m bunmpc_tpu_torch.profile_kernels --phases`): lane 0 of each
+// problem adds the clock64() cycles of a phase to its problem's row of a
+// (B, PROF_SLOTS) int64 buffer that <kernel>_set_profile installs. In every
+// other build a Prof is empty and its calls compile to nothing.
+constexpr int PROF_SLOTS = 16;
+#if defined(BK_PROFILE) && defined(__CUDACC__)
+__device__ long long* bk_prof_rows;
+struct Prof {
+  long long* row;  // lane 0 of a problem: its row; every other lane: nullptr
+  __device__ long long now() const { return clock64(); }
+  __device__ void add(int slot, long long t0) const {
+    if (row) row[slot] += clock64() - t0;
+  }
+};
+__device__ inline Prof make_prof(int b, bool lane0) {
+  return Prof{lane0 ? bk_prof_rows + (long)PROF_SLOTS * b : nullptr};
+}
+#define BK_SET_PROFILE(name)                                              \
+  extern "C" int name##_set_profile(void* rows) {                         \
+    return (int)cudaMemcpyToSymbol(bk::bk_prof_rows, &rows, sizeof(rows)); \
+  }
+#else
+struct Prof {
+  HD long long now() const { return 0; }
+  HD void add(int, long long) const {}
+};
+HD Prof make_prof(int, bool) { return Prof{}; }
+#define BK_SET_PROFILE(name)
+#endif
+
+// fully unroll the next loop in the device build
+#ifdef __CUDACC__
+#define BK_UNROLL _Pragma("unroll")
+#else
+#define BK_UNROLL
+#endif
+
 template <typename T>
 HD T s_max(T a, T b) { return a > b ? a : b; }
 template <typename T>
 HD T s_min(T a, T b) { return a < b ? a : b; }
-
-// A per-problem view of a batch-last scratch array: element i of problem b
-// lives at base[i * stride + b], so neighbouring threads touch neighbouring
-// addresses.
-template <typename T>
-struct Strided {
-  T* base;
-  long stride;
-  HD T& operator[](long i) const { return base[i * stride]; }
-};
 
 template <typename T>
 HD void cross3(const T* a, const T* b, T* out) {
@@ -104,5 +136,33 @@ HD void cross3(const T* a, const T* b, T* out) {
   out[1] = o1;
   out[2] = o2;
 }
+
+// Every kernel runs one problem on the LANES threads of a warp, as phases:
+// exec(f) calls f(lane) on every lane of the problem and then waits for all
+// of them. Lanes hand data to each other only through the problem's work
+// arrays, between phases.
+constexpr int LANES = 32;
+
+#ifdef __CUDACC__
+// a warp is one problem, a thread one lane; a phase ends at a warp barrier
+struct DeviceExec {
+  int lane;
+  Prof prof;
+  template <class F>
+  __device__ void operator()(const F& f) const {
+    f(lane);
+    __syncwarp();
+  }
+};
+#else
+// the host build runs the lanes of a phase one after another
+struct HostExec {
+  Prof prof;
+  template <class F>
+  void operator()(const F& f) const {
+    for (int lane = 0; lane < LANES; ++lane) f(lane);
+  }
+};
+#endif
 
 }  // namespace bk

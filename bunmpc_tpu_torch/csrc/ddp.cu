@@ -1,40 +1,55 @@
 // K2: the whole kinematic Gauss-Newton DDP (the MPC's IK) of one problem per
-// group of 16 CUDA threads.
+// CUDA warp.
 //
 // Replaces bunmpc_tpu/solvers/pallas_ddp.py:_build_kernel/solve_ik_batch:
 // for n_iters iterations — Gauss-Newton stage data at every knot (FK, body
-// velocities, centroidal momentum; the residual Jacobians from one
-// hand-written 18-direction tangent pass through the same recursions, the
-// momentum matrix from a velocity-tangent pass, the SE(3) chart blocks in
-// closed form), a Riccati backward sweep with an 18x18 Cholesky of Quu
-// (clamp rsqrt(max(d, 1e-20)), Levenberg term reg*I, symmetrized Vxx), then a
-// line search: one cost-only rollout per alpha, the earliest alpha with the
-// strictly lowest cost wins, and one storing rollout that is kept only if its
-// cost is below the current one. The first rollout uses zero controls.
+// velocities, centroidal momentum; the residual Jacobians from hand-written
+// tangent passes through the same recursions, one per configuration
+// direction, the momentum matrix from the velocity directions, the SE(3)
+// chart blocks in closed form), a Riccati backward sweep with an 18x18
+// Cholesky of Quu (clamp rsqrt(max(d, 1e-20)), Levenberg term reg*I,
+// symmetrized Vxx), then a line search: one cost-only rollout per alpha, the
+// earliest alpha with the strictly lowest cost wins, and one storing rollout
+// that is kept only if its cost is below the current one. The first rollout
+// uses zero controls.
 //
 // What bounds it on an H100: about 2,050 floats in and out per problem (about
 // 4.2 MB at B=512), so it is bound by f32 arithmetic: per iteration and knot
-// the 18-direction tangent FK pass, the Gauss-Newton products and the Riccati
-// step (Quu solve, Kfb'Qux update); per iteration len(alphas)+1 cost-only/storing
-// rollouts. Design: LANES threads per problem run the DDP as phases separated
-// by block barriers: the knots' Gauss-Newton data (independent per knot) and
-// the alphas' cost-only rollouts are split over the lanes; lane 0 runs the
-// serial Riccati sweep and the line-search decision. The robot constants come
-// from the port's RobotModel as one small argument buffer (every thread reads
-// the same address, so each load is a broadcast); per-problem trajectories,
-// gains, the knots' 36x36 curvatures and the Riccati matrices live in a
-// batch-last scratch buffer (element i of problem b at i*B + b), the FK caches
-// and Jacobian rows in registers/local memory. The Riccati products use the
-// block structure of the step Jacobians (6x6 base blocks plus scaled
-// identities, as the Pallas kernel does). Splitting the Riccati step itself
-// over the lanes is the next step.
+// the tangent passes, the Gauss-Newton products and the Riccati step (Quu
+// solve, Kfb'Qux update); per iteration len(alphas)+1 rollouts. What held
+// the first design back was not arithmetic but chains of dependent accesses
+// to a batch-last device-memory scratch, on 2 warps an SM. Design: the 32
+// lanes of a warp share one problem, with a warp barrier between phases, so
+// problems never wait for each other. A problem's work set — trajectory,
+// gains, the current knot's Gauss-Newton data, the Riccati matrices — and its
+// inputs live in its slice of the block's shared memory (ddp_layout; opted in
+// past 48 KB), so a phase's dependent accesses cost shared-memory latency. In
+// device memory, problem-major, stay the alphas' candidate trajectories and
+// each knot's record (FK cache, residual, B6, step blocks), computed for all
+// knots at once, a knot per lane, at the start of an iteration. The backward
+// sweep then runs knot by knot and builds each knot's Gauss-Newton data just
+// before its Riccati step, so no (H+1)-knot curvature array exists: the
+// knot's record copied into shared memory, its 36 tangent directions over
+// the lanes (each in registers: the tree is chains off the base), the 36x36
+// Gauss-Newton products by entry (each entry summed in the order of a
+// row-by-row accumulation); the Riccati products by entry, the Cholesky a
+// phase per pair of columns with the trailing update by entry, the gains a
+// column per lane. A rollout's state recursion takes a lane (the alphas' side
+// by side), its knots' costs go over the lanes. The per-problem code is
+// force-inlined (common.cuh: HD), so the work arrays' pointers stay in
+// registers and their accesses compile to shared-memory loads. The Riccati
+// products use the block structure of the step Jacobians (6x6 base blocks
+// plus scaled identities, as the Pallas kernel does). The robot constants
+// come from the port's RobotModel as one small argument buffer (every lane
+// reads the same address: a broadcast).
 //
 // Built by bunmpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC
 // (no fast math). Compiled with g++ instead (no __CUDACC__) it exports host
 // loops over the same per-problem phases (the lanes of a phase run one after
-// another), in float and double, for the CPU tests.
+// another, the shared-memory slice is a plain array), in float and double,
+// for the CPU tests.
 
 #include "common.cuh"
 
@@ -45,7 +60,13 @@ constexpr int NQ = 19, NV = 18, NX = 37, NDX = 36;
 constexpr int NR = 3 * NE + 9 + NDX;  // 57 stage residual rows
 constexpr int NRT = 9 + NDX;          // 45 terminal rows
 constexpr int MAX_ALPHAS = 8;
-constexpr int LANES = 16;  // threads per problem (>= H+1 knots, >= alphas)
+static_assert(LANES >= MAX_ALPHAS, "the alphas' rollouts take a lane each");
+// profiling-build phase slots (common.cuh: Prof)
+enum {
+  PH_TOTAL, PH_ROLLOUT0, PH_DERIVS, PH_RICCATI, PH_CHOL, PH_ALPHAS, PH_DECISION,
+  PH_DERIVS_COPY, PH_DERIVS_TANGENT, PH_DERIVS_GN, PH_RIC_PRODUCTS, PH_RIC_GAINS, PH_RIC_VXX,
+  PH_DERIVS_REC
+};
 
 // ---------------------------------------------------------------- model ----
 
@@ -380,122 +401,147 @@ HD void residual(const ModelView<T>& mv, const Kin<T>& k, const T* x, const T* e
   state_diff(xr, x, r + o);
 }
 
-// Jacobians wrt the configuration tangent (18 directions), one forward
-// tangent pass per direction through fk / velocities / centroidal / feet:
-// Jee (12 x 18), Jcom (3 x 18), Jh (6 x 18); and Ag = dh/dv (6 x 18)
+// One tangent direction of the Gauss-Newton rows at a knot, from its FK
+// cache k: d < NV a configuration direction (a forward tangent pass through
+// fk / velocities / centroidal / feet: column d of Jq = [Jee (12, with_ee
+// only) | Jcom (3) | Jh (6)] x 18), d >= NV a velocity direction (column
+// d - NV of the momentum matrix Ag = dh/dv, 6 x 18; h is linear in v). Row
+// stride NV. The tree is chains off the base (joint j's parent body is the
+// base or body j, the body of joint j-1; solvers/cuda_ddp.pack_model checks),
+// so the recursion keeps only the base's and the previous body's tangents,
+// in registers. A configuration direction runs it twice: the momentum rows
+// need the CoM tangent, a sum over every body.
 template <typename T>
-HD void tangent_rows(const ModelView<T>& mv, const Kin<T>& k, const T* x, bool with_ee,
-                     T (*Jee)[NV], T (*Jcom)[NV], T (*Jh)[NV], T (*Ag)[NV]) {
+HD void tangent_dir(const ModelView<T>& mv, const Kin<T>& k, const T* x, bool with_ee, int d,
+                    T* Jq, T* Ag) {
   const T* v = x + NQ;
-  const T M = mv.total_mass();
-  for (int d = 0; d < NV; ++d) {
-    T wt[NB][3], dp[NB][3], dom[NB][3], dvel[NB][3];
-    for (int i = 0; i < 3; ++i) {
-      dp[0][i] = d < 3 ? k.R[0][i * 3 + d] : T(0);
-      wt[0][i] = (d >= 3 && d < 6) ? k.R[0][i * 3 + d - 3] : T(0);
-    }
-    for (int j = 0; j < NJ; ++j) {
-      const int b = mv.parent(j), body = j + 1;
-      T cr[3];
-      cross3(wt[b], k.rj[j], cr);
-      for (int i = 0; i < 3; ++i) {
-        wt[body][i] = wt[b][i] + (d == 6 + j ? k.aw[j][i] : T(0));
-        dp[body][i] = dp[b][i] + cr[i];
-      }
-    }
-    cross3(wt[0], k.om[0], dom[0]);
-    cross3(wt[0], k.vel[0], dvel[0]);
-    for (int j = 0; j < NJ; ++j) {
-      const int b = mv.parent(j), body = j + 1;
-      T daw[3], c1[3], c2[3], ddp[3];
-      cross3(wt[body], k.aw[j], daw);
-      cross3(dom[b], k.rj[j], c1);
-      for (int i = 0; i < 3; ++i) ddp[i] = dp[body][i] - dp[b][i];
-      cross3(k.om[b], ddp, c2);
-      for (int i = 0; i < 3; ++i) {
-        dom[body][i] = dom[b][i] + daw[i] * v[6 + j];
-        dvel[body][i] = dvel[b][i] + c1[i] + c2[i];
-      }
-    }
-    T dc_w[NB][3], dv_com[NB][3], dcom[3] = {0, 0, 0};
-    for (int b = 0; b < NB; ++b) {
-      T dc_off[3], c1[3], c2[3];
-      cross3(wt[b], k.c_off[b], dc_off);
-      cross3(dom[b], k.c_off[b], c1);
-      cross3(k.om[b], dc_off, c2);
-      for (int i = 0; i < 3; ++i) {
-        dc_w[b][i] = dp[b][i] + dc_off[i];
-        dv_com[b][i] = dvel[b][i] + c1[i] + c2[i];
-        dcom[i] += mv.mass(b) * dc_w[b][i];
-      }
-    }
-    for (int i = 0; i < 3; ++i) dcom[i] /= M;
-    T dhl[3] = {0, 0, 0}, dha[3] = {0, 0, 0};
-    for (int b = 0; b < NB; ++b) {
-      const T m = mv.mass(b);
-      T Io[3], a1[3], wo[3], a2[3], a3[3], dd[3], a4[3], cc[3], a5[3];
-      mv3(k.Iw[b], k.om[b], Io);
-      cross3(wt[b], Io, a1);  // (w~ I_w - I_w w~) om + I_w dom
-      cross3(wt[b], k.om[b], wo);
-      mv3(k.Iw[b], wo, a2);
-      mv3(k.Iw[b], dom[b], a3);
-      for (int i = 0; i < 3; ++i) dd[i] = dc_w[b][i] - dcom[i];
-      cross3(dd, k.v_com[b], a4);
-      for (int i = 0; i < 3; ++i) cc[i] = k.c_w[b][i] - k.com[i];
-      cross3(cc, dv_com[b], a5);
-      for (int i = 0; i < 3; ++i) {
-        dhl[i] += m * dv_com[b][i];
-        dha[i] += a1[i] - a2[i] + a3[i] + m * a4[i] + m * a5[i];
-      }
-    }
-    for (int i = 0; i < 3; ++i) {
-      Jcom[i][d] = dcom[i];
-      Jh[i][d] = dhl[i];
-      Jh[3 + i][d] = dha[i];
-    }
-    if (with_ee) {
-      for (int f = 0; f < NE; ++f) {
-        const int fb = mv.foot_body(f);
-        T a[3], cr[3];
-        mv3(k.R[fb], mv.foot_pos(f), a);
-        cross3(wt[fb], a, cr);
-        for (int i = 0; i < 3; ++i) Jee[f * 3 + i][d] = dp[fb][i] + cr[i];
-      }
+  const bool config = d < NV;
+  if (!config) d -= NV;
+  T wt0[3], dp0[3], dom0[3], dvel0[3];  // the base's tangents
+  for (int i = 0; i < 3; ++i) {
+    const T tr = d < 3 ? k.R[0][i * 3 + d] : T(0);
+    const T rot = (d >= 3 && d < 6) ? k.R[0][i * 3 + d - 3] : T(0);
+    if (config) {
+      dp0[i] = tr;
+      wt0[i] = rot;
+    } else {
+      dvel0[i] = tr;
+      dom0[i] = rot;
     }
   }
-  // momentum matrix: velocity tangents (h is linear in v)
-  for (int d = 0; d < NV; ++d) {
-    T dom[NB][3], dvel[NB][3];
-    for (int i = 0; i < 3; ++i) {
-      dvel[0][i] = d < 3 ? k.R[0][i * 3 + d] : T(0);
-      dom[0][i] = (d >= 3 && d < 6) ? k.R[0][i * 3 + d - 3] : T(0);
-    }
-    for (int j = 0; j < NJ; ++j) {
-      const int b = mv.parent(j), body = j + 1;
-      T cr[3];
-      cross3(dom[b], k.rj[j], cr);
-      for (int i = 0; i < 3; ++i) {
-        dom[body][i] = dom[b][i] + (d == 6 + j ? k.aw[j][i] : T(0));
-        dvel[body][i] = dvel[b][i] + cr[i];
-      }
-    }
-    T dhl[3] = {0, 0, 0}, dha[3] = {0, 0, 0};
+  if (config) {
+    cross3(wt0, k.om[0], dom0);
+    cross3(wt0, k.vel[0], dvel0);
+  }
+  T dcom[3] = {0, 0, 0}, dhl[3] = {0, 0, 0}, dha[3] = {0, 0, 0};
+  for (int pass = 0; pass < (config ? 2 : 1); ++pass) {
+    const bool first = pass == 0, last = pass == (config ? 1 : 0);
+    T wt[3], dp[3], dom[3], dvel[3];  // the current body's tangents
+    BK_UNROLL
     for (int b = 0; b < NB; ++b) {
+      if (b == 0) {
+        for (int i = 0; i < 3; ++i) {
+          wt[i] = wt0[i];
+          dp[i] = dp0[i];
+          dom[i] = dom0[i];
+          dvel[i] = dvel0[i];
+        }
+      } else {  // body b = j + 1 from its parent: the base or the previous body
+        const int j = b - 1, pb = mv.parent(j);
+        const bool from_base = pb == 0;
+        T qwt[3], qdp[3], qdom[3], qdvel[3];
+        for (int i = 0; i < 3; ++i) {
+          qwt[i] = from_base ? wt0[i] : wt[i];
+          qdp[i] = from_base ? dp0[i] : dp[i];
+          qdom[i] = from_base ? dom0[i] : dom[i];
+          qdvel[i] = from_base ? dvel0[i] : dvel[i];
+        }
+        const T e = d == 6 + j ? T(1) : T(0);
+        if (config) {
+          T cr[3], daw[3], c1[3], c2[3], ddp[3];
+          cross3(qwt, k.rj[j], cr);
+          for (int i = 0; i < 3; ++i) {
+            wt[i] = qwt[i] + (e != T(0) ? k.aw[j][i] : T(0));
+            dp[i] = qdp[i] + cr[i];
+          }
+          cross3(wt, k.aw[j], daw);
+          cross3(qdom, k.rj[j], c1);
+          for (int i = 0; i < 3; ++i) ddp[i] = dp[i] - qdp[i];
+          cross3(k.om[pb], ddp, c2);
+          for (int i = 0; i < 3; ++i) {
+            dom[i] = qdom[i] + daw[i] * v[6 + j];
+            dvel[i] = qdvel[i] + c1[i] + c2[i];
+          }
+        } else {
+          T cr[3];
+          cross3(qdom, k.rj[j], cr);
+          for (int i = 0; i < 3; ++i) {
+            dom[i] = qdom[i] + (e != T(0) ? k.aw[j][i] : T(0));
+            dvel[i] = qdvel[i] + cr[i];
+          }
+        }
+      }
       const T m = mv.mass(b);
-      T c1[3], dvc[3], Id[3], cc[3], c2[3];
-      cross3(dom[b], k.c_off[b], c1);
-      for (int i = 0; i < 3; ++i) dvc[i] = dvel[b][i] + c1[i];
-      mv3(k.Iw[b], dom[b], Id);
+      T cc[3];
       for (int i = 0; i < 3; ++i) cc[i] = k.c_w[b][i] - k.com[i];
-      cross3(cc, dvc, c2);
+      if (!config) {
+        T c1[3], dvc[3], Id[3], c2[3];
+        cross3(dom, k.c_off[b], c1);
+        for (int i = 0; i < 3; ++i) dvc[i] = dvel[i] + c1[i];
+        mv3(k.Iw[b], dom, Id);
+        cross3(cc, dvc, c2);
+        for (int i = 0; i < 3; ++i) {
+          dhl[i] += m * dvc[i];
+          dha[i] += Id[i] + m * c2[i];
+        }
+        continue;
+      }
+      T dc_off[3], c1[3], c2[3], dcw[3], dvc[3];
+      cross3(wt, k.c_off[b], dc_off);
+      cross3(dom, k.c_off[b], c1);
+      cross3(k.om[b], dc_off, c2);
       for (int i = 0; i < 3; ++i) {
-        dhl[i] += m * dvc[i];
-        dha[i] += Id[i] + m * c2[i];
+        dcw[i] = dp[i] + dc_off[i];
+        dvc[i] = dvel[i] + c1[i] + c2[i];
+      }
+      if (first) {
+        for (int i = 0; i < 3; ++i) dcom[i] += m * dcw[i];
+        if (with_ee)
+          for (int f = 0; f < NE; ++f) {
+            if (mv.foot_body(f) != b) continue;
+            T a[3], cr[3];
+            mv3(k.R[b], mv.foot_pos(f), a);
+            cross3(wt, a, cr);
+            for (int i = 0; i < 3; ++i) Jq[(f * 3 + i) * NV + d] = dp[i] + cr[i];
+          }
+      } else {  // (w~ I_w - I_w w~) om + I_w dom, and the momentum about the CoM
+        T Io[3], a1[3], wo[3], a2[3], a3[3], dd[3], a4[3], a5[3];
+        mv3(k.Iw[b], k.om[b], Io);
+        cross3(wt, Io, a1);
+        cross3(wt, k.om[b], wo);
+        mv3(k.Iw[b], wo, a2);
+        mv3(k.Iw[b], dom, a3);
+        for (int i = 0; i < 3; ++i) dd[i] = dcw[i] - dcom[i];
+        cross3(dd, k.v_com[b], a4);
+        cross3(cc, dvc, a5);
+        for (int i = 0; i < 3; ++i) {
+          dhl[i] += m * dvc[i];
+          dha[i] += a1[i] - a2[i] + a3[i] + m * a4[i] + m * a5[i];
+        }
       }
     }
+    if (config && first)
+      for (int i = 0; i < 3; ++i) dcom[i] /= mv.total_mass();
+    if (!last) continue;
     for (int i = 0; i < 3; ++i) {
-      Ag[i][d] = dhl[i];
-      Ag[3 + i][d] = dha[i];
+      if (config) {
+        Jq[(3 * NE + i) * NV + d] = dcom[i];
+        Jq[(3 * NE + 3 + i) * NV + d] = dhl[i];
+        Jq[(3 * NE + 6 + i) * NV + d] = dha[i];
+      } else {
+        Ag[i * NV + d] = dhl[i];
+        Ag[(3 + i) * NV + d] = dha[i];
+      }
     }
   }
 }
@@ -507,14 +553,59 @@ struct DdpInputs {
   const T *x0, *ee_t, *com_ref, *mom_ref, *x_reg, *w_stage, *w_term, *wu, *dts;
 };
 
+// One problem's work arrays: all but the alphas' candidates in its slice of
+// the block's shared memory (a plain array in the host build).
 template <typename T>
 struct DdpWork {
-  Strided<T> xs, us, kff, Kfb;              // trajectory and gains
-  Strided<T> Lx, Lxx, Fb;                   // per knot: GN gradient, curvature, [A6 | Jr6]
-  Strided<T> Vx, Vxx, Qx, Qu, Qux, Quu, Lc;  // the Riccati step
-  Strided<T> Tmp, T1;                       // its 18x18 and 36x36 temporaries
-  Strided<T> ca, xsA, usA;                  // per alpha: cost and candidate trajectory
+  T *xs, *us, *kff, *Kfb;              // trajectory and gains
+  T *Lx, *Qxx, *Fb;  // the current knot: GN gradient, curvature (made Qxx), [A6 | Jr6]
+  T *Vx, *Vxx, *Qx, *Qu, *Qux, *Quu, *Lc;  // the Riccati step
+  T *U;   // the knot's FK cache and rows | the step's 18x18 products | its 36x36 T1
+  T *kc;  // per alpha and knot: the rollouts' costs
+  // device memory, problem-major: per alpha, the candidate trajectory; per
+  // knot, the record of what its Gauss-Newton data needs from the trajectory
+  T *xsA, *usA, *rec;
 };
+
+constexpr int KIN_N = (int)(sizeof(Kin<float>) / sizeof(float));
+constexpr int JQ_ROWS = 3 * NE + 3 + 6;  // [ee | com | h]
+// a knot's record: [FK cache | residual | B6 = Jr^-1(sdiff base) | A6 | Jr6]
+constexpr int REC_N = KIN_N + NR + 36 + 72;
+static_assert(KIN_N + NR + 36 + (JQ_ROWS + 6) * NV <= NDX * NDX, "the knot's data fits in U");
+
+// Element offsets of one problem's shared-memory slice: the work arrays,
+// then the inputs, staged there once.
+struct DdpLayout {
+  long xs, us, kff, Kfb, Lx, Qxx, Fb, Vx, Vxx, Qx, Qu, Qux, Quu, Lc, U, kc;
+  long x0, ee_t, com_ref, mom_ref, x_reg, w_stage, w_term, wu, dts, n;
+};
+
+HD DdpLayout ddp_layout(int H) {
+  long o = 0;
+  auto take = [&](long n) {
+    const long at = o;
+    o += n;
+    return at;
+  };
+  DdpLayout L;
+  L.xs = take((H + 1L) * NX); L.us = take((long)H * NV); L.kff = take((long)H * NV);
+  L.Kfb = take((long)H * NV * NDX);
+  L.Lx = take(NDX); L.Qxx = take(NDX * NDX); L.Fb = take(72);
+  L.Vx = take(NDX); L.Vxx = take(NDX * NDX); L.Qx = take(NDX); L.Qu = take(NV);
+  L.Qux = take(NDX * NV); L.Quu = take(NV * NV); L.Lc = take(NV * NV);
+  L.U = take(NDX * NDX); L.kc = take(MAX_ALPHAS * (H + 1L));
+  L.x0 = take(NX); L.ee_t = take((long)H * NE * 3); L.com_ref = take((H + 1L) * 3);
+  L.mom_ref = take((H + 1L) * 6); L.x_reg = take((H + 1L) * NX); L.w_stage = take((long)H * NR);
+  L.w_term = take(NRT); L.wu = take((long)H * NV); L.dts = take(H);
+  L.n = o;
+  return L;
+}
+
+// device-memory elements per problem: the alphas' candidate trajectories,
+// the knots' records
+HD long ddp_global_elems(int H) {
+  return MAX_ALPHAS * ((H + 1L) * NX + (long)H * NV) + (H + 1L) * REC_N;
+}
 
 template <typename T>
 HD T stage_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, const T* u, int k) {
@@ -543,214 +634,275 @@ HD T term_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, int H
   return T(0.5) * s;
 }
 
-// forward rollout u_k = us_k + alpha kff_k + Kfb_k (x (-) xs_k); returns the
-// total cost and writes the trajectory into xs_out/us_out
+// the states and controls of a forward rollout u_k = us_k + alpha kff_k +
+// Kfb_k (x (-) xs_k) (or zero controls) into xs_out/us_out; its cost is
+// knot_cost's, knot by knot, summed by total_cost
 template <typename T>
-HD T rollout(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
-             T alpha, bool zero_controls, const Strided<T>& xs_out, const Strided<T>& us_out) {
-  T x[NX], xn[NX], u[NV], xr[NX], dx[NDX];
+HD void rollout(const DdpInputs<T>& in, const DdpWork<T>& w, int H, T alpha, bool zero_controls,
+                T* xs_out, T* us_out) {
+  T x[NX], xn[NX], u[NV], dx[NDX];
   for (int i = 0; i < NX; ++i) x[i] = in.x0[i];
   for (int i = 0; i < NX; ++i) xs_out[i] = x[i];
-  T c = T(0);
   for (int k = 0; k < H; ++k) {
     if (zero_controls) {
       for (int i = 0; i < NV; ++i) u[i] = T(0);
     } else {
-      for (int i = 0; i < NX; ++i) xr[i] = w.xs[k * NX + i];
-      state_diff(xr, x, dx);
+      state_diff(w.xs + k * NX, x, dx);
       for (int i = 0; i < NV; ++i) {
         T s = w.us[k * NV + i] + alpha * w.kff[k * NV + i];
         for (int j = 0; j < NDX; ++j) s += w.Kfb[(k * NV + i) * NDX + j] * dx[j];
         u[i] = s;
       }
     }
-    c += stage_cost(mv, in, x, u, k);
     step(x, u, in.dts[k], xn);
     for (int i = 0; i < NV; ++i) us_out[k * NV + i] = u[i];
     for (int i = 0; i < NX; ++i) xs_out[(k + 1) * NX + i] = xn[i];
     for (int i = 0; i < NX; ++i) x[i] = xn[i];
   }
-  return c + term_cost(mv, in, x, H);
 }
 
-// Gauss-Newton gradient g (36) and curvature Hm (36x36, into scratch) of
-// 0.5 r'Wr at x: rows [ee | com | h | sdiff] (stage) or [com | h | sdiff]
-// (terminal); the sdiff q-rows are B6 = Jr^-1(sdiff base) for the base and
-// identity for the joints, its v-rows identity
+// the cost of knot k of a stored trajectory (k == H: the terminal cost)
 template <typename T>
-HD void gn_accumulate(const ModelView<T>& mv, const Kin<T>& k, const T* x, const T* r,
-                      const T* wts, bool terminal, T scale, T* g, const Strided<T>& Hm) {
-  T Jee[3 * NE][NV], Jcom[3][NV], Jh[6][NV], Ag[6][NV];
-  tangent_rows(mv, k, x, !terminal, Jee, Jcom, Jh, Ag);
-  for (int i = 0; i < NDX; ++i) g[i] = T(0);
-  for (int i = 0; i < NDX * NDX; ++i) Hm[i] = T(0);
-  const int off = terminal ? 0 : 3 * NE;
-  // rows with a q-part only: ee, com, base sdiff
-  auto add_q_row = [&](const T* row, T wr, T rr) {
-    for (int a = 0; a < NV; ++a) {
-      if (row[a] == T(0)) continue;
-      g[a] += row[a] * (wr * rr);
-      const T ra = row[a] * wr;
-      for (int b = 0; b < NV; ++b) Hm[a * NDX + b] += ra * row[b];
-    }
-  };
-  if (!terminal)
-    for (int i = 0; i < 3 * NE; ++i) add_q_row(Jee[i], wts[i], r[i]);
-  for (int i = 0; i < 3; ++i) add_q_row(Jcom[i], wts[off + i], r[off + i]);
-  for (int i = 0; i < 6; ++i) {  // momentum rows: q-part Jh, v-part Ag
-    const T wr = wts[off + 3 + i], rr = r[off + 3 + i];
-    for (int a = 0; a < NV; ++a) {
-      g[a] += Jh[i][a] * (wr * rr);
-      g[NV + a] += Ag[i][a] * (wr * rr);
-      const T qa = Jh[i][a] * wr, va = Ag[i][a] * wr;
-      for (int b = 0; b < NV; ++b) {
-        Hm[a * NDX + b] += qa * Jh[i][b];
-        Hm[a * NDX + NV + b] += qa * Ag[i][b];
-        Hm[(NV + a) * NDX + NV + b] += va * Ag[i][b];
+HD T knot_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* xs, const T* us, int H,
+               int k) {
+  return k < H ? stage_cost(mv, in, xs + k * NX, us + k * NV, k)
+               : term_cost(mv, in, xs + H * NX, H);
+}
+
+// a trajectory's cost from its knots' costs, summed in knot order
+template <typename T>
+HD T total_cost(const T* kc, int H) {
+  T c = T(0);
+  for (int k = 0; k < H; ++k) c += kc[k];
+  return c + kc[H];
+}
+
+// A knot's Gauss-Newton rows: Jq = [ee | com | h] (q-part), Ag (the h rows'
+// v-part), the residual r, B6 = Jr^-1(sdiff base), the weights and scale.
+template <typename T>
+struct GnRows {
+  const T *Jq, *Ag, *r, *B6, *wts;
+  bool terminal;
+  T scale;
+};
+
+// Entry (a, b) of the Gauss-Newton curvature of 0.5 r'Wr: rows [ee | com | h
+// | sdiff] (stage) or [com | h | sdiff] (terminal); the sdiff q-rows are B6
+// for the base and identity for the joints, its v-rows identity. Each
+// entry's terms are summed in the order a row-by-row accumulation adds them
+// (rows with a q-part only skip a zero factor, as it does: by a select, not
+// a branch the lanes would take apart), then scaled.
+template <typename T>
+HD T gn_curv(const GnRows<T>& G, int a, int b) {
+  const int off = G.terminal ? 0 : 3 * NE;
+  const T* ws = G.wts + off + 9;  // the sdiff rows' weights
+  const T* wh = G.wts + off + 3;  // the momentum rows' weights
+  const T* Jh = G.Jq + (3 * NE + 3) * NV;
+  T s = T(0);
+  if (a < NV && b < NV) {
+    if (!G.terminal)
+      for (int i = 0; i < 3 * NE; ++i) {
+        const T ra = G.Jq[i * NV + a], t = s + (ra * G.wts[i]) * G.Jq[i * NV + b];
+        s = ra != T(0) ? t : s;
       }
+    for (int i = 0; i < 3; ++i) {
+      const T ra = G.Jq[(3 * NE + i) * NV + a];
+      const T t = s + (ra * G.wts[off + i]) * G.Jq[(3 * NE + i) * NV + b];
+      s = ra != T(0) ? t : s;
     }
+    for (int i = 0; i < 6; ++i) s += (Jh[i * NV + a] * wh[i]) * Jh[i * NV + b];
+    if (a < 6)
+      for (int i = 0; i < 6; ++i) {
+        const T ra = G.B6[i * 6 + a], t = s + (ra * ws[i]) * (b < 6 ? G.B6[i * 6 + b] : T(0));
+        s = ra != T(0) ? t : s;
+      }
+    if (a == b && a >= 6) s += ws[a];  // joint identity rows
+  } else if (a < NV || b < NV) {  // H_qv, and H_vq = H_qv'
+    const int q = a < NV ? a : b, v = (a < NV ? b : a) - NV;
+    for (int i = 0; i < 6; ++i) s += (Jh[i * NV + q] * wh[i]) * G.Ag[i * NV + v];
+  } else {
+    for (int i = 0; i < 6; ++i) s += (G.Ag[i * NV + a - NV] * wh[i]) * G.Ag[i * NV + b - NV];
+    if (a == b) s += ws[a];  // velocity identity rows
   }
-  const int so = off + 9;
-  const T* rs = r + so;
-  const T* ws = wts + so;
-  T B6[36];
-  se3_Jr_inv(rs, rs + 3, B6);
-  for (int i = 0; i < 6; ++i) {
-    T row[NV];
-    for (int a = 0; a < NV; ++a) row[a] = a < 6 ? B6[i * 6 + a] : T(0);
-    add_q_row(row, ws[i], rs[i]);
-  }
-  for (int a = 6; a < NV; ++a) {  // joint identity rows
-    g[a] += ws[a] * rs[a];
-    Hm[a * NDX + a] += ws[a];
-  }
-  for (int a = 0; a < NV; ++a) {  // velocity identity rows
-    g[NV + a] += ws[NV + a] * rs[NV + a];
-    Hm[(NV + a) * NDX + NV + a] += ws[NV + a];
-  }
-  for (int a = 0; a < NV; ++a)  // H_vq = H_qv'
-    for (int b = 0; b < NV; ++b) Hm[(NV + a) * NDX + b] = Hm[b * NDX + NV + a];
-  for (int i = 0; i < NDX; ++i) g[i] *= scale;
-  for (int i = 0; i < NDX * NDX; ++i) Hm[i] *= scale;
+  return s * G.scale;
 }
 
-// the view of s starting at element o
+// entry a of the Gauss-Newton gradient, in the same order
 template <typename T>
-HD Strided<T> sub(const Strided<T>& s, long o) {
-  return Strided<T>{s.base + o * s.stride, s.stride};
+HD T gn_grad(const GnRows<T>& G, int a) {
+  const int off = G.terminal ? 0 : 3 * NE;
+  const T *ws = G.wts + off + 9, *rs = G.r + off + 9;
+  const T *wh = G.wts + off + 3, *rh = G.r + off + 3;
+  const T* Jh = G.Jq + (3 * NE + 3) * NV;
+  T s = T(0);
+  if (a < NV) {
+    if (!G.terminal)
+      for (int i = 0; i < 3 * NE; ++i) {
+        const T ra = G.Jq[i * NV + a], t = s + ra * (G.wts[i] * G.r[i]);
+        s = ra != T(0) ? t : s;
+      }
+    for (int i = 0; i < 3; ++i) {
+      const T ra = G.Jq[(3 * NE + i) * NV + a], t = s + ra * (G.wts[off + i] * G.r[off + i]);
+      s = ra != T(0) ? t : s;
+    }
+    for (int i = 0; i < 6; ++i) s += Jh[i * NV + a] * (wh[i] * rh[i]);
+    if (a < 6) {
+      for (int i = 0; i < 6; ++i) {
+        const T ra = G.B6[i * 6 + a], t = s + ra * (ws[i] * rs[i]);
+        s = ra != T(0) ? t : s;
+      }
+    } else {
+      s += ws[a] * rs[a];
+    }
+  } else {
+    for (int i = 0; i < 6; ++i) s += G.Ag[i * NV + a - NV] * (wh[i] * rh[i]);
+    s += ws[a] * rs[a];
+  }
+  return s * G.scale;
 }
 
-// element (i, j) of blk(M6, s)' X, X an 18x18 block with row stride ld
+// Knot k's record at the current trajectory: its kinematics (the FK
+// cache), its residual, B6 = Jr^-1(sdiff base) and, for k < H, the 6x6 base
+// blocks of the step Jacobians [A6 | Jr6]. Knots are independent of each
+// other and of the backward sweep.
 template <typename T>
-HD T blkT_el(const T* M6, T s, const Strided<T>& X, int ld, int i, int j) {
-  if (i >= 6) return s * X[i * ld + j];
-  T v = T(0);
-  for (int k = 0; k < 6; ++k) v += M6[k * 6 + i] * X[k * ld + j];
-  return v;
-}
-
-// element (i, j) of X blk(M6, s)
-template <typename T>
-HD T blk_el(const Strided<T>& X, int ld, const T* M6, T s, int i, int j) {
-  if (j >= 6) return s * X[i * ld + j];
-  T v = T(0);
-  for (int k = 0; k < 6; ++k) v += X[i * ld + k] * M6[k * 6 + j];
-  return v;
-}
-
-// Gauss-Newton data of knot k (k == H: the terminal cost) at the current
-// trajectory: w.Lx[k], w.Lxx[k]; for k < H also the 6x6 base blocks of the
-// step Jacobians, w.Fb[k] = [A6 | Jr6]. Knots are independent of each other.
-template <typename T>
-HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+HD void knot_record(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
                     int k) {
-  T x[NX], r[NR], g[NDX];
-  Kin<T> kin;
   const bool term = k == H;
-  for (int i = 0; i < NX; ++i) x[i] = w.xs[k * NX + i];
+  const T* x = w.xs + k * NX;
+  T* rec = w.rec + (long)k * REC_N;
+  Kin<T>& kin = *reinterpret_cast<Kin<T>*>(rec);
+  T* r = rec + KIN_N;
   kinematics(mv, x, kin);
   residual(mv, kin, x, term ? (const T*)nullptr : in.ee_t + k * NE * 3, in.com_ref + k * 3,
            in.mom_ref + k * 6, in.x_reg + k * NX, term, r);
-  gn_accumulate(mv, kin, x, r, term ? in.w_term : in.w_stage + k * NR, term,
-                term ? T(1) : in.dts[k], g, sub(w.Lxx, (long)k * NDX * NDX));
-  for (int i = 0; i < NDX; ++i) w.Lx[k * NDX + i] = g[i];
+  const T* rs = r + (term ? 0 : 3 * NE) + 9;
+  se3_Jr_inv(rs, rs + 3, r + NR);
   if (term) return;
   // the step x+ = (q (+) v+ dt, v+), v+ = v + u dt: Fx = [[A, Bd], [0, I]],
   // Fu = [[C], [dt I]] with A = blk(A6, 1), Bd = blk(Jr6 dt, dt),
-  // C = blk(Jr6 dt^2, dt^2), where blk(M6, s) is a 6x6 base block followed by
-  // s times the 12x12 identity on the joints
+  // C = blk(Jr6 dt^2, dt^2), where blk(M6, s) is a 6x6 base block followed
+  // by s times the 12x12 identity on the joints
   const T dt = in.dts[k];
-  T w6[6], A6[36], Jr6[36];
+  T w6[6];
   for (int i = 0; i < 6; ++i) w6[i] = (x[NQ + i] + w.us[k * NV + i] * dt) * dt;
   const T nw[6] = {-w6[0], -w6[1], -w6[2], -w6[3], -w6[4], -w6[5]};
-  se3_adjoint_exp(nw, nw + 3, A6);
-  se3_Jr(w6, w6 + 3, Jr6);
-  for (int i = 0; i < 36; ++i) {
-    w.Fb[k * 72 + i] = A6[i];
-    w.Fb[k * 72 + 36 + i] = Jr6[i];
-  }
+  se3_adjoint_exp(nw, nw + 3, r + NR + 36);
+  se3_Jr(w6, w6 + 3, r + NR + 72);
 }
 
-// knot k's A6, B6 = Jr6 dt, C6 = Jr6 dt^2
+// Gauss-Newton data of knot k (k == H: the terminal cost) at the current
+// trajectory, from its record: the curvature into Hm, the gradient into g,
+// for k < H the step blocks into w.Fb. Three phases: every lane copies part
+// of the record into shared memory (w.U, w.Fb); every lane takes tangent
+// directions (36: 18 configuration, 18 velocity); every lane takes entries
+// of Hm and g.
+template <typename T, class Exec>
+HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+                    int k, T* Hm, T* g, const Exec& exec) {
+  const bool term = k == H;
+  const T* x = w.xs + k * NX;
+  const Kin<T>& kin = *reinterpret_cast<const Kin<T>*>(w.U);
+  const T* r = w.U + KIN_N;
+  const T* B6 = r + NR;
+  T* Jq = w.U + KIN_N + NR + 36;
+  T* Ag = Jq + JQ_ROWS * NV;
+  long long t = exec.prof.now();
+  exec([&](int lane) {
+    const T* rec = w.rec + (long)k * REC_N;
+    for (int i = lane; i < KIN_N + NR + 36; i += LANES) w.U[i] = rec[i];
+    if (!term)
+      for (int i = lane; i < 72; i += LANES) w.Fb[i] = rec[KIN_N + NR + 36 + i];
+  });
+  exec.prof.add(PH_DERIVS_COPY, t);
+  t = exec.prof.now();
+  exec([&](int lane) {
+    for (int d = lane; d < NDX; d += LANES) tangent_dir(mv, kin, x, !term, d, Jq, Ag);
+  });
+  exec.prof.add(PH_DERIVS_TANGENT, t);
+  t = exec.prof.now();
+  const GnRows<T> G{Jq, Ag, r, B6, term ? in.w_term : in.w_stage + k * NR, term,
+                    term ? T(1) : in.dts[k]};
+  exec([&](int lane) {
+    // the entries quadrant by quadrant (qq, qv, vq, vv), so that a warp's
+    // lanes mostly take the same branch of gn_curv
+    for (int e = lane; e < NDX * NDX; e += LANES) {
+      const int quad = e / (NV * NV), i = e % (NV * NV);
+      const int a = i / NV + (quad >= 2 ? NV : 0), b = i % NV + (quad % 2 ? NV : 0);
+      Hm[a * NDX + b] = gn_curv(G, a, b);
+    }
+    for (int a = lane; a < NDX; a += LANES) g[a] = gn_grad(G, a);
+  });
+  exec.prof.add(PH_DERIVS_GN, t);
+}
+
+// element (i, j) of blk(M6 f, s)' X, X an 18x18 block with row stride ld;
+// M6 f is the 6x6 block scaled element by element
 template <typename T>
-HD void step_blocks(const DdpWork<T>& w, int k, T dt, T* A6, T* B6, T* C6) {
-  for (int i = 0; i < 36; ++i) {
-    A6[i] = w.Fb[k * 72 + i];
-    const T jr = w.Fb[k * 72 + 36 + i];
-    B6[i] = jr * dt;
-    C6[i] = jr * (dt * dt);
-  }
+HD T blkT_el(const T* M6, T f, T s, const T* X, int ld, int i, int j) {
+  if (i >= 6) return s * X[i * ld + j];
+  T v = T(0);
+  for (int k = 0; k < 6; ++k) v += (M6[k * 6 + i] * f) * X[k * ld + j];
+  return v;
 }
 
-// One knot of the Riccati sweep, split over the lanes in six barrier-separated
-// steps: the quadrant products of Vxx with the step blocks; Qxx, Quu, Qux,
-// Qx, Qu; the Cholesky of Quu (lane 0, clamp rsqrt(max(d, 1e-20))); the gains
-// [kff | Kfb] = -Quu^-1 [Qu | Qux] column by column; Vx and Qxx + Kfb'Qux;
-// the symmetrized Vxx.
+// element (i, j) of X blk(M6 f, s)
+template <typename T>
+HD T blk_el(const T* X, int ld, const T* M6, T f, T s, int i, int j) {
+  if (j >= 6) return s * X[i * ld + j];
+  T v = T(0);
+  for (int k = 0; k < 6; ++k) v += X[i * ld + k] * (M6[k * 6 + j] * f);
+  return v;
+}
+
+// One knot of the Riccati sweep, every step split over the lanes: the
+// quadrant products of Vxx with the step blocks (A6, B6 = Jr6 dt, C6 = Jr6
+// dt^2); Qxx, Quu, Qux, Qx, Qu; the Cholesky of Quu (clamp rsqrt(max(d,
+// 1e-20))), a phase per pair of columns: the columns of L and the rank-1
+// updates of the trailing lower block, entry by entry; the gains [kff | Kfb]
+// = -Quu^-1 [Qu | Qux], a column per lane; Vx and Qxx + Kfb'Qux; the
+// symmetrized Vxx.
 template <typename T, class Exec>
 HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
                      const Exec& exec) {
   const T dt = in.dts[k], dt2 = dt * dt;
   const T* wu = in.wu + k * NV;
-  const Strided<T> Qxx = sub(w.Lxx, (long)k * NDX * NDX);  // Lxx, made Qxx in place
-  const Strided<T> V11 = w.Vxx, V12 = sub(w.Vxx, NV), V21 = sub(w.Vxx, NV * NDX),
-                   V22 = sub(w.Vxx, NV * NDX + NV);
-  const Strided<T> AtV = w.Tmp, BtV = sub(w.Tmp, NV * NV), CtV = sub(w.Tmp, 2 * NV * NV),
-                   D = sub(w.Tmp, 3 * NV * NV);
+  const T *A6 = w.Fb, *J6 = w.Fb + 36;
+  T* Qxx = w.Qxx;  // Lxx, made Qxx in place
+  const T *V11 = w.Vxx, *V12 = w.Vxx + NV, *V21 = w.Vxx + NV * NDX,
+          *V22 = w.Vxx + NV * NDX + NV;
+  T *AtV = w.U, *BtV = w.U + NV * NV, *CtV = w.U + 2 * NV * NV, *D = w.U + 3 * NV * NV;
+  long long t = exec.prof.now();
   exec([&](int lane) {
-    T A6[36], B6[36], C6[36];
-    step_blocks(w, k, dt, A6, B6, C6);
     for (int e = lane; e < NV * NV; e += LANES) {
       const int i = e / NV, j = e % NV;
-      AtV[e] = blkT_el(A6, T(1), V11, NDX, i, j);
-      BtV[e] = blkT_el(B6, dt, V11, NDX, i, j);
-      const T c = blkT_el(C6, dt2, V11, NDX, i, j);
+      AtV[e] = blkT_el(A6, T(1), T(1), V11, NDX, i, j);
+      BtV[e] = blkT_el(J6, dt, dt, V11, NDX, i, j);
+      const T c = blkT_el(J6, dt2, dt2, V11, NDX, i, j);
       CtV[e] = c;
       D[e] = c + dt * V21[i * NDX + j];  // Fu' [V11; V21]
     }
   });
   exec([&](int lane) {
-    T A6[36], B6[36], C6[36];
-    step_blocks(w, k, dt, A6, B6, C6);
     for (int e = lane; e < NV * NV; e += LANES) {
       const int i = e / NV, j = e % NV;
       // Qxx = Lxx + Fx' Vxx Fx
-      const T qq = blk_el(AtV, NV, A6, T(1), i, j);
-      const T qv = blk_el(AtV, NV, B6, dt, i, j) + blkT_el(A6, T(1), V12, NDX, i, j);
-      const T vv = blk_el(BtV, NV, B6, dt, i, j) + blkT_el(B6, dt, V12, NDX, i, j) +
-                   blk_el(V21, NDX, B6, dt, i, j) + V22[i * NDX + j];
+      const T qq = blk_el(AtV, NV, A6, T(1), T(1), i, j);
+      const T qv = blk_el(AtV, NV, J6, dt, dt, i, j) + blkT_el(A6, T(1), T(1), V12, NDX, i, j);
+      const T vv = blk_el(BtV, NV, J6, dt, dt, i, j) + blkT_el(J6, dt, dt, V12, NDX, i, j) +
+                   blk_el(V21, NDX, J6, dt, dt, i, j) + V22[i * NDX + j];
       Qxx[i * NDX + j] += qq;
       Qxx[i * NDX + NV + j] += qv;
       Qxx[(NV + j) * NDX + i] += qv;
       Qxx[(NV + i) * NDX + NV + j] += vv;
       // Quu = Luu + Fu' Vxx Fu + reg I ; Qux = Fu' Vxx Fx
-      T quu = blk_el(CtV, NV, C6, dt2, i, j) + dt * blkT_el(C6, dt2, V12, NDX, i, j) +
-              dt * blk_el(V21, NDX, C6, dt2, i, j) + dt2 * V22[i * NDX + j];
+      T quu = blk_el(CtV, NV, J6, dt2, dt2, i, j) + dt * blkT_el(J6, dt2, dt2, V12, NDX, i, j) +
+              dt * blk_el(V21, NDX, J6, dt2, dt2, i, j) + dt2 * V22[i * NDX + j];
       if (i == j) quu += dt * wu[i] + reg;
       w.Quu[e] = quu;
-      w.Qux[i * NDX + j] = blk_el(D, NV, A6, T(1), i, j);
-      w.Qux[i * NDX + NV + j] = blk_el(D, NV, B6, dt, i, j) +
-                                blkT_el(C6, dt2, V12, NDX, i, j) + dt * V22[i * NDX + j];
+      w.Qux[i * NDX + j] = blk_el(D, NV, A6, T(1), T(1), i, j);
+      w.Qux[i * NDX + NV + j] = blk_el(D, NV, J6, dt, dt, i, j) +
+                                blkT_el(J6, dt2, dt2, V12, NDX, i, j) + dt * V22[i * NDX + j];
     }
     // Qx = Lx + Fx' Vx ; Qu = Lu + Fu' Vx
     for (int a = lane; a < NV; a += LANES) {
@@ -759,38 +911,71 @@ HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
         ax = bx = cx = T(0);
         for (int m = 0; m < 6; ++m) {
           ax += A6[m * 6 + a] * w.Vx[m];
-          bx += B6[m * 6 + a] * w.Vx[m];
-          cx += C6[m * 6 + a] * w.Vx[m];
+          bx += (J6[m * 6 + a] * dt) * w.Vx[m];
+          cx += (J6[m * 6 + a] * dt2) * w.Vx[m];
         }
       }
-      w.Qx[a] = w.Lx[k * NDX + a] + ax;
-      w.Qx[NV + a] = w.Lx[k * NDX + NV + a] + bx + w.Vx[NV + a];
+      w.Qx[a] = w.Lx[a] + ax;
+      w.Qx[NV + a] = w.Lx[NV + a] + bx + w.Vx[NV + a];
       w.Qu[a] = dt * wu[a] * w.us[k * NV + a] + cx + dt * w.Vx[NV + a];
     }
   });
-  exec([&](int lane) {  // Cholesky of Quu, column by column with rank-1 updates
-    if (lane != 0) return;
-    for (int i = 0; i < NV * NV; ++i) w.Lc[i] = T(0);
-    for (int j = 0; j < NV; ++j) {
-      const T inv = s_rsqrt(s_max(w.Quu[j * NV + j], T(1e-20)));
-      for (int i = j; i < NV; ++i) w.Lc[i * NV + j] = w.Quu[i * NV + j] * inv;
-      for (int a = j; a < NV; ++a)
-        for (int b = j; b < NV; ++b) w.Quu[a * NV + b] -= w.Lc[a * NV + j] * w.Lc[b * NV + j];
-    }
-  });
+  exec.prof.add(PH_RIC_PRODUCTS, t);
+  const long long t_chol = exec.prof.now();
+  static_assert(NV % 2 == 0, "the factor takes its columns in pairs");
+  for (int j = 0; j < NV; j += 2)
+    exec([&](int lane) {
+      // columns j and j+1 of L, and the two rank-1 updates of the rows and
+      // columns > j+1 (the lower triangle: all the factor reads). Column j+1
+      // after column j's update, q1(a), is recomputed where needed, by the
+      // same expression as the update, so each entry of Quu and L gets the
+      // operations of the one-column-a-phase factor in the same order.
+      const T* Q = w.Quu;
+      const T inv0 = s_rsqrt(s_max(Q[j * NV + j], T(1e-20)));
+      const T l10 = Q[(j + 1) * NV + j] * inv0;
+      auto q1 = [&](int a) {
+        T q = Q[a * NV + j + 1];
+        q -= (Q[a * NV + j] * inv0) * l10;
+        return q;
+      };
+      const T inv1 = s_rsqrt(s_max(q1(j + 1), T(1e-20)));
+      const int m0 = NV - j, m1 = NV - j - 1, n = NV - j - 2;
+      for (int e = lane; e < m0 + m1 + n * n; e += LANES) {
+        if (e < m0) {
+          w.Lc[(j + e) * NV + j] = Q[(j + e) * NV + j] * inv0;
+        } else if (e < m0 + m1) {
+          const int i = j + 1 + e - m0;
+          w.Lc[i * NV + j + 1] = q1(i) * inv1;
+        } else {
+          const int a = j + 2 + (e - m0 - m1) / n, b = j + 2 + (e - m0 - m1) % n;
+          if (b > a) continue;
+          T q = Q[a * NV + b];
+          q -= (Q[a * NV + j] * inv0) * (Q[b * NV + j] * inv0);
+          q -= (q1(a) * inv1) * (q1(b) * inv1);
+          w.Quu[a * NV + b] = q;
+        }
+      }
+    });
+  exec.prof.add(PH_CHOL, t_chol);
+  t = exec.prof.now();
   exec([&](int lane) {  // [kff | Kfb] = -Quu^-1 [Qu | Qux]
     for (int c = lane; c <= NDX; c += LANES) {
-      T y[NV];
+      T y[NV];  // in registers: every loop below unrolls
+      BK_UNROLL
       for (int i = 0; i < NV; ++i) {
         T s = c == 0 ? w.Qu[i] : w.Qux[i * NDX + c - 1];
+        BK_UNROLL
         for (int m = 0; m < i; ++m) s -= w.Lc[i * NV + m] * y[m];
         y[i] = s / w.Lc[i * NV + i];
       }
+      BK_UNROLL
       for (int i = NV - 1; i >= 0; --i) {
         T s = y[i];
+        BK_UNROLL
         for (int m = i + 1; m < NV; ++m) s -= w.Lc[m * NV + i] * y[m];
         y[i] = s / w.Lc[i * NV + i];
       }
+      BK_UNROLL
       for (int i = 0; i < NV; ++i) {
         if (c == 0)
           w.kff[k * NV + i] = -y[i];
@@ -799,6 +984,8 @@ HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
       }
     }
   });
+  exec.prof.add(PH_RIC_GAINS, t);
+  t = exec.prof.now();
   exec([&](int lane) {  // Vx = Qx + Kfb'Qu ; T1 = Qxx + Kfb'Qux
     for (int a = lane; a < NDX; a += LANES) {
       T s = w.Qx[a];
@@ -809,185 +996,219 @@ HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
       const int a = e / NDX, b = e % NDX;
       T s = Qxx[e];
       for (int i = 0; i < NV; ++i) s += w.Kfb[(k * NV + i) * NDX + a] * w.Qux[i * NDX + b];
-      w.T1[e] = s;
+      w.U[e] = s;  // T1
     }
   });
   exec([&](int lane) {  // Vxx = sym(T1)
     for (int e = lane; e < NDX * NDX; e += LANES) {
       const int a = e / NDX, b = e % NDX;
-      w.Vxx[e] = T(0.5) * (w.T1[e] + w.T1[b * NDX + a]);
+      w.Vxx[e] = T(0.5) * (w.U[e] + w.U[b * NDX + a]);
+    }
+  });
+  exec.prof.add(PH_RIC_VXX, t);
+}
+
+// The costs of n stored trajectories (candidate a at xs + a nxs, us + a nus),
+// knot by knot over the lanes, into w.kc[a (H+1) + k].
+template <typename T, class Exec>
+HD void rollout_costs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w,
+                      int H, int n, const T* xs, const T* us, const Exec& exec) {
+  const int nk = H + 1;
+  exec([&](int lane) {
+    for (int e = lane; e < n * nk; e += LANES) {
+      const int a = e / nk;
+      w.kc[e] = knot_cost(mv, in, xs + a * nk * (long)NX, us + a * (long)H * NV, H, e % nk);
     }
   });
 }
 
 // The DDP of one problem as a sequence of phases run by LANES lanes; exec(f)
-// calls f(lane) on every lane and then waits for all of them (a block barrier
-// on the card, a loop over the lanes on the host). Lane 0 owns the serial
-// steps and the cost; the knots' Gauss-Newton data, the Riccati step's
-// products and solves, and the alphas' rollouts are split over the lanes.
-// Lanes exchange data through the scratch buffer only.
+// calls f(lane) on every lane and then waits for all of them (a warp barrier
+// on the card, a loop over the lanes on the host). The backward sweep runs
+// knot by knot from the terminal cost: each knot's Gauss-Newton data, then
+// its Riccati step, both split over the lanes. A rollout's state recursion
+// takes a lane (the alphas' side by side); its knots' costs, which no later
+// state depends on, go over the lanes. Lanes exchange data through the work
+// arrays only; code outside exec runs on every lane alike and reads values
+// every lane sees the same (the costs, the line-search decision), so the
+// lanes always agree.
 template <typename T, class Exec>
 HD void ddp_problem(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
                     int n_iters, int n_alpha, const T* alphas, T reg, T* cost_out,
                     const Exec& exec) {
   const long nxs = (H + 1L) * NX, nus = (long)H * NV;
-  T cost = T(0);  // lane 0's
-  exec([&](int lane) {
-    if (lane != 0) return;
-    cost = rollout(mv, in, w, H, T(0), true, w.xsA, w.usA);  // zero controls
-    for (long i = 0; i < nxs; ++i) w.xs[i] = w.xsA[i];
-    for (long i = 0; i < nus; ++i) w.us[i] = w.usA[i];
+  const long long t_all = exec.prof.now();
+  long long t = t_all;
+  exec([&](int lane) {  // zero controls, straight into the trajectory
+    if (lane == 0) rollout(in, w, H, T(0), true, w.xs, w.us);
   });
+  rollout_costs(mv, in, w, H, 1, w.xs, w.us, exec);
+  T cost = total_cost(w.kc, H);
+  exec.prof.add(PH_ROLLOUT0, t);
   for (int it = 0; it < n_iters; ++it) {
-    exec([&](int lane) {
-      for (int k = lane; k <= H; k += LANES) knot_derivs(mv, in, w, H, k);
+    t = exec.prof.now();
+    exec([&](int lane) {  // every knot's record, a knot per lane
+      for (int k = lane; k <= H; k += LANES) knot_record(mv, in, w, H, k);
     });
-    exec([&](int lane) {
-      for (int i = lane; i < NDX; i += LANES) w.Vx[i] = w.Lx[H * NDX + i];
-      for (int i = lane; i < NDX * NDX; i += LANES) w.Vxx[i] = w.Lxx[(long)H * NDX * NDX + i];
-    });
-    for (int k = H - 1; k >= 0; --k) riccati_knot(in, w, k, reg, exec);
+    exec.prof.add(PH_DERIVS_REC, t);
+    t = exec.prof.now();
+    knot_derivs(mv, in, w, H, H, w.Vxx, w.Vx, exec);  // Vx, Vxx from the terminal cost
+    exec.prof.add(PH_DERIVS, t);
+    for (int k = H - 1; k >= 0; --k) {
+      t = exec.prof.now();
+      knot_derivs(mv, in, w, H, k, w.Qxx, w.Lx, exec);
+      exec.prof.add(PH_DERIVS, t);
+      t = exec.prof.now();
+      riccati_knot(in, w, k, reg, exec);
+      exec.prof.add(PH_RICCATI, t);
+    }
+    t = exec.prof.now();
     exec([&](int lane) {  // every alpha's rollout, each into its own candidate
       for (int a = lane; a < n_alpha; a += LANES)
-        w.ca[a] = rollout(mv, in, w, H, alphas[a], false, sub(w.xsA, a * nxs),
-                          sub(w.usA, a * nus));
+        rollout(in, w, H, alphas[a], false, w.xsA + a * nxs, w.usA + a * nus);
     });
-    exec([&](int lane) {
-      if (lane != 0) return;
-      int best = -1;
-      T best_cost = T(3.0e38);
-      for (int a = 0; a < n_alpha; ++a) {
-        if (w.ca[a] < best_cost) {  // strict: the earliest alpha wins a tie
-          best_cost = w.ca[a];
-          best = a;
-        }
+    rollout_costs(mv, in, w, H, n_alpha, w.xsA, w.usA, exec);
+    exec.prof.add(PH_ALPHAS, t);
+    t = exec.prof.now();
+    int best = -1;
+    T best_cost = T(3.0e38);
+    for (int a = 0; a < n_alpha; ++a) {
+      const T c = total_cost(w.kc + a * (H + 1), H);
+      if (c < best_cost) {  // strict: the earliest alpha wins a tie
+        best_cost = c;
+        best = a;
       }
-      // the best candidate; with none below 3e38 the rollout at alpha 0
-      T c_store = best_cost;
-      if (best < 0) {
-        best = 0;
-        c_store = rollout(mv, in, w, H, T(0), false, w.xsA, w.usA);
-      }
-      if (c_store < cost) {
-        for (long i = 0; i < nxs; ++i) w.xs[i] = w.xsA[best * nxs + i];
-        for (long i = 0; i < nus; ++i) w.us[i] = w.usA[best * nus + i];
-      }
-      // cost = min(cost, c_store), NaN-propagating like jnp.minimum
-      cost = (cost != cost || c_store != c_store) ? cost + c_store
-                                                  : (c_store < cost ? c_store : cost);
-    });
+    }
+    // the best candidate; with none below 3e38 the rollout at alpha 0
+    T c_store = best_cost;
+    if (best < 0) {
+      best = 0;
+      exec([&](int lane) {
+        if (lane == 0) rollout(in, w, H, T(0), false, w.xsA, w.usA);
+      });
+      rollout_costs(mv, in, w, H, 1, w.xsA, w.usA, exec);
+      c_store = total_cost(w.kc, H);
+    }
+    if (c_store < cost) {
+      exec([&](int lane) {
+        for (long i = lane; i < nxs; i += LANES) w.xs[i] = w.xsA[best * nxs + i];
+        for (long i = lane; i < nus; i += LANES) w.us[i] = w.usA[best * nus + i];
+      });
+    }
+    // cost = min(cost, c_store), NaN-propagating like jnp.minimum
+    cost = (cost != cost || c_store != c_store) ? cost + c_store
+                                                : (c_store < cost ? c_store : cost);
+    exec.prof.add(PH_DECISION, t);
   }
   exec([&](int lane) {
     if (lane == 0) *cost_out = cost;
   });
+  exec.prof.add(PH_TOTAL, t_all);
 }
 
+// Problem b: stage its inputs into its slice sh of shared memory, solve,
+// write its trajectory. scratch: the batch's device-memory work arrays,
+// problem-major (ddp_global_elems each).
 template <typename T, class Exec>
-HD void ddp_one(int b, int B, int H, int n_iters, int n_alpha, T reg, const T* model,
-                const T* alphas, const T* x0, const T* ee_t, const T* com_ref, const T* mom_ref,
-                const T* x_reg, const T* w_stage, const T* w_term, const T* wu, const T* dts,
-                T* xs_out, T* us_out, T* cost, T* scratch, const Exec& exec) {
+HD void ddp_one(int b, int H, int n_iters, int n_alpha, T reg, const T* model, const T* alphas,
+                const T* x0, const T* ee_t, const T* com_ref, const T* mom_ref, const T* x_reg,
+                const T* w_stage, const T* w_term, const T* wu, const T* dts, T* xs_out,
+                T* us_out, T* cost, T* sh, T* scratch, const Exec& exec) {
   const ModelView<T> mv{model};
-  const DdpInputs<T> in{x0 + (long)b * NX,
-                        ee_t + (long)b * H * NE * 3,
-                        com_ref + (long)b * (H + 1) * 3,
-                        mom_ref + (long)b * (H + 1) * 6,
-                        x_reg + (long)b * (H + 1) * NX,
-                        w_stage + (long)b * H * NR,
-                        w_term + (long)b * NRT,
-                        wu + (long)b * H * NV,
-                        dts + (long)b * H};
-  long off = 0;
-  auto take = [&](long n) {
-    Strided<T> s{scratch + off * B + b, B};
-    off += n;
-    return s;
-  };
+  const DdpLayout L = ddp_layout(H);
+  const long nxs = (H + 1L) * NX, nus = (long)H * NV;
+  const T* src[9] = {x0 + (long)b * NX,           ee_t + (long)b * H * NE * 3,
+                     com_ref + (long)b * (H + 1) * 3, mom_ref + (long)b * (H + 1) * 6,
+                     x_reg + (long)b * nxs,       w_stage + (long)b * H * NR,
+                     w_term + (long)b * NRT,      wu + (long)b * nus,
+                     dts + (long)b * H};
+  const long dst[9] = {L.x0, L.ee_t, L.com_ref, L.mom_ref, L.x_reg, L.w_stage, L.w_term, L.wu,
+                       L.dts};
+  const long len[9] = {NX,  (long)H * NE * 3, (H + 1L) * 3, (H + 1L) * 6, nxs, (long)H * NR,
+                       NRT, nus,              H};
+  exec([&](int lane) {
+    for (int q = 0; q < 9; ++q)
+      for (long i = lane; i < len[q]; i += LANES) sh[dst[q] + i] = src[q][i];
+  });
+  const DdpInputs<T> in{sh + L.x0,    sh + L.ee_t,    sh + L.com_ref, sh + L.mom_ref, sh + L.x_reg,
+                        sh + L.w_stage, sh + L.w_term, sh + L.wu,     sh + L.dts};
   DdpWork<T> w;
-  w.xs = take((H + 1) * NX); w.us = take(H * NV); w.kff = take(H * NV);
-  w.Kfb = take((long)H * NV * NDX);
-  w.Lx = take((H + 1) * NDX); w.Lxx = take((long)(H + 1) * NDX * NDX); w.Fb = take(H * 72);
-  w.Vx = take(NDX); w.Vxx = take(NDX * NDX); w.Qx = take(NDX); w.Qu = take(NV);
-  w.Qux = take(NDX * NV); w.Quu = take(NV * NV); w.Lc = take(NV * NV);
-  w.Tmp = take(4 * NV * NV); w.T1 = take(NDX * NDX);
-  w.ca = take(MAX_ALPHAS); w.xsA = take(MAX_ALPHAS * (H + 1L) * NX);
-  w.usA = take(MAX_ALPHAS * (long)H * NV);
+  w.xs = sh + L.xs; w.us = sh + L.us; w.kff = sh + L.kff; w.Kfb = sh + L.Kfb;
+  w.Lx = sh + L.Lx; w.Qxx = sh + L.Qxx; w.Fb = sh + L.Fb;
+  w.Vx = sh + L.Vx; w.Vxx = sh + L.Vxx; w.Qx = sh + L.Qx; w.Qu = sh + L.Qu;
+  w.Qux = sh + L.Qux; w.Quu = sh + L.Quu; w.Lc = sh + L.Lc; w.U = sh + L.U; w.kc = sh + L.kc;
+  w.xsA = scratch + (long)b * ddp_global_elems(H);
+  w.usA = w.xsA + MAX_ALPHAS * nxs;
+  w.rec = w.usA + MAX_ALPHAS * nus;
   ddp_problem(mv, in, w, H, n_iters, n_alpha, alphas, reg, cost + b, exec);
   exec([&](int lane) {
-    if (lane != 0) return;
-    for (long i = 0; i < (H + 1) * NX; ++i) xs_out[(long)b * (H + 1) * NX + i] = w.xs[i];
-    for (long i = 0; i < H * NV; ++i) us_out[(long)b * H * NV + i] = w.us[i];
+    for (long i = lane; i < nxs; i += LANES) xs_out[(long)b * nxs + i] = w.xs[i];
+    for (long i = lane; i < nus; i += LANES) us_out[(long)b * nus + i] = w.us[i];
   });
 }
 
-#ifdef __CUDACC__
-// a thread is one lane of one problem; a phase ends at a block barrier, which
-// every thread of the block reaches (the lanes of a problem past B skip the work)
-struct DeviceExec {
-  int lane;
-  bool active;
-  template <class F>
-  __device__ void operator()(const F& f) const {
-    if (active) f(lane);
-    __syncthreads();
-  }
-};
-#else
-struct HostExec {
-  template <class F>
-  void operator()(const F& f) const {
-    for (int lane = 0; lane < LANES; ++lane) f(lane);
-  }
-};
-#endif
-
 }  // namespace bk
 
-// Number of scratch elements per problem.
-extern "C" long ddp_scratch_size(int H) {
-  using namespace bk;
-  return (H + 1L) * NX + 2L * H * NV + (long)H * NV * NDX + (H + 1L) * NDX +
-         (H + 1L) * NDX * NDX + 72L * H + 2L * NDX + NV + 3L * NDX * NDX + NDX * NV +
-         2L * NV * NV + MAX_ALPHAS * (1 + (H + 1L) * NX + (long)H * NV);
-}
+// Elements per problem: of shared memory, and of the device-memory scratch.
+extern "C" long ddp_shared_size(int H) { return bk::ddp_layout(H).n; }
+extern "C" long ddp_scratch_size(int H) { return bk::ddp_global_elems(H); }
 
 #define DDP_ARGS(T)                                                                        \
   int B, int H, int n_iters, int n_alpha, double reg, const T *model, const T *alphas,    \
       const T *x0, const T *ee_t, const T *com_ref, const T *mom_ref, const T *x_reg,      \
       const T *w_stage, const T *w_term, const T *wu, const T *dts, T *xs, T *us, T *cost, \
       T *scratch
-#define DDP_CALL(T, b, exec)                                                              \
-  bk::ddp_one<T>(b, B, H, n_iters, n_alpha, T(reg), model, alphas, x0, ee_t, com_ref,     \
-                 mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch, exec)
+#define DDP_CALL(T, b, sh, exec)                                                            \
+  bk::ddp_one<T>(b, H, n_iters, n_alpha, T(reg), model, alphas, x0, ee_t, com_ref, mom_ref, \
+                 x_reg, w_stage, w_term, wu, dts, xs, us, cost, sh, scratch, exec)
 
 #ifdef __CUDACC__
 
 __global__ void ddp_kernel(DDP_ARGS(float)) {
-  const int b = blockIdx.x * (blockDim.x / bk::LANES) + threadIdx.x / bk::LANES;
-  const bk::DeviceExec exec{(int)(threadIdx.x % bk::LANES), b < B};
-  DDP_CALL(float, b < B ? b : B - 1, exec);
+  extern __shared__ float smem[];
+  const int p = threadIdx.x / bk::LANES, lane = threadIdx.x % bk::LANES;
+  const int b = blockIdx.x * (blockDim.x / bk::LANES) + p;
+  if (b >= B) return;  // the whole warp: no barrier is left waiting
+  float* sh = smem + (long)p * bk::ddp_layout(H).n;
+  DDP_CALL(float, b, sh, (bk::DeviceExec{lane, bk::make_prof(b, lane == 0)}));
 }
 
-// Launch on the caller's stream with `problems` problems (LANES threads each)
-// per block; returns cudaGetLastError() (0 = launched).
+BK_SET_PROFILE(ddp)
+
+// Launch on the caller's stream with `problems` problems (a warp and a
+// shared-memory slice each) per block; returns cudaGetLastError() or the
+// refusal of the block's shared memory (0 = launched).
 extern "C" int ddp_launch_f32(DDP_ARGS(float), int problems, void* stream) {
   const int blocks = (B + problems - 1) / problems;
-  ddp_kernel<<<blocks, problems * bk::LANES, 0, (cudaStream_t)stream>>>(
+  const size_t bytes = (size_t)problems * bk::ddp_layout(H).n * sizeof(float);
+  const cudaError_t e =
+      cudaFuncSetAttribute(ddp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  ddp_kernel<<<blocks, problems * bk::LANES, bytes, (cudaStream_t)stream>>>(
       B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref, x_reg, w_stage,
       w_term, wu, dts, xs, us, cost, scratch);
   return (int)cudaGetLastError();
 }
 
-#else  // host build for the CPU tests
+#else  // host build for the CPU tests: the shared-memory slice is a plain array
 
-extern "C" int ddp_host_f32(DDP_ARGS(float)) {
-  for (int b = 0; b < B; ++b) DDP_CALL(float, b, bk::HostExec{});
+#include <vector>
+
+template <typename T>
+int ddp_host(DDP_ARGS(T)) {
+  std::vector<T> sh(bk::ddp_layout(H).n);
+  for (int b = 0; b < B; ++b) DDP_CALL(T, b, sh.data(), bk::HostExec{});
   return 0;
 }
 
+extern "C" int ddp_host_f32(DDP_ARGS(float)) {
+  return ddp_host<float>(B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref,
+                         x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch);
+}
+
 extern "C" int ddp_host_f64(DDP_ARGS(double)) {
-  for (int b = 0; b < B; ++b) DDP_CALL(double, b, bk::HostExec{});
-  return 0;
+  return ddp_host<double>(B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref,
+                          mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch);
 }
 
 #endif

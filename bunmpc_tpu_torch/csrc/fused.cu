@@ -10,9 +10,10 @@
 //     the sequential foot-location carry, the first-knot dt;
 //   the dynamics costs (X_ref, W, q, W_F, q_F), the kinematic CoM box and
 //     the warm starts;
-// writes cnt, r, dt and swing to their outputs and the rest to a
-// wrapper-allocated workspace, then runs the ADMM of admm_core.cuh — the
-// code K1 (admm.cu) runs — from there.
+// straight into the problem's shared-memory slice, where the ADMM of
+// admm_core.cuh — the code K1 (admm.cu) runs — reads its inputs, runs it,
+// and writes X, F, cnt, r, dt (and swing) to their outputs. Only the
+// prologue's temporaries go to a wrapper-allocated workspace.
 //
 // What bounds it on an H100: like K1, f32 arithmetic; the prologue adds a
 // few thousand operations to the ADMM's millions, and the kernel reads 41
@@ -97,27 +98,18 @@ HD T first_dt(const PrepParams<T>& pp, T t1) {
   return d == T(0) ? pp.gdt : d;
 }
 
-// One problem's workspace: the ADMM inputs the prologue builds, and its own
-// temporaries (touchdown and swing locations, the dt prefix sum).
+// What the prologue builds besides the plan: the ADMM's costs and box (in
+// the shared-memory slice), and its own temporaries (touchdown and swing
+// locations, the dt prefix sum; in the device-memory workspace).
 template <typename T>
 struct PrepWork {
   T *W, *ql, *lb, *ub, *WF, *qF, *tdx, *tdy, *swx, *swy, *cum;
 };
 
-HD long prep_work_elems(int H) {
-  return 4 * (H + 1) * 9L + 2 * H * NE * 3L + 4 * H * NE + H;
-}
+HD long prep_work_elems(int H) { return 4L * H * NE + H; }
 
-template <typename T>
-HD PrepWork<T> make_prep_work(T* ws, int H) {
-  const long nX = (H + 1) * 9L, nF = H * NE * 3L, nC = H * NE;
-  T* tmp = ws + 4 * nX + 2 * nF;
-  return PrepWork<T>{ws, ws + nX, ws + 2 * nX, ws + 3 * nX, ws + 4 * nX, ws + 4 * nX + nF,
-                     tmp, tmp + nC, tmp + 2 * nC, tmp + 3 * nC, tmp + 4 * nC};
-}
-
-// The prologue: the plan into cnt/r/dt/swing (the outputs, also the ADMM's
-// plan inputs), the costs and box into pw, the warm starts into w.X and w.F.
+// The prologue: the plan into cnt/r/dt (the ADMM's plan inputs) and swing,
+// the costs and box into pw, the warm starts into w.X and w.F.
 template <typename T, class Exec>
 HD void prep_problem(const AdmmParams<T>& pr, const PrepParams<T>& pp, const PrepInputs<T>& s,
                      T* cnt, T* r, T* dt, T* swing, const PrepWork<T>& pw,
@@ -252,80 +244,113 @@ HD void prep_problem(const AdmmParams<T>& pr, const PrepParams<T>& pp, const Pre
   });
 }
 
-// the per-problem views for problem b of a batch of B
+// Problem b: build its problem in its shared-memory slice sh, solve, write
+// its outputs.
 template <typename T, class Exec>
-HD void fused_one(int b, int B, const AdmmParams<T>& pr, const PrepParams<T>& pp,
-                  const T* t, const T* vdes, const T* wdes, const T* x_init, const T* ee,
-                  const T* hip, const T* amom, T* Xo, T* Fo, T* viol, int* iters, T* cnt, T* r,
-                  T* dt, T* swing, int* fista, T* work, T* scratch, const Exec& exec) {
+HD void fused_one(int b, const AdmmParams<T>& pr, const PrepParams<T>& pp, const T* t,
+                  const T* vdes, const T* wdes, const T* x_init, const T* ee, const T* hip,
+                  const T* amom, T* Xo, T* Fo, T* viol, int* iters, T* cnt, T* r, T* dt,
+                  T* swing, int* fista, T* work, T* sh, const Exec& exec) {
   const int H = pr.H;
   const long nX = (H + 1) * 9, nF = H * NE * 3, nC = H * NE;
-  const PrepWork<T> pw = make_prep_work(work + b * prep_work_elems(H), H);
+  const AdmmLayout L = admm_layout(H);
+  T* tmp = work + b * prep_work_elems(H);
+  const PrepWork<T> pw{sh + L.W,     sh + L.ql,    sh + L.lb,   sh + L.ub,
+                       sh + L.WF,    sh + L.qF,    tmp,         tmp + nC,
+                       tmp + 2 * nC, tmp + 3 * nC, tmp + 4 * nC};
   const PrepInputs<T> s{t + b, vdes + b * 3, wdes + b, x_init + b * 9, ee + b * NE * 3,
                         hip + b * NE * 3, amom + b * 3};
-  const AdmmInputs<T> in{cnt + b * nC, r + b * nF, dt + b * H, x_init + b * 9,
-                         pw.W, pw.ql, pw.WF, pw.qF, pw.lb, pw.ub};
-  const AdmmWork<T> w = make_work(scratch, b, B, H);
-  prep_problem(pr, pp, s, cnt + b * nC, r + b * nF, dt + b * H, swing + b * nC, pw, w, exec);
+  const AdmmInputs<T> in = admm_inputs(sh, L);
+  const AdmmWork<T> w = admm_work(sh, L);
+  const long long t_prep = exec.prof.now();
+  exec([&](int lane) {
+    for (int i = lane; i < 9; i += LANES) sh[L.x_init + i] = s.x_init[i];
+  });
+  prep_problem(pr, pp, s, sh + L.cnt, sh + L.r, sh + L.dt, swing + b * nC, pw, w, exec);
+  exec.prof.add(PH_PROLOGUE, t_prep);
   admm_problem(pr, in, w, viol + b, iters + b, fista + b, exec);
   exec([&](int lane) {
     for (long i = lane; i < nX; i += LANES) Xo[b * nX + i] = w.X[i];
-    for (long i = lane; i < nF; i += LANES) Fo[b * nF + i] = w.F[i];
+    for (long i = lane; i < nF; i += LANES) {
+      Fo[b * nF + i] = w.F[i];
+      r[b * nF + i] = in.r[i];
+    }
+    for (long i = lane; i < nC; i += LANES) cnt[b * nC + i] = in.cnt[i];
+    for (long i = lane; i < H; i += LANES) dt[b * H + i] = in.dt[i];
   });
 }
 
 }  // namespace bk
 
-// Number of workspace elements per problem.
+// Elements per problem: of the device-memory workspace, and of shared memory
+// (K1's layout).
 extern "C" long fused_work_size(int H) { return bk::prep_work_elems(H); }
+extern "C" long fused_shared_size(int H) { return bk::admm_layout(H).n; }
 
 #define FUSED_ARGS(T)                                                                     \
   int B, ADMM_CFG_ARGS, const double *consts, const T *t, const T *vdes, const T *wdes,   \
       const T *x_init, const T *ee, const T *hip, const T *amom, T *Xo, T *Fo, T *viol,   \
-      int *iters, T *cnt, T *r, T *dt, T *swing, int *fista, T *work, T *scratch
-#define FUSED_CALL(T, b, exec)                                                             \
-  bk::fused_one<T>(b, B, pr, pp, t, vdes, wdes, x_init, ee, hip, amom, Xo, Fo, viol, iters, \
-                   cnt, r, dt, swing, fista, work, scratch, exec)
+      int *iters, T *cnt, T *r, T *dt, T *swing, int *fista, T *work
+#define FUSED_CALL(T, b, sh, exec)                                                      \
+  bk::fused_one<T>(b, pr, pp, t, vdes, wdes, x_init, ee, hip, amom, Xo, Fo, viol, iters, \
+                   cnt, r, dt, swing, fista, work, sh, exec)
 
 #ifdef __CUDACC__
 
-__global__ void fused_kernel(bk::AdmmParams<float> pr, bk::PrepParams<float> pp, int B,
+__global__ void fused_kernel(bk::AdmmParams<float> prm, bk::PrepParams<float> ppm, int B,
                              const float* t, const float* vdes, const float* wdes,
                              const float* x_init, const float* ee, const float* hip,
                              const float* amom, float* Xo, float* Fo, float* viol, int* iters,
                              float* cnt, float* r, float* dt, float* swing, int* fista,
-                             float* work, float* scratch) {
-  const int b = blockIdx.x * (blockDim.x / bk::LANES) + threadIdx.x / bk::LANES;
+                             float* work) {
+  extern __shared__ float smem[];
+  // local copies: a kernel parameter's address goes to the stack
+  const bk::AdmmParams<float> pr = prm;
+  const bk::PrepParams<float> pp = ppm;
+  const int p = threadIdx.x / bk::LANES, lane = threadIdx.x % bk::LANES;
+  const int b = blockIdx.x * (blockDim.x / bk::LANES) + p;
   if (b >= B) return;  // the whole warp: no barrier is left waiting
-  FUSED_CALL(float, b, bk::DeviceExec{(int)(threadIdx.x % bk::LANES)});
+  float* sh = smem + (long)p * bk::admm_layout(pr.H).n;
+  FUSED_CALL(float, b, sh, (bk::DeviceExec{lane, bk::make_prof(b, lane == 0)}));
 }
 
-// Launch on the caller's stream with `problems` problems (a warp each) per
-// block; `consts` is host memory, read before the launch. Returns
-// cudaGetLastError() (0 = launched).
+BK_SET_PROFILE(fused)
+
+// Launch on the caller's stream with `problems` problems (a warp and a
+// shared-memory slice each, K1's layout) per block; `consts` is host memory,
+// read before the launch. Returns cudaGetLastError() or the refusal of the
+// block's shared memory (0 = launched).
 extern "C" int fused_launch_f32(FUSED_ARGS(float), int problems, void* stream) {
   const bk::AdmmParams<float> pr = ADMM_PARAMS(float);
   const bk::PrepParams<float> pp = bk::make_prep<float>(consts, m);
   const int blocks = (B + problems - 1) / problems;
-  fused_kernel<<<blocks, problems * bk::LANES, 0, (cudaStream_t)stream>>>(
+  const size_t bytes = (size_t)problems * bk::admm_layout(H).n * sizeof(float);
+  const cudaError_t e =
+      cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  fused_kernel<<<blocks, problems * bk::LANES, bytes, (cudaStream_t)stream>>>(
       pr, pp, B, t, vdes, wdes, x_init, ee, hip, amom, Xo, Fo, viol, iters, cnt, r, dt, swing,
-      fista, work, scratch);
+      fista, work);
   return (int)cudaGetLastError();
 }
 
-#else  // host build for the CPU tests
+#else  // host build for the CPU tests: the shared-memory slice is a plain array
+
+#include <vector>
 
 extern "C" int fused_host_f32(FUSED_ARGS(float)) {
   const bk::AdmmParams<float> pr = ADMM_PARAMS(float);
   const bk::PrepParams<float> pp = bk::make_prep<float>(consts, m);
-  for (int b = 0; b < B; ++b) FUSED_CALL(float, b, bk::HostExec{});
+  std::vector<float> sh(bk::admm_layout(H).n);
+  for (int b = 0; b < B; ++b) FUSED_CALL(float, b, sh.data(), bk::HostExec{});
   return 0;
 }
 
 extern "C" int fused_host_f64(FUSED_ARGS(double)) {
   const bk::AdmmParams<double> pr = ADMM_PARAMS(double);
   const bk::PrepParams<double> pp = bk::make_prep<double>(consts, m);
-  for (int b = 0; b < B; ++b) FUSED_CALL(double, b, bk::HostExec{});
+  std::vector<double> sh(bk::admm_layout(H).n);
+  for (int b = 0; b < B; ++b) FUSED_CALL(double, b, sh.data(), bk::HostExec{});
   return 0;
 }
 

@@ -3,8 +3,10 @@
 Counterpart of ``bunmpc_tpu/solvers/pallas_admm.py`` (``solve`` ->
 ``_kernel`` -> ``_admm_core``, every x_solver and precondition branch); the
 kernel is ``csrc/admm.cu`` over the per-problem code of ``csrc/admm_core.cuh``
-(one warp per problem, see their headers for the design and what bounds it).
-``solve`` takes a batch of any size B (no padding).
+(a warp and a slice of the block's shared memory per problem, see their
+headers for the design and what bounds it). ``solve`` takes a batch of any
+size B (no padding) and any horizon whose problem fits a block's shared
+memory (``launch_per_block``; past that it raises).
 
 Dispatch: tensors on the CPU go to the plain version (``solvers/biconvex.py``);
 tensors on a CUDA device go to the kernel, or the call raises.
@@ -17,14 +19,14 @@ import dataclasses
 
 import torch
 
-from .._build import Kernel
+from .._build import Kernel, fit_per_block
 from ..mpc.centroidal import ContactPlan
 from . import biconvex
 
 KERNEL = Kernel("admm")
 NE = 4  # feet per problem the kernel is built for
-LANES = 32  # threads per problem: one warp (csrc/admm.cu: LANES)
-PER_BLOCK = 4  # problems per thread block
+LANES = 32  # threads per problem: one warp (csrc/common.cuh: LANES)
+PER_BLOCK = 4  # problems per thread block, where their shared memory fits
 BIG = 3.4e38  # the kernels' stand-in for an infinite bound (< the f32 maximum)
 
 
@@ -84,7 +86,7 @@ def solve_plain(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
 _I = ctypes.c_int
 _D = ctypes.c_double
 _P = ctypes.c_void_p
-ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 18
+ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 17
 
 
 def config_args(H: int, m: float, cfg: CudaAdmmConfig) -> list:
@@ -99,15 +101,26 @@ def config_args(H: int, m: float, cfg: CudaAdmmConfig) -> list:
     ]
 
 
-def scratch_size(H: int) -> int:
-    """Scratch elements per problem (csrc/admm_core.cuh: admm_scratch_elems)."""
-    return 11 * (H + 1) * 9 + 7 * H * NE * 3 + H * 81 + 2 * LANES + 81 + 81 + 90 + 9
+def shared_size(H: int) -> int:
+    """Shared-memory elements per problem (csrc/admm_core.cuh: admm_layout):
+    the work arrays (the Thomas sweep's and the X-FISTA's share their room)
+    and the staged inputs."""
+    nX, nF = (H + 1) * 9, H * NE * 3
+    work = 6 * nX + 7 * nF + 2 * LANES + max(H * 81 + 81 + 81 + 9, 5 * nX)
+    inputs = H * NE + nF + H + 9 + 4 * nX + 2 * nF  # cnt, r, dt, x_init, W, ql, lb, ub, WF, qF
+    return work + inputs
+
+
+def launch_per_block(H: int) -> int:
+    """Problems per block at horizon H (K1 and K3): PER_BLOCK, or as many as
+    the block's shared memory holds; raises ValueError if one does not fit."""
+    return fit_per_block("the ADMM kernels", 4 * shared_size(H), PER_BLOCK, f"H={H}")
 
 
 def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
                 F_reg_ref=None):
-    """Checked inputs, freshly allocated outputs/scratch, and the C argument
-    list (without the launch configuration) of one kernel call. Returns
+    """Checked inputs, freshly allocated outputs, and the C argument list
+    (without the launch configuration) of one kernel call. Returns
     ``(args, keep, outputs)``: ``keep`` holds every tensor the call points at,
     ``outputs`` is ``(X, F, viol, iters, fista_iters)``."""
     _check_config(cfg)
@@ -141,9 +154,8 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
     viol = torch.empty((B,), dtype=dtype, device=device)
     iters = torch.empty((B,), dtype=torch.int32, device=device)
     fista = torch.empty((B,), dtype=torch.int32, device=device)
-    scratch = torch.empty((scratch_size(H), B), dtype=dtype, device=device)
     ptrs = [plan.cnt, plan.r, plan.dt, x_init, W, ql, W_F, qF, lb, ub, X_wm, F_wm,
-            X, F, viol, iters, fista, scratch]
+            X, F, viol, iters, fista]
     args = [B] + config_args(H, m, cfg) + [t.data_ptr() for t in ptrs]
     return args, ptrs, (X, F, viol, iters, fista)
 
@@ -153,11 +165,12 @@ def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_
         raise ValueError(f"the ADMM kernel runs on a CUDA device, got {x_init.device}")
     if x_init.dtype != torch.float32:
         raise ValueError(f"the ADMM kernel takes float32, got {x_init.dtype}")
+    per_block = launch_per_block(plan.dt.shape[1])
     args, keep, out = kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm,
                                   x_bounds, cfg, F_reg_ref)
     with torch.cuda.device(x_init.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("admm_launch_f32", args + [PER_BLOCK, stream], ARGTYPES + [_I, _P])
+        KERNEL.launch("admm_launch_f32", args + [per_block, stream], ARGTYPES + [_I, _P])
     del keep
     return out
 

@@ -2,9 +2,11 @@
 kernel.
 
 Counterpart of ``bunmpc_tpu/solvers/pallas_ddp.py`` (``solve_ik_batch`` ->
-``_build_kernel(...).kernel``); the kernel is ``csrc/ddp.cu`` (16 threads per
-problem, see its header for the design and what bounds it).
-``solve_ik_batch`` takes a batch of any size B (no padding).
+``_build_kernel(...).kernel``); the kernel is ``csrc/ddp.cu`` (a warp and a
+slice of the block's shared memory per problem, see its header for the
+design and what bounds it). ``solve_ik_batch`` takes a batch of any size B
+(no padding) and any horizon whose problem fits a block's shared memory
+(``launch_per_block``; past that it raises).
 
 The robot constants (joint frames, axes, masses, CoMs, inertias, foot frames)
 reach the kernel as one small argument buffer packed from the port's
@@ -23,15 +25,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._build import Kernel
+from .._build import Kernel, fit_per_block
 from ..mpc import ik
 from ..robots.model import RobotModel
 from . import ddp
 
 KERNEL = Kernel("ddp")
 NJ, NE = 12, 4  # joints and feet the kernel is built for
-LANES = 16  # threads per problem (csrc/ddp.cu: LANES)
-PER_BLOCK = 4  # problems per thread block
+PER_BLOCK = 4  # problems per thread block, where their shared memory fits
 MAX_ALPHAS = 8
 
 
@@ -51,6 +52,9 @@ def pack_model(model: RobotModel, eff_frames) -> np.ndarray:
     ``ModelView`` in csrc/ddp.cu reads."""
     if model.n_joints != NJ or len(eff_frames) != NE:
         raise ValueError(f"the DDP kernel is built for {NJ} joints and {NE} feet")
+    if any(int(p) not in (0, j) for j, p in enumerate(model.parent)):
+        raise ValueError("the DDP kernel is built for chains off the base: joint j's parent "
+                         "body must be the base (0) or body j")
     feet = [model.frames[n] for n in eff_frames]
     parts = [
         np.asarray(model.parent, np.float64),
@@ -82,11 +86,33 @@ ARGTYPES = [_I, _I, _I, _I, _D] + [_P] * 15
 
 
 def scratch_size(H: int, nq: int, nv: int) -> int:
-    """Scratch elements per problem (csrc/ddp.cu: ddp_scratch_size)."""
+    """Device-memory scratch elements per problem (csrc/ddp.cu:
+    ddp_scratch_size): the alphas' candidate trajectories, and per knot a
+    record of its FK cache, residual, B6 and step blocks."""
+    nb, ndx = NJ + 1, 2 * nv
+    kin = 36 * nb + 6 * NJ + 9  # csrc/ddp.cu: Kin
+    return MAX_ALPHAS * ((H + 1) * (nq + nv) + H * nv) + (H + 1) * (kin + 3 * NE + 9 + ndx + 108)
+
+
+def shared_size(H: int, nq: int, nv: int) -> int:
+    """Shared-memory elements per problem (csrc/ddp.cu: ddp_layout): the
+    trajectory and gains, the current knot's Gauss-Newton data, the Riccati
+    matrices, the union of the knot's FK cache and rows with the step's
+    products, the rollouts' knot costs, and the staged inputs."""
     nx, ndx = nq + nv, 2 * nv
-    return ((H + 1) * nx + 2 * H * nv + H * nv * ndx + (H + 1) * ndx + (H + 1) * ndx * ndx
-            + 72 * H + 2 * ndx + nv + 3 * ndx * ndx + ndx * nv + 2 * nv * nv
-            + MAX_ALPHAS * (1 + (H + 1) * nx + H * nv))
+    nr, nrt = 3 * NE + 9 + ndx, 9 + ndx
+    work = ((H + 1) * nx + 2 * H * nv + H * nv * ndx  # xs, us, kff, Kfb
+            + ndx + ndx * ndx + 72  # Lx, Qxx, Fb
+            + 2 * ndx + ndx * ndx + nv + ndx * nv + 2 * nv * nv  # Vx, Vxx, Qx, Qu, Qux, Quu, Lc
+            + ndx * ndx + MAX_ALPHAS * (H + 1))  # U, kc
+    inputs = nx + H * NE * 3 + (H + 1) * (3 + 6 + nx) + H * nr + nrt + H * nv + H
+    return work + inputs
+
+
+def launch_per_block(H: int, nq: int = 19, nv: int = 18) -> int:
+    """Problems per block at horizon H: PER_BLOCK, or as many as the
+    block's shared memory holds; raises ValueError if one does not fit."""
+    return fit_per_block("the DDP kernel", 4 * shared_size(H, nq, nv), PER_BLOCK, f"H={H}")
 
 
 def kernel_args(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_reg, w_stage,
@@ -119,7 +145,7 @@ def kernel_args(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_reg, w_st
     xs = torch.empty((B, H + 1, nx), dtype=dtype, device=device)
     us = torch.empty((B, H, nv), dtype=dtype, device=device)
     cost = torch.empty((B,), dtype=dtype, device=device)
-    scratch = torch.empty((scratch_size(H, nq, nv), B), dtype=dtype, device=device)
+    scratch = torch.empty((B, scratch_size(H, nq, nv)), dtype=dtype, device=device)
     ptrs = [mbuf, alphas, x0, ee_targets, com_ref, mom_ref, x_reg, w_stage, w_term,
             ctrl_weight, dts, xs, us, cost, scratch]
     args = [B, H, cfg.n_iters, len(cfg.alphas), cfg.reg] + [t.data_ptr() for t in ptrs]
@@ -149,10 +175,11 @@ def solve_ik_batch(
         raise ValueError(f"cuda_ddp.solve_ik_batch: unsupported device {x0.device}")
     if x0.dtype != torch.float32:
         raise ValueError(f"the DDP kernel takes float32, got {x0.dtype}")
+    per_block = launch_per_block(dts.shape[1], model.nq, model.nv)
     args, keep, out = kernel_args(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_reg,
                                   w_stage, w_term, ctrl_weight, dts, cfg)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("ddp_launch_f32", args + [PER_BLOCK, stream], ARGTYPES + [_I, _P])
+        KERNEL.launch("ddp_launch_f32", args + [per_block, stream], ARGTYPES + [_I, _P])
     del keep
     return out

@@ -4,9 +4,10 @@ Counterpart of ``bunmpc_tpu/solvers/pallas_admm.py`` (``PrepConsts``,
 ``prep_values``, ``solve_from_state`` -> ``_kernel_fused``). The kernel is
 ``csrc/fused.cu``: a prologue rebuilds the contact plan, the dynamics costs,
 the kinematic CoM box and the warm starts of one problem from its ~40 floats
-of compact state, then runs the ADMM of ``csrc/admm_core.cuh`` (the code K1
-runs). This module holds K3's plain version too: ``prep_values`` (the
-prologue in batched PyTorch) followed by K1's plain ADMM.
+of compact state into the problem's shared-memory slice, then runs the ADMM
+of ``csrc/admm_core.cuh`` (the code K1 runs, in K1's layout). This module
+holds K3's plain version too: ``prep_values`` (the prologue in batched
+PyTorch) followed by K1's plain ADMM.
 
 Dispatch: tensors on the CPU go to the plain version; tensors on a CUDA
 device go to the kernel, or the call raises.
@@ -25,7 +26,6 @@ from . import cuda_admm
 
 KERNEL = Kernel("fused")
 NE = cuda_admm.NE
-PER_BLOCK = cuda_admm.PER_BLOCK
 BIG = cuda_admm.BIG
 _G = 9.81
 
@@ -223,13 +223,15 @@ def solve_from_state_plain(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m
 
 
 _I, _D, _P = cuda_admm._I, cuda_admm._D, cuda_admm._P
-ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 19
+ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 18
 
 
 def work_size(H: int) -> int:
-    """Workspace elements per problem (csrc/fused.cu: fused_work_size): W, ql,
-    lb, ub, WF, qF, the touchdown and swing locations, the dt prefix sum."""
-    return 4 * (H + 1) * 9 + 2 * H * NE * 3 + 4 * H * NE + H
+    """Device-memory workspace elements per problem (csrc/fused.cu:
+    fused_work_size): the prologue's touchdown and swing locations and its
+    dt prefix sum. The rest of the problem lives in K1's shared-memory
+    layout (``cuda_admm.shared_size``)."""
+    return 4 * H * NE + H
 
 
 def kernel_args(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m, pc, cfg, H, ne):
@@ -262,8 +264,7 @@ def kernel_args(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m, pc, cfg, 
             empty(B, H, NE), empty(B, H, NE, 3), empty(B, H), empty(B, H, NE),
             empty(B, dt=torch.int32))
     work = empty(B, work_size(H))
-    scratch = empty(cuda_admm.scratch_size(H), B)
-    ptrs = [t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, *outs, work, scratch]
+    ptrs = [t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, *outs, work]
     args = ([B] + cuda_admm.config_args(H, m, cfg) + [consts.data_ptr()]
             + [a.data_ptr() for a in ptrs])
     X, F, viol, iters, cnt, r, dt, swing, fista = outs
@@ -275,11 +276,12 @@ def _launch(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m, pc, cfg, H, n
         raise ValueError(f"the fused kernel runs on a CUDA device, got {x_init.device}")
     if x_init.dtype != torch.float32:
         raise ValueError(f"the fused kernel takes float32, got {x_init.dtype}")
+    per_block = cuda_admm.launch_per_block(H)
     args, keep, out = kernel_args(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m, pc,
                                   cfg, H, ne)
     with torch.cuda.device(x_init.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("fused_launch_f32", args + [PER_BLOCK, stream], ARGTYPES + [_I, _P])
+        KERNEL.launch("fused_launch_f32", args + [per_block, stream], ARGTYPES + [_I, _P])
     del keep
     return out
 

@@ -8,7 +8,9 @@ Run from the root of the repository on a machine with a CUDA card:
 It builds the hand-written kernels from ``bunmpc_tpu_torch/csrc/`` (K1 the
 ADMM, K2 the GN-DDP, K3 the fused problem assembly + ADMM), holds each kernel
 and each of K1's branches against its plain PyTorch version on the card,
-holds K1 against the committed native fixture, and drives two paths of the
+holds K1 against the committed native fixture, holds K1 and K2 at twice the
+trot's horizons (the trot with ``gait_horizon=4.0``: ADMM H=40, IK H=20)
+against their plain versions, and drives two paths of the
 batched Solo12 trot MPC solve of ``bench.py`` (B=512, f32): the main path
 ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` (K1, K2) and the
 fused path with ``fuse_prep=True`` (K3, K2). It checks their outputs, counts
@@ -19,6 +21,7 @@ on a miss; without CUDA, or without the repository next to it, it exits
 non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -76,14 +79,16 @@ def quantile_gate(name, a, b, q_tol=5e-3, max_tol=5e-2):
 
 def admm_ops(iters, fista_iters, H, cfg):
     """Arithmetic (f32 operations) the ADMM kernel performs on these inputs,
-    counted from csrc/admm.cu per problem: per ADMM iteration
+    counted from csrc/admm_core.cuh per problem: per ADMM iteration
     (power_iters+1) applications of the F operator (~260 ops per knot) with a
-    norm, one Thomas sweep (~5,400 ops per knot: the 9x9 Cholesky, the 9x10
-    block solve, the Schur update) and the dual update (~150 ops per knot);
-    per FISTA iteration one operator application, the step, the cone
-    projection and the momentum update (~400 ops per knot)."""
+    norm, one Thomas sweep (~3,400 ops per knot: the 9x9 Cholesky on the
+    lower triangle ~500, the 9x10 block solve ~1,800, the Schur update of the
+    next block's lower triangle and right-hand side ~1,100) and the dual
+    update (~150 ops per knot); per FISTA iteration one operator application,
+    the step, the cone projection and the momentum update (~400 ops per
+    knot)."""
     f_op = 260.0 * H
-    per_admm = (cfg.power_iters + 1) * (f_op + 36.0 * H) + 5400.0 * (H + 1) + 150.0 * (H + 1)
+    per_admm = (cfg.power_iters + 1) * (f_op + 36.0 * H) + 3400.0 * (H + 1) + 150.0 * (H + 1)
     per_fista = f_op + 140.0 * H
     return float(iters.double().sum()) * per_admm + float(fista_iters.double().sum()) * per_fista
 
@@ -178,6 +183,14 @@ def main():
 
     model = Solo12Config.load_model()
     spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0(), device="cuda")
+    # the launch shape: a warp and a shared-memory slice per problem
+    admm_shape = (cuda_admm.launch_per_block(spec.horizon), 4 * cuda_admm.shared_size(spec.horizon))
+    ddp_shape = (cuda_ddp.launch_per_block(spec.ik_hor),
+                 4 * cuda_ddp.shared_size(spec.ik_hor, model.nq, model.nv))
+    for name, (pb, per_problem) in (("admm", admm_shape), ("fused", admm_shape),
+                                    ("ddp", ddp_shape)):
+        log(f"  {name}: {pb} problems ({pb * 32} threads) per block, {pb * per_problem} bytes "
+            f"of shared memory per block ({per_problem} per problem)")
     inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
                    for a in workload.trot_states(B))
     prob = KD._prepare_problem(spec, *inputs)
@@ -298,6 +311,38 @@ def main():
     log(f"[5] K1 vs native fixture: viol {float(vf[0]):.3e} (< 1e-4), iters {int(itf[0])}, "
         f"|dX| {fdX:.3e} (< 1e-3), |dF| {fdF:.3e} (< 5e-3)")
     check(float(vf[0]) < 1e-4 and fdX < 1e-3 and fdF < 5e-3, "K1 misses the native fixture")
+
+    # ---- 5a. K1 and K2 at twice the trot's horizons, against their plain versions ----
+    # the trot with gait_horizon=4.0, the longest Solo12 gait horizon of the
+    # JAX package's motions: ADMM H=40 (fewer problems a block fit), IK H=20;
+    # the gates of phases 3 and 4(a)
+    spec2 = KD.make_cyclic_spec(model, dataclasses.replace(trot, gait_horizon=4.0),
+                                Solo12Config.q0(), device="cuda")
+    prob2 = KD._prepare_problem(spec2, *inputs)
+    admm2 = (prob2["plan"], m, prob2["x_init"], prob2["W"], prob2["X_ref"], prob2["W_F"],
+             prob2["X_wm"], prob2["F_wm"], prob2["x_bounds"])
+    Xk, Fk, vk, _ = cuda_admm.solve(*admm2, pinned)
+    Xp, Fp, vp, _ = cuda_admm.solve_plain(*admm2, pinned)
+    torch.cuda.synchronize()
+    dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
+    dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
+    log(f"[5a] K1 at H={spec2.horizon} ({cuda_admm.launch_per_block(spec2.horizon)} problems a "
+        f"block), pinned: |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), viol rel {dv:.3e} "
+        f"(< 1e-3)")
+    check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K1 at the long horizon disagrees")
+    rnd2 = workload.random_ik_problems(model, spec2.eff_frames, B, spec2.ik_hor, dev)
+    rnd2_64 = tuple(a.double() if torch.is_tensor(a) else a for a in rnd2)
+    xs_k, us_k, c_k = cuda_ddp.solve_ik_batch(*rnd2, cfg=one)
+    xs_p, us_p, c_p = cuda_ddp.solve_ik_batch_plain(*rnd2_64, cfg=one)
+    torch.cuda.synchronize()
+    dxs, dus = float((xs_k - xs_p).abs().max()), float((us_k - us_p).abs().max())
+    dc = float(((c_k - c_p).abs() / c_p.abs()).max())
+    log(f"[5a] K2 at IK H={spec2.ik_hor} ({cuda_ddp.launch_per_block(spec2.ik_hor)} problems a "
+        f"block), one iteration vs plain f64: |dxs| {dxs:.3e} (< 2e-4), |dus| {dus:.3e} "
+        f"(< 2e-3), cost rel {dc:.3e} (< 1e-4)")
+    check(dxs < 2e-4 and dus < 2e-3 and dc < 1e-4, "K2 at the long horizon disagrees")
+    check(bool(torch.isfinite(Xk).all() and torch.isfinite(xs_k).all()),
+          "long-horizon output not finite")
 
     # ---- 5b. K3 against its plain version, on the card ----
     H = spec.horizon
@@ -483,6 +528,8 @@ def main():
     Hik = spec.ik_hor
     fista_total = cuda_admm.fista_iterations(*admm_in, bench_cfg)
     k3_fista = cuda_fused.fista_iterations(*k3_in, bench_cfg, H, 4)
+    log(f"[7] K1 work per problem: ADMM iterations mean {itk.float().mean():.2f}, F-step FISTA "
+        f"iterations mean {fista_total.float().mean():.2f}")
     # K1 reads cnt, r, dt, x_init, W, q, W_F, qF, lb, ub, X_wm, F_wm and
     # writes X, F, viol, iters (f32/int32)
     nXk, nFk = (H + 1) * 9, H * 12

@@ -134,11 +134,23 @@ def test_kernel_math_fista_cap_and_box(lib, problem):
     np.testing.assert_array_equal(got[3], ref[3])
 
 
-def test_scratch_layout_matches_kernel(lib):
-    lib.admm_scratch_size.restype = ctypes.c_long
-    lib.admm_scratch_size.argtypes = [ctypes.c_int]
-    for h in (1, 20, 30):
-        assert lib.admm_scratch_size(h) == cuda_admm.scratch_size(h)
+@pytest.mark.parametrize("h", [1, 20, 30, 40])
+def test_scratch_layout_matches_kernel(lib, h):
+    """The wrapper's size of a problem's shared-memory slice is the kernel's
+    layout (K1's and K3's), at the trot's horizon (20), 30 and 40."""
+    lib.admm_shared_size.restype = ctypes.c_long
+    lib.admm_shared_size.argtypes = [ctypes.c_int]
+    assert lib.admm_shared_size(h) == cuda_admm.shared_size(h)
+
+
+def test_horizon_past_shared_memory_raises():
+    """K1 and K3 fit fewer problems a block at a long horizon; a horizon
+    whose one problem does not fit a block's shared memory raises, naming
+    the limit."""
+    assert cuda_admm.launch_per_block(20) == cuda_admm.PER_BLOCK
+    assert 1 <= cuda_admm.launch_per_block(120) < cuda_admm.PER_BLOCK
+    with pytest.raises(ValueError, match="232448 bytes a thread block"):
+        cuda_admm.launch_per_block(200)
 
 
 @pytest.mark.parametrize("runner", ["plain", "kernel_math"])

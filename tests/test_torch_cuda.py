@@ -11,7 +11,8 @@ Gates: K1 with the reference schedule and 15 iterations, the JAX package's
 Pallas-vs-XLA gates (X 1e-4, F 1e-3, viol rtol 1e-3); K2 for one iteration
 with one alpha against the plain version in f64 (xs 2e-4, us 2e-3, cost rtol
 1e-4); the launch counters rise by one per kernel call; K1, K2 and K3 give a
-5-problem batch the rows of the 512-problem batch, bit for bit."""
+5-problem batch the rows of the 512-problem batch, bit for bit; K1 at H=40
+and K2 at IK H=20 (fewer problems a block) with the same gates."""
 
 import pytest
 import torch
@@ -139,3 +140,42 @@ def test_fused_any_batch_size_gives_the_same_rows(device, main_path):
     assert cuda_fused.KERNEL.launches == before + 2
     for a, b in zip(full, part):
         assert torch.equal(a[:5], b)
+
+
+def test_long_horizon_kernels_match_plain(device, main_path):
+    """The trot with gait_horizon=4.0 (ADMM H=40, IK H=20, twice the main
+    path's), where fewer problems fit a block's shared memory: K1 and K2
+    against their plain versions with the gates above."""
+    import dataclasses
+
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(),
+                               dataclasses.replace(trot, gait_horizon=4.0), Solo12Config.q0())
+    assert (spec.horizon, spec.ik_hor) == (40, 20)
+    assert cuda_ddp.launch_per_block(spec.ik_hor) < cuda_ddp.PER_BLOCK
+    inputs = [torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in workload.trot_states(B)]
+    prob = KD._prepare_problem(spec, *inputs)
+    args = (prob["plan"], spec.model.total_mass, prob["x_init"], prob["W"], prob["X_ref"],
+            prob["W_F"], prob["X_wm"], prob["F_wm"], prob["x_bounds"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
+                                   rho_growth=1.0)
+    Xk, Fk, vk, _ = cuda_admm.solve(*args, cfg)
+    Xp, Fp, vp, _ = cuda_admm.solve_plain(*args, cfg)
+    torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(Fk, Fp, atol=1e-3, rtol=0)
+    torch.testing.assert_close(vk, vp, rtol=1e-3, atol=1e-6)
+    ik = workload.random_ik_problems(spec.model, spec.eff_frames, B, spec.ik_hor, device)
+    ik64 = tuple(a.double() if torch.is_tensor(a) else a for a in ik)
+    one = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
+    xs, us, cost = cuda_ddp.solve_ik_batch(*ik, cfg=one)
+    xs_p, us_p, cost_p = cuda_ddp.solve_ik_batch_plain(*ik64, cfg=one)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)

@@ -180,11 +180,16 @@ def test_kernel_math_f32_matches_plain(lib, tspec):
     np.testing.assert_allclose(viol.numpy(), ref[2].numpy(), rtol=1e-3, atol=1e-5)
 
 
-def test_work_layout_matches_kernel(lib):
-    lib.fused_work_size.restype = ctypes.c_long
-    lib.fused_work_size.argtypes = [ctypes.c_int]
-    for h in (1, 20, 30):
-        assert lib.fused_work_size(h) == cuda_fused.work_size(h)
+@pytest.mark.parametrize("h", [1, 20, 30, 40])
+def test_work_layout_matches_kernel(lib, h):
+    """The wrapper's device-memory workspace and K1's shared-memory slice
+    (K3 runs in it) are the kernel's, at the trot's horizon (20), 30 and 40."""
+    for name, size in (("fused_work_size", cuda_fused.work_size),
+                       ("fused_shared_size", cuda_admm.shared_size)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        fn.argtypes = [ctypes.c_int]
+        assert fn(h) == size(h)
 
 
 def test_fused_path_matches_unfused_path(tspec):

@@ -178,11 +178,26 @@ def test_kernel_math_single_iteration_f32(lib, data, one_f32):
     np.testing.assert_allclose(cost, one_f32[2], rtol=1e-4)
 
 
-def test_scratch_layout_matches_kernel(lib):
-    lib.ddp_scratch_size.restype = ctypes.c_long
-    lib.ddp_scratch_size.argtypes = [ctypes.c_int]
-    for h in (1, 3, 10):
-        assert lib.ddp_scratch_size(h) == cuda_ddp.scratch_size(h, 19, NV)
+@pytest.mark.parametrize("h", [1, 3, 10, 20, 40])
+def test_scratch_layout_matches_kernel(lib, h):
+    """The wrapper's sizes of a problem's shared-memory slice and device
+    scratch are the kernel's layout, at the trot's IK horizon (10), twice it
+    and at 40."""
+    for name, size in (("ddp_scratch_size", cuda_ddp.scratch_size),
+                       ("ddp_shared_size", cuda_ddp.shared_size)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        fn.argtypes = [ctypes.c_int]
+        assert fn(h) == size(h, 19, NV)
+
+
+def test_horizon_past_shared_memory_raises():
+    """A horizon whose one problem fits a block's shared memory runs with
+    fewer problems a block; past that the launch raises, naming the limit."""
+    assert cuda_ddp.launch_per_block(10) == cuda_ddp.PER_BLOCK
+    assert 1 <= cuda_ddp.launch_per_block(40) < cuda_ddp.PER_BLOCK
+    with pytest.raises(ValueError, match="232448 bytes a thread block"):
+        cuda_ddp.launch_per_block(100)
 
 
 def test_kernel_math_single_iteration_f64(lib, data):
