@@ -1,5 +1,7 @@
 """Carry state between the JAX package and the port as numpy arrays, so both
-compute with the same constants and their results compare field by field.
+compute with the same constants and their results compare field by field:
+the robot model, MPC plans and warm starts, and the closed loop's simulator
+parameters, states, controller gains and rollout settings.
 
 Nothing here imports JAX: the JAX side hands over plain numpy arrays
 (``dataclasses.asdict`` of its ``RobotModel``, ``np.asarray`` of its arrays).
@@ -7,10 +9,13 @@ Nothing here imports JAX: the JAX side hands over plain numpy arrays
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .robots.model import Frame, RobotModel
+from .sim import controllers, physics, rollout
 
 
 def model_from_arrays(d: dict) -> RobotModel:
@@ -64,3 +69,38 @@ def warm_start_from_arrays(X, F, device, dtype=torch.float32):
     if X.shape[0] != F.shape[0] or X.shape[1] != F.shape[1] + 1:
         raise ValueError(f"warm start shapes {tuple(X.shape)}, {tuple(F.shape)} disagree")
     return X, F
+
+
+def _fields(cls, obj, **override) -> dict:
+    """The fields of dataclass ``cls`` read off ``obj`` by name."""
+    out = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    out.update(override)
+    return out
+
+
+def contact_params_from(c) -> physics.ContactParams:
+    """The port's ``ContactParams`` from the JAX package's (floats)."""
+    return physics.ContactParams(**{k: float(v) for k, v in _fields(physics.ContactParams,
+                                                                    c).items()})
+
+
+def sim_params_from(p) -> physics.SimParams:
+    """The port's ``SimParams`` from the JAX package's (scalar fields)."""
+    d = _fields(physics.SimParams, p, contact=contact_params_from(p.contact))
+    return physics.SimParams(**{k: v if k == "contact" else float(v) for k, v in d.items()})
+
+
+def sim_state_from(s, dtype=torch.float64, device="cpu") -> physics.SimState:
+    """The port's ``SimState`` from the JAX package's (arrays)."""
+    return physics.SimState(*(torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+                              for a in (s.q, s.v)))
+
+
+def gains_from(g) -> controllers.IdControllerGains:
+    """The port's ``IdControllerGains`` from the JAX package's (scalar gains)."""
+    return controllers.IdControllerGains(kp=float(g.kp), kd=float(g.kd))
+
+
+def rollout_config_from(c) -> rollout.RolloutConfig:
+    """The port's ``RolloutConfig`` from the JAX package's."""
+    return rollout.RolloutConfig(**_fields(rollout.RolloutConfig, c))

@@ -1,7 +1,8 @@
 """Batched rigid-body kinematics in PyTorch.
 
-Counterpart of ``bunmpc_tpu/kin/algorithms.py`` (the kinematics the MPC
-solve needs; RNEA, CRBA and the mass matrix come with the simulator). The
+Counterpart of ``bunmpc_tpu/kin/algorithms.py``: the kinematics the MPC
+solve needs, and the dynamics the simulator and the inverse-dynamics
+controller need (RNEA, the mass matrix, the nonlinear effects). The
 topology is static (``RobotModel`` numpy constants), so every algorithm
 unrolls into a fixed chain of small batched ops over arbitrary leading batch
 dimensions.
@@ -94,8 +95,13 @@ def body_velocities(model: RobotModel, q, v):
 def com(model: RobotModel, q):
     """World-frame center of mass."""
     R, p = fk(model, q)
-    mass = const(model.mass, q)
-    c_w = p + (R @ const(model.com, q)[..., None])[..., 0]
+    return com_from_fk(model, R, p)
+
+
+def com_from_fk(model: RobotModel, R, p):
+    """``com`` from a forward-kinematics pass ``(R, p)``."""
+    mass = const(model.mass, p)
+    c_w = p + (R @ const(model.com, p)[..., None])[..., 0]
     return torch.sum(mass[:, None] * c_w, dim=-2) / model.total_mass
 
 
@@ -147,6 +153,99 @@ def frame_jacobian(model: RobotModel, q, frame_name: str, R=None, p=None):
         a_w = _mv(R[..., body, :, :], const(model.axis, q)[j])
         cols[6 + j] = _cross(a_w, pf - p[..., body, :])
     return torch.stack(cols, dim=-1)
+
+
+def rnea(model: RobotModel, q, v, a, gravity: float = _G):
+    """Recursive Newton-Euler inverse dynamics ``tau = ID(q, v, a)``
+    (..., nv), Pinocchio layout: rows 0:3 base force, 3:6 base torque (both
+    local frame), then the joints; ``a``'s base rows are the time derivative
+    of the local base twist."""
+    return rnea_from_kin(model, body_velocities(model, q, v), v, a, gravity)
+
+
+def rnea_from_kin(model: RobotModel, kin, v, a, gravity: float = _G):
+    """``rnea`` from ``kin = body_velocities(model, q, v)``. ``v`` and ``a``
+    may carry more leading axes than ``kin`` where they broadcast against it
+    (``mass_matrix``'s column axis)."""
+    omega, vel, R, p = kin
+    R0 = R[..., 0, :, :]
+    axis = const(model.axis, a)
+    # base classical acceleration from the local spatial acceleration:
+    # v_w = R0 v_loc  =>  dv_w = R0 a_loc + omega x v_w
+    accs = [_mv(R0, a[..., 0:3]) + _cross(omega[..., 0, :], vel[..., 0, :])]
+    alphas = [_mv(R0, a[..., 3:6])]
+    a_ws = [None]
+    for j in range(model.n_joints):
+        b = int(model.parent[j])
+        body = j + 1
+        a_w = _mv(R[..., body, :, :], axis[j])
+        r = p[..., body, :] - p[..., b, :]
+        w_p = omega[..., b, :]
+        alphas.append(alphas[b] + a_w * a[..., 6 + j : 7 + j]
+                      + _cross(w_p, a_w) * v[..., 6 + j : 7 + j])
+        accs.append(accs[b] + _cross(alphas[b], r) + _cross(w_p, _cross(w_p, r)))
+        a_ws.append(a_w)
+
+    # per-body net force and torque about its own CoM
+    com_b = const(model.com, a)
+    inertia = const(model.inertia, a)
+    F_net, N_net, c_offs = [], [], []
+    for b in range(model.n_bodies):
+        Rb = R[..., b, :, :]
+        c_off = _mv(Rb, com_b[b])
+        w_b = omega[..., b, :]
+        a_com = accs[b] + _cross(alphas[b], c_off) + _cross(w_b, _cross(w_b, c_off))
+        I_w = Rb @ inertia[b] @ Rb.transpose(-1, -2)
+        # a_com - (0, 0, -gravity)
+        a_rel = torch.cat([a_com[..., 0:2], a_com[..., 2:3] + gravity], dim=-1)
+        F_net.append(float(model.mass[b]) * a_rel)
+        N_net.append(_mv(I_w, alphas[b]) + _cross(w_b, _mv(I_w, w_b)))
+        c_offs.append(c_off)
+
+    # backward pass: the wrench each body gets from its parent, the torque
+    # about the body's frame origin
+    children = [[] for _ in range(model.n_bodies)]
+    for j in range(model.n_joints):
+        children[int(model.parent[j])].append(j + 1)
+    f = [None] * model.n_bodies
+    n = [None] * model.n_bodies
+    for b in reversed(range(model.n_bodies)):
+        fb = F_net[b]
+        nb = N_net[b] + _cross(c_offs[b], F_net[b])
+        for cb in children[b]:
+            fb = fb + f[cb]
+            nb = nb + n[cb] + _cross(p[..., cb, :] - p[..., b, :], f[cb])
+        f[b] = fb
+        n[b] = nb
+
+    taus = [torch.sum(a_ws[j + 1] * n[j + 1], dim=-1) for j in range(model.n_joints)]
+    R0T = R0.transpose(-1, -2)
+    return torch.cat([_mv(R0T, f[0]), _mv(R0T, n[0]), torch.stack(taus, dim=-1)], dim=-1)
+
+
+def mass_matrix(model: RobotModel, q):
+    """Joint-space inertia matrix M(q) (..., nv, nv) from RNEA columns."""
+    R, p = fk(model, q)
+    return mass_matrix_from_fk(model, R, p)
+
+
+def mass_matrix_from_fk(model: RobotModel, R, p):
+    """``mass_matrix`` from a forward-kinematics pass ``(R, p)``:
+    M e_i = ID(q, 0, e_i) - ID(q, 0, 0), the 18 unit columns and the zero
+    column as ONE RNEA call over a column axis."""
+    nv = model.nv
+    batch = p.shape[:-2]
+    zeros3 = torch.zeros(batch + (1, model.n_bodies, 3), dtype=p.dtype, device=p.device)
+    kin = (zeros3, zeros3, R[..., None, :, :, :], p[..., None, :, :])
+    eye = torch.eye(nv + 1, nv, dtype=p.dtype, device=p.device)  # last row: zero column
+    v0 = torch.zeros(batch + (1, nv), dtype=p.dtype, device=p.device)
+    cols = rnea_from_kin(model, kin, v0, eye.expand(batch + (nv + 1, nv)), gravity=0.0)
+    return (cols[..., :nv, :] - cols[..., nv:, :]).transpose(-1, -2)
+
+
+def nonlinear_effects(model: RobotModel, q, v, gravity: float = _G):
+    """Coriolis + centrifugal + gravity bias b(q, v) = ID(q, v, 0)."""
+    return rnea(model, q, v, torch.zeros_like(v), gravity=gravity)
 
 
 def composite_inertia_about_com(model: RobotModel, q):

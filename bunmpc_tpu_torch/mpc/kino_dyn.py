@@ -160,6 +160,18 @@ class MpcPlan(NamedTuple):
     P_opt: torch.Tensor  # (B, H+1, 9) ADMM scaled dual (zeros from K1)
 
 
+def window_clock(start_time: float, w_idx: int, plan_freq: float, like: torch.Tensor):
+    """The gait clock of replanning window ``w_idx``, a 0-d tensor of
+    ``like``'s dtype and device: ``round(start_time + w_idx * plan_freq, 3)``
+    in that dtype, the JAX package's expression (sim/rollout.py:322, 375)
+    with numpy's rounding, the reference's. ``torch.round(x, decimals=3)``
+    divides by 1000, where ``x / 1000`` on the card (and ``jnp.round``,
+    which XLA compiles) multiplies by a rounded reciprocal; a clock one ulp
+    off a knot can degenerate the first knot (``gait.first_knot_dt``)."""
+    w = torch.full((), w_idx, dtype=like.dtype, device=like.device)
+    return torch.round(start_time + w * plan_freq * 1.0, decimals=3)
+
+
 def _interp_1khz(spec: CyclicMpcSpec, dts, knots):
     """Linear interpolation of per-knot values onto the 1 ms grid.
     ``dts`` (B, size) durations; ``knots`` (B, size+1, d)."""
@@ -414,12 +426,17 @@ def solve_mpc_batch(
     admm_backend: str = "cuda",
     ik_backend: str = "cuda",
     fuse_prep: bool = False,
+    warm_start=None,  # optional (X_wm (B, H+1, 9), F_wm (B, H, n_eff, 3), P_wm (B, H+1, 9))
 ) -> MpcPlan:
     """Batched kino-dynamic MPC. ``"cuda"`` backends run the hand-written
     kernels (K1 and K3 return no dual, so ``P_opt`` is zeros); ``"torch"``
     runs the plain versions and returns the dual. ``fuse_prep=True`` builds
     the problem inside the ADMM kernel (K3; flat ground, as the JAX package's
-    fused path) and needs ``admm_backend="cuda"``. Any B is accepted."""
+    fused path) and needs ``admm_backend="cuda"``. Any B is accepted.
+
+    ``warm_start`` replaces the ADMM's cold start with a carried solution
+    and its scaled dual (the JAX package's ``solve_mpc(warm_start=...)``);
+    only the plain ADMM (``admm_backend="torch"``) takes a dual."""
     if admm_backend not in ("cuda", "torch"):
         raise ValueError(f"admm_backend must be 'cuda' or 'torch', got {admm_backend!r}")
     if ik_backend not in ("cuda", "torch"):
@@ -427,6 +444,8 @@ def solve_mpc_batch(
     if fuse_prep and admm_backend != "cuda":
         # the JAX package falls back to the unfused path here without a word
         raise ValueError("fuse_prep=True runs the fused kernel (K3): admm_backend must be 'cuda'")
+    if warm_start is not None and admm_backend != "torch":
+        raise ValueError("warm_start carries the ADMM dual: only admm_backend='torch' takes it")
     p = spec.params
     m = spec.model.total_mass
     q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
@@ -455,11 +474,12 @@ def solve_mpc_batch(
         prob = _prepare_problem(spec, q, v, t, v_des, w_des)
         if admm_cfg is None:
             admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
+        if warm_start is None:
+            warm_start = (prob["X_wm"], prob["F_wm"], torch.zeros_like(prob["X_wm"]))
         dyn = biconvex.solve(
             prob["plan"], m, prob["x_init"],
             biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]), prob["W_F"],
-            prob["X_wm"], prob["F_wm"], torch.zeros_like(prob["X_wm"]), admm_cfg,
-            x_bounds=prob["x_bounds"],
+            *warm_start, admm_cfg, x_bounds=prob["x_bounds"],
         )
         X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
 

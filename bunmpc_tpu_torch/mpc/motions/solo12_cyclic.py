@@ -1,11 +1,14 @@
 """Solo12 cyclic gait parameter sets.
 
-Copy of the ``trot`` table of ``bunmpc_tpu/mpc/motions/solo12_cyclic.py``,
-the numeric twin of the reference gait (reference
-examples/motions/cyclic/solo12_trot.py:13-75).
+Copy of the ``trot`` and ``trot_sim`` tables of
+``bunmpc_tpu/mpc/motions/solo12_cyclic.py``: ``trot`` is the numeric twin of
+the reference gait (reference examples/motions/cyclic/solo12_trot.py:13-75),
+``trot_sim`` its variant that walks in the soft-contact simulator.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -44,3 +47,11 @@ trot = BiconvexMotionParams(
     kp=3.0,
     kd=0.05,
 )
+
+
+# The walking closed-loop variant: the reference's soft PD gains (kp=3,
+# kd=0.05) roll the robot over on the implicit soft-contact simulator, and
+# W_F=1e1 sinks the plan's CoM below nominal; with kp=12, kd=0.5, W_F x0.1
+# and ContactParams(kn=1e4, dn=500, kt=500) it walks (the JAX package's
+# sweep, artifacts/stability_sweep_solo12_wf01.json).
+trot_sim = dataclasses.replace(trot, motion_name="trot_sim", kp=12.0, kd=0.5, W_F=trot.W_F * 0.1)

@@ -1,0 +1,436 @@
+"""Batched closed-loop MPC rollouts.
+
+Counterpart of ``bunmpc_tpu/sim/rollout.py`` (reference ``Simulation``,
+examples/iterative_algorithm/simulation.py:22-2094), batch-leading: an
+episode is a Python loop over replanning windows, and in each window
+
+1. ONE batched MPC solve for every episode (``kino_dyn.solve_mpc_batch``;
+   with the "cuda" backends one launch of K1 and one of K2), then
+2. ``steps_per_plan`` 1 ms substeps, each a handful of batched tensor ops:
+   features, the inverse-dynamics controller, the action encoding, the
+   physics step, the failure predicate and the records.
+
+Nothing inside a window waits for the host: a failed episode is frozen
+with ``torch.where``, as the JAX package's scan does, and the records are
+written into preallocated (B, T, ...) tensors.
+
+Rates follow the reference: 1 kHz simulation and control, a replan every
+``plan_freq`` (20 Hz, 50 steps). Records per step: state features
+(n_state=43: v, base_wrt_foot, q[2:]), the vc goal (phase, v_des_xy, w_des,
+gait id) and the action (torque / pd_target / structured).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..kin import algorithms as K
+from ..mpc import gait as G
+from ..mpc import kino_dyn as KD
+from ..robots.model import RobotModel
+from ..solvers.ddp import DdpConfig
+from ..utils.quat import quat_to_rot, rot_to_rpy
+from . import controllers, physics
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    episode_length: int  # total 1 ms steps
+    plan_freq: float = 0.05  # s between replans (20 Hz)
+    sim_dt: float = 0.001
+    action_type: str = "pd_target"  # torque | pd_target | structured
+    kp: float = 3.0  # PD gains of the action parametrization
+    kd: float = 0.05
+    gait_id: float = 1.0  # vc-goal gait indicator
+    fail_angle_deg: float = 30.0
+    gait_period: float = 0.5
+
+    @property
+    def steps_per_plan(self) -> int:
+        return int(round(self.plan_freq / self.sim_dt))
+
+    @property
+    def n_windows(self) -> int:
+        return self.episode_length // self.steps_per_plan
+
+
+class RolloutResult(NamedTuple):
+    states: torch.Tensor  # (B, T, 43) state features
+    actions: torch.Tensor  # (B, T, n_action)
+    vc_goals: torch.Tensor  # (B, T, 5)
+    base: torch.Tensor  # (B, T, 3) base positions
+    com: torch.Tensor  # (B, T, 3)
+    contact_forces: torch.Tensor  # (B, T, n_eff, 3) measured ground reactions
+    contact_pos: torch.Tensor  # (B, T, n_eff, 3)
+    in_contact: torch.Tensor  # (B, T, n_eff) bool
+    failed: torch.Tensor  # (B,) True where the failure predicate fired
+    fail_step: torch.Tensor  # (B,) first failing step (episode_length if none)
+    final_state: physics.SimState
+    mpc_usage: torch.Tensor  # (B, T) 1.0 where the MPC was in control
+
+
+def state_features(model: RobotModel, eff_frames, q, v, fk=None):
+    """n_state=43 featurization (simulation.py:487-489); ``fk`` is
+    ``K.fk(model, q)`` where the caller has it."""
+    R, p = K.fk(model, q) if fk is None else fk
+    feet = torch.stack([K._frame_pos(model, R, p, n, q) for n in eff_frames], dim=-2)
+    base_wrt_foot = (q[..., None, 0:2] - feet[..., 0:2]).flatten(-2)
+    return torch.cat([v, base_wrt_foot, q[..., 2:]], dim=-1)
+
+
+def vc_goal(cfg: RolloutConfig, step, v_des, w_des):
+    """[phase %, v_des_x, v_des_y, w_des, gait id] (..., 5)
+    (simulation.py:492-495); ``step`` is the absolute sim step as a tensor,
+    so start_time shifts the phase (a reference quirk kept)."""
+    phase = G._mod(step * cfg.sim_dt, cfg.gait_period) / cfg.gait_period
+    phase, vx = torch.broadcast_tensors(phase, v_des[..., 0])
+    return torch.stack(
+        [phase, vx, v_des[..., 1], w_des, torch.full_like(vx, cfg.gait_id)], dim=-1)
+
+
+def failed_state(cfg: RolloutConfig, q, time_elapsed):
+    """Height/attitude failure envelope (simulation.py:189-220), after a
+    grace period of one gait cycle."""
+    rpy = rot_to_rpy(quat_to_rot(q[..., 3:7]))
+    ang = math.radians(cfg.fail_angle_deg)
+    bad = (
+        (q[..., 2] < 0.1)
+        | (q[..., 2] > 2.0)
+        | (torch.abs(rpy[..., 0]) > ang)
+        | (torch.abs(rpy[..., 1]) > ang)
+    )
+    return bad & (time_elapsed > (cfg.gait_period / cfg.sim_dt))
+
+
+def settle_state(
+    model: RobotModel,
+    eff_frames,
+    sim_params: physics.SimParams,
+    state0: physics.SimState,
+    kp: float,
+    kd: float,
+    ms: int = 500,
+    gain_scale: float = 6.0,
+) -> physics.SimState:
+    """PD-hold the initial pose for ``ms`` steps, so that episodes start from
+    a standing state settled into the soft contacts rather than from the raw
+    configuration dropped onto the ground."""
+    q0j = state0.q[..., 7:]
+    s = state0
+    for _ in range(ms):
+        tau = -gain_scale * kp * (s.q[..., 7:] - q0j) - gain_scale * kd * s.v[..., 6:]
+        s, _ = physics.step(model, eff_frames, sim_params, s, tau)
+    return s
+
+
+def _measure(q, v):
+    """The state the controller sees: the true state (sensor bias,
+    ``q_noise``/``v_noise``, waits for a later slice)."""
+    return q, v
+
+
+def _decode_action(cfg: RolloutConfig, action, q, v):
+    """Policy action -> joint torques, per action_type (simulation.py:760-777)."""
+    nj = q.shape[-1] - 7
+    if cfg.action_type == "torque":
+        return action
+    if cfg.action_type == "pd_target":
+        return cfg.kp * (action - q[..., 7:]) - cfg.kd * v[..., 6:]
+    if cfg.action_type == "structured":
+        tau_ff = action[..., :nj]
+        q_des = action[..., nj : 2 * nj]
+        dq_des = action[..., 2 * nj : 3 * nj]
+        return tau_ff + cfg.kp * (q_des - q[..., 7:]) + cfg.kd * (dq_des - v[..., 6:])
+    raise ValueError(f"unsupported action_type {cfg.action_type!r}")
+
+
+def _extract_action(cfg: RolloutConfig, tau, q, v, tau_ff=None, q_des=None, v_des_traj=None):
+    """Action encodings (simulation.py:525-531): pd_target recovers the PD
+    setpoint the torque implies; structured records [tau_ff, q_des_joints,
+    v_des_joints]."""
+    if cfg.action_type == "torque":
+        return tau
+    if cfg.action_type == "pd_target":
+        return (tau + cfg.kd * v[..., 6:]) / cfg.kp + q[..., 7:]
+    if cfg.action_type == "structured":
+        return torch.cat([tau_ff, q_des[..., 7:], v_des_traj[..., 6:]], dim=-1)
+    raise ValueError(f"unsupported action_type {cfg.action_type!r}")
+
+
+def _later(name: str, item: str):
+    raise NotImplementedError(f"{name} waits for a later slice (ROADMAP, queue 1, {item})")
+
+
+def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, prev, n_shift: int):
+    """The previous window's (X, F, dual P) shifted one window and moved
+    into the new plan frame, where it is finite and sane; the cold start
+    (the tiled centroidal state, zero forces and dual) elsewhere."""
+    model = spec.model
+    B, H = qm0.shape[0], spec.horizon
+    q_reset = torch.cat([torch.zeros_like(qm0[:, 0:2]), qm0[:, 2:]], dim=-1)
+    com, h_lin, h_ang = K.centroidal_momentum(model, q_reset, vm0)
+    defX = torch.cat([com, h_lin / model.total_mass, h_ang], dim=-1)[:, None].expand(B, H + 1, 9)
+    if prev is None:
+        zF = torch.zeros((B, H, spec.n_eff, 3), dtype=qm0.dtype, device=qm0.device)
+        return defX.contiguous(), zF, torch.zeros_like(defX)
+    prevX, prevF, prevP, prev_xy = prev
+
+    def shift(a):
+        return torch.cat([a[:, n_shift:], a[:, -1:].expand((B, n_shift) + a.shape[2:])], dim=1)
+
+    # plan frames are origin-reset at the base xy
+    dxy = prev_xy - qm0[:, 0:2]
+    shX = shift(prevX)
+    shX = torch.cat([shX[..., 0:2] + dxy[:, None, :], shX[..., 2:]], dim=-1)
+    shF, shP = shift(prevF), shift(prevP)
+    f_sane = 10.0 * model.total_mass * 9.81
+    healthy = (
+        torch.isfinite(shX).flatten(1).all(1)
+        & torch.isfinite(shF).flatten(1).all(1)
+        & (shF.abs().flatten(1).amax(1) < f_sane)
+    )
+    h3, h4 = healthy[:, None, None], healthy[:, None, None, None]
+    return (
+        torch.where(h3, shX, defX).contiguous(),
+        torch.where(h4, shF, torch.zeros_like(shF)),
+        torch.where(h3, shP, torch.zeros_like(shP)),
+    )
+
+
+def rollout_mpc(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,  # q (B, nq), v (B, nv)
+    v_des,  # (B, 3)
+    w_des,  # (B,)
+    start_time: float = 0.0,
+    push_force=None,
+    terrain=None,
+    q_noise=None,
+    v_noise=None,
+    admm_cfg=None,
+    ddp_cfg=None,
+    gains: controllers.IdControllerGains | None = None,
+    warm_start_carry: bool | None = None,
+    swing_blend=None,
+    force_gate=None,
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+) -> RolloutResult:
+    """MPC expert rollouts of a batch of episodes (reference
+    Simulation.rollout_mpc, simulation.py:340), on the device of ``state0``.
+
+    Each window solves the MPC once for the whole batch with
+    ``solve_mpc_batch(admm_backend, ik_backend)`` ("cuda": the kernels K1
+    and K2; "torch": their plain versions) at the clock
+    ``KD.window_clock(start_time, w)``.
+
+    ``warm_start_carry`` feeds each window's ADMM the previous window's
+    (X, F, dual P), shifted one window, behind the JAX package's health
+    gate. None means on for "tiled" specs with ``admm_backend="torch"``.
+    With ``admm_backend="cuda"`` None means off, the reference's cold start,
+    and True raises ``ValueError``: K1, like the JAX package's Pallas ADMM,
+    keeps its dual inside the kernel, and carrying X and F with a zero dual
+    would be an algorithm neither package runs.
+
+    ``gains`` overrides the controller's PD gains with one (kp, kd) for the
+    batch. ``push_force``, ``terrain``, ``q_noise``/``v_noise``,
+    ``swing_blend``, ``force_gate``, per-episode gains or simulator
+    parameters and a per-episode ``start_time`` wait for a later slice and
+    raise ``NotImplementedError``.
+    """
+    if push_force is not None:
+        _later("push_force", "item 1")
+    if terrain is not None:
+        _later("terrain", "item 7")
+    if swing_blend is not None or force_gate is not None:
+        _later("swing_blend/force_gate", "item 1")
+    if q_noise is not None or v_noise is not None:
+        _later("q_noise/v_noise", "item 1")
+    if gains is not None and (torch.is_tensor(gains.kp) or torch.is_tensor(gains.kd)):
+        _later("per-episode gains", "item 1")
+    scalars = (sim_params.dt, sim_params.joint_damping, sim_params.torque_limit,
+               *dataclasses.astuple(sim_params.contact))
+    if any(torch.is_tensor(x) for x in scalars):
+        _later("per-episode sim_params", "item 1")
+    if torch.is_tensor(start_time):
+        _later("a per-episode start_time", "item 1")
+    if admm_backend == "cuda" and warm_start_carry:
+        raise ValueError(
+            "warm_start_carry=True carries the ADMM dual, which K1 (admm_backend='cuda') does "
+            "not keep; use admm_backend='torch' or warm_start_carry=False")
+    if warm_start_carry is None:
+        warm_start_carry = admm_backend == "torch" and spec.warm_start_style == "tiled"
+    if spec.n_int < cfg.steps_per_plan:
+        raise ValueError(f"a plan covers {spec.n_int} ms, less than the {cfg.steps_per_plan} "
+                         "steps of a replanning window")
+
+    model = spec.model
+    if gains is None:
+        gains = controllers.IdControllerGains(kp=spec.params.kp, kd=spec.params.kd)
+    q, v = state0
+    B, dtype, device = q.shape[0], q.dtype, q.device
+    v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
+    w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
+    spp, nw = cfg.steps_per_plan, cfg.n_windows
+    T = nw * spp
+    n_shift = max(1, int(round(cfg.plan_freq / spec.params.gait_dt)))
+    nq, ne = model.nq, spec.n_eff
+
+    def empty(*shape, dt=dtype):
+        return torch.empty((B, T) + shape, dtype=dt, device=device)
+
+    b = _Buffers(
+        q=q.clone(), v=v.clone(),
+        failed=torch.zeros(B, dtype=torch.bool, device=device),
+        fail_step=torch.full((B,), cfg.episode_length, dtype=torch.int32, device=device),
+        i=torch.zeros((), dtype=torch.int64, device=device),
+        k=torch.zeros((), dtype=torch.int64, device=device),
+        xs_int=torch.empty((B, spec.n_int, nq + model.nv), dtype=dtype, device=device),
+        us_int=torch.empty((B, spec.n_int, model.nv), dtype=dtype, device=device),
+        f_int=torch.empty((B, spec.n_int, 3 * ne), dtype=dtype, device=device),
+        mpc_bad=torch.zeros(B, dtype=torch.bool, device=device),
+        states=empty(model.nv + 2 * ne + nq - 2),  # n_state = 43
+        actions=empty(model.n_joints * (3 if cfg.action_type == "structured" else 1)),
+        vc_goals=empty(5), base=empty(3),
+        com=empty(3), contact_forces=empty(ne, 3), contact_pos=empty(ne, 3),
+        in_contact=empty(ne, dt=torch.bool),
+    )
+    step0 = torch.full((), start_time / cfg.sim_dt, dtype=dtype, device=device)
+    substep = _Substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b)
+    prev = None
+
+    for w in range(nw):
+        t = KD.window_clock(start_time, w, cfg.plan_freq, b.q).expand(B)
+        qm0, vm0 = _measure(b.q, b.v)
+        warm = None
+        if warm_start_carry:
+            warm = _carried_warm_start(spec, qm0, vm0, prev, n_shift)
+        plan = KD.solve_mpc_batch(
+            spec, qm0, vm0, t, v_des, w_des, admm_cfg=admm_cfg,
+            ddp_cfg=DdpConfig() if ddp_cfg is None else ddp_cfg,
+            admm_backend=admm_backend, ik_backend=ik_backend, warm_start=warm,
+        )
+        if warm_start_carry:  # qm0 is the state buffer the substeps overwrite: copy its xy
+            prev = (plan.X_opt, plan.F_opt, plan.P_opt, qm0[:, 0:2].clone())
+        b.xs_int.copy_(plan.xs_int)
+        b.us_int.copy_(plan.us_int)
+        b.f_int.copy_(plan.f_int)
+        b.mpc_bad.copy_(torch.isnan(plan.f_int).flatten(1).any(1)
+                        | torch.isnan(plan.xs_int).flatten(1).any(1))
+        b.i.zero_()
+        for _ in range(spp):
+            substep()
+
+    return RolloutResult(
+        states=b.states, actions=b.actions, vc_goals=b.vc_goals, base=b.base, com=b.com,
+        contact_forces=b.contact_forces, contact_pos=b.contact_pos, in_contact=b.in_contact,
+        failed=b.failed, fail_step=b.fail_step, final_state=physics.SimState(q=b.q, v=b.v),
+        mpc_usage=torch.ones((B, T), dtype=dtype, device=device),
+    )
+
+
+class _Buffers(NamedTuple):
+    """The loop's tensors, updated in place: the state, the failure flags,
+    the substep and step indices (on the device, so no substep needs a host
+    value), the window's plan and the (B, T, ...) records."""
+
+    q: torch.Tensor
+    v: torch.Tensor
+    failed: torch.Tensor
+    fail_step: torch.Tensor
+    i: torch.Tensor  # substep within the window
+    k: torch.Tensor  # step within the episode
+    xs_int: torch.Tensor
+    us_int: torch.Tensor
+    f_int: torch.Tensor
+    mpc_bad: torch.Tensor
+    states: torch.Tensor
+    actions: torch.Tensor
+    vc_goals: torch.Tensor
+    base: torch.Tensor
+    com: torch.Tensor
+    contact_forces: torch.Tensor
+    contact_pos: torch.Tensor
+    in_contact: torch.Tensor
+
+
+_RECORDS = ("states", "actions", "vc_goals", "base", "com", "contact_forces", "contact_pos",
+            "in_contact")
+_WARMUP = 2  # eager substeps on the card before the capture (lazy library setup)
+
+
+class _Substep:
+    """One 1 ms control and physics step of every episode, in place on the
+    loop's buffers. On a CPU tensor it runs eagerly. On the card the first
+    substeps run eagerly on a side stream, then one substep is captured as a
+    CUDA graph and every later substep replays it: the ~2,600 small kernels
+    of a substep are then launched without the host's per-op dispatch."""
+
+    def __init__(self, spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
+        self.args = (spec, sim_params, cfg, gains, v_des, w_des, step0, b)
+        self.cuda = b.q.device.type == "cuda"
+        self.warm = 0
+        self.graph = None
+
+    def __call__(self):
+        if not self.cuda:
+            _substep(*self.args)
+        elif self.graph is not None:
+            self.graph.replay()
+        elif self.warm < _WARMUP:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _substep(*self.args)
+            torch.cuda.current_stream().wait_stream(side)
+            self.warm += 1
+        else:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                _substep(*self.args)
+            graph.replay()  # the capture only recorded the step
+            self.graph = graph
+
+
+def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
+    model, eff, nq = spec.model, spec.eff_frames, spec.model.nq
+    i1, k1 = b.i.view(1), b.k.view(1)
+    qm, vm = _measure(b.q, b.v)
+    kin = K.body_velocities(model, qm, vm)
+    fk = (kin[2], kin[3])
+    xs = b.xs_int.index_select(1, i1)[:, 0]
+    q_des, v_des_traj = xs[:, :nq], xs[:, nq:]
+    tau_ff, tau_fb = controllers.id_joint_torques(
+        model, eff, gains, qm, vm, q_des, v_des_traj, b.us_int.index_select(1, i1)[:, 0],
+        b.f_int.index_select(1, i1)[:, 0])
+    # saturate before recording: the recorded expert action is the torque
+    # the actuator can apply
+    lim = sim_params.torque_limit
+    tau = torch.clamp(tau_ff + tau_fb, -lim, lim)
+    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
+    now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
+    b.fail_step.copy_(torch.where(now_failed & ~b.failed, b.k.to(torch.int32), b.fail_step))
+    records = (
+        state_features(model, eff, qm, vm, fk=fk),
+        _extract_action(cfg, tau, qm, vm, tau_ff=tau_ff, q_des=q_des, v_des_traj=v_des_traj),
+        vc_goal(cfg, step0 + b.k, v_des, w_des),
+        qm[:, 0:3],
+        K.com_from_fk(model, *fk),
+        cinfo.forces,
+        cinfo.positions,
+        cinfo.in_contact,
+    )
+    for name, val in zip(_RECORDS, records):
+        getattr(b, name).index_copy_(1, k1, val[:, None])
+    # freeze the state once failed (the reference breaks the loop)
+    b.q.copy_(torch.where(now_failed[:, None], b.q, new.q))
+    b.v.copy_(torch.where(now_failed[:, None], b.v, new.v))
+    b.failed.copy_(now_failed)
+    b.i.add_(1)
+    b.k.add_(1)

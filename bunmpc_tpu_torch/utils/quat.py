@@ -111,6 +111,15 @@ def axis_angle_rot(axis, theta):
     return c * eye + s * k + (1 - c) * outer
 
 
+def rot_to_rpy(R):
+    """Rotation matrix -> roll-pitch-yaw (..., 3) (pin.rpy.matrixToRpy as
+    the reference uses it, abstract_cyclic_gen.py:174)."""
+    pitch = -torch.asin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def yaw_quat(q):
     """Yaw-only component (roll = pitch = 0) of a quaternion (reference
     abstract_cyclic_gen.py:173-177)."""

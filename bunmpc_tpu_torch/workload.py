@@ -1,6 +1,7 @@
 """The inputs the port is driven and measured with, made from a seed with
-numpy: bench.py's batch of Solo12 trot states, and the random IK problems of
-the JAX package's own DDP kernel check (tests/test_pallas_ddp.py)."""
+numpy: bench.py's batch of Solo12 trot states, the random IK problems of
+the JAX package's own DDP kernel check (tests/test_pallas_ddp.py), and the
+closed loop's settled standing start and command draw."""
 
 from __future__ import annotations
 
@@ -8,7 +9,10 @@ import numpy as np
 import torch
 
 from .mpc import ik as IK
+from .mpc import kino_dyn as KD
+from .mpc.motions.solo12_cyclic import trot_sim
 from .robots.solo12 import Solo12Config
+from .sim import physics, rollout
 
 
 def trot_states(n: int, seed: int = 0):
@@ -62,3 +66,34 @@ def random_ik_problems(model, eff_frames, n: int, H: int, device):
     w_stage, w_term, ctrl_w, xr = IK.dense_weights(model, eff_frames, tasks)
     return (model, eff_frames, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, xr, w_stage,
             w_term, ctrl_w, tasks.dts)
+
+
+def closed_loop_sim_params():
+    """The simulator the walking trot (``trot_sim``) is validated on: the
+    default SimParams with contact kn=1e4, dn=500, kt=500."""
+    return physics.SimParams(contact=physics.ContactParams(kn=1e4, dn=500.0, kt=500.0))
+
+
+def settled_start(n: int, device="cuda", dtype=torch.float32):
+    """The closed loop's start: Solo12's q0 PD-held for 500 ms
+    (``rollout.settle_state`` at trot_sim's gains on the closed-loop
+    simulator), as n copies of one state on ``device``."""
+    device = KD.resolve_device(device)
+    model = Solo12Config.load_model()
+    s0 = physics.SimState(
+        q=torch.as_tensor(Solo12Config.q0()[None], dtype=dtype, device=device),
+        v=torch.zeros((1, model.nv), dtype=dtype, device=device),
+    )
+    s = rollout.settle_state(model, tuple(Solo12Config.eff_names), closed_loop_sim_params(), s0,
+                             trot_sim.kp, trot_sim.kd)
+    return physics.SimState(q=s.q.expand(n, -1).contiguous(), v=s.v.expand(n, -1).contiguous())
+
+
+def command_draw(n: int, seed: int = 0):
+    """Commands of the reference envelope (the data-collection config's
+    vx_range [0, 0.3], vy_range and w_range [0, 0]): ``(v_des (n, 3),
+    w_des (n,))`` as float64 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    v_des = np.zeros((n, 3))
+    v_des[:, 0] = rng.uniform(0.0, 0.3, n)
+    return v_des, np.zeros(n)

@@ -13,9 +13,13 @@ trot's horizons (the trot with ``gait_horizon=4.0``: ADMM H=40, IK H=20)
 against their plain versions, and drives two paths of the
 batched Solo12 trot MPC solve of ``bench.py`` (B=512, f32): the main path
 ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` (K1, K2) and the
-fused path with ``fuse_prep=True`` (K3, K2). It checks their outputs, counts
-each kernel's launches in each path's run, times both, and prints one
-``kernels`` JSON line, the card's name and power limit, and last
+fused path with ``fuse_prep=True`` (K3, K2). Then it drives the closed loop
+(``sim.rollout.rollout_mpc``, the walking trot ``trot_sim`` from a settled
+start): one window against the plain path in f64 (phase 7a), and 512
+episodes of 3000 steps, K1 and K2 once per window, gated on survival and
+the survivors' median roll and height (phase 7b). It checks every path's
+outputs, counts each kernel's launches in each path's run, times them, and
+prints one ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
 on a miss; without CUDA, or without the repository next to it, it exits
 non-zero and prints no result.
@@ -34,6 +38,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B = 512
 H100_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 H100_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
+# Phase 7a: one window of the closed loop on the card against the plain path
+# in f64, end-of-window q and v. The plain path's own f32-vs-f64 spread over
+# that window is WINDOW_SPREAD (tests/test_torch_rollout.py measures it on a
+# CPU: 8 episodes, max |d|); the gates are 10x it, and that test fails where
+# they fall under 3x.
+WINDOW_SPREAD = (9.96e-7, 4.27e-5)
+WINDOW_Q_TOL = 1e-5
+WINDOW_V_TOL = 5e-4
 
 
 class PhaseError(RuntimeError):
@@ -138,6 +150,35 @@ def bound_ms(n_bytes, n_ops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def main_path_stage_ms(torch, spec, inputs, admm_cfg):
+    """Milliseconds of each stage of ``solve_mpc_batch(admm_backend="cuda",
+    ik_backend="cuda")`` on these inputs, by CUDA events around the stages."""
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    model, m = spec.model, spec.model.total_mass
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    pr = KD._prepare_problem(spec, *inputs)
+    ev[1].record()
+    X, F, viol, iters = cuda_admm.solve(
+        pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"], pr["F_wm"],
+        pr["x_bounds"], admm_cfg)
+    ev[2].record()
+    tk, x0s = KD._build_ik_tasks(spec, pr, X)
+    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
+    ev[3].record()
+    ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
+                                              tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
+    ev[4].record()
+    KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, torch.zeros_like(X))
+    ev[5].record()
+    torch.cuda.synchronize()
+    names = ["prep", "k1_admm", "ik_build", "k2_ddp", "interp"]
+    return {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(names)}
+
+
 def main():
     try:
         import torch
@@ -158,10 +199,12 @@ def main():
     from bunmpc_tpu_torch import _build, workload
     from bunmpc_tpu_torch.mpc import ik as IK
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
-    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot, trot_sim
     from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
     from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
     from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+    from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -424,26 +467,7 @@ def main():
           "launch counters did not rise by one per solve")
     med = float(np.median(reps))
 
-    # per-stage milliseconds by CUDA events (the stages of solve_mpc_batch)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    pr = KD._prepare_problem(spec, *inputs)
-    ev[1].record()
-    X, F, viol, iters = cuda_admm.solve(
-        pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"], pr["F_wm"],
-        pr["x_bounds"], bench_cfg)
-    ev[2].record()
-    tk, x0s = KD._build_ik_tasks(spec, pr, X)
-    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
-    ev[3].record()
-    ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
-                                              tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
-    ev[4].record()
-    KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, torch.zeros_like(X))
-    ev[5].record()
-    torch.cuda.synchronize()
-    stage_names = ["prep", "k1_admm", "ik_build", "k2_ddp", "interp"]
-    stages = {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(stage_names)}
+    stages = main_path_stage_ms(torch, spec, inputs, bench_cfg)
     log(json.dumps({
         "metric": "trot_mpc_solves_per_sec", "value": round(B / med, 1), "batch": B,
         "converged_frac": conv, "rep_times_s": [round(r, 5) for r in reps],
@@ -481,6 +505,7 @@ def main():
         torch.cuda.synchronize()
         freps.append(time.perf_counter() - t0)
     fmed = float(np.median(freps))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     ev[0].record()
     qr, t_, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
     ev[1].record()
@@ -505,6 +530,137 @@ def main():
         "converged_frac": fconv, "rep_times_s": [round(r, 5) for r in freps],
         "stage_ms": fstages, "card": card,
     }))
+
+    # ---- 7a. the kernels inside the closed loop: one window ----
+    # the closed loop of the data-collection driver: the walking trot
+    # (trot_sim) on its simulator, from the settled standing start, with
+    # commands of the reference envelope (vx ~ U[0, 0.3], seed 0); one window
+    # is one solve (K1 and K2 once each) and 50 substeps
+    loop_spec = KD.make_cyclic_spec(model, trot_sim, Solo12Config.q0(), device="cuda")
+    sim = workload.closed_loop_sim_params()
+    t0 = time.time()
+    start = workload.settled_start(B)
+    v_np, w_np = workload.command_draw(B, seed=0)
+    cmd = tuple(torch.as_tensor(a, dtype=f32, device=dev) for a in (v_np, w_np))
+    torch.cuda.synchronize()
+    log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
+        f"{float(start.q[0, 2]):.4f} m")
+    win_cfg = rollout.RolloutConfig(episode_length=50, kp=trot_sim.kp, kd=trot_sim.kd,
+                                    gait_period=trot_sim.gait_period)
+    zero_counts()
+    win = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd)
+    torch.cuda.synchronize()
+    win_launches = counts()
+    n = 64
+
+    def head(a, dtype=torch.float64):
+        return a[:n].to(dtype)
+
+    ref_win = {dtype: rollout.rollout_mpc(
+        loop_spec, sim, win_cfg, physics.SimState(head(start.q, dtype), head(start.v, dtype)),
+        head(cmd[0], dtype), head(cmd[1], dtype), admm_backend="torch", ik_backend="torch")
+        for dtype in (torch.float64, f32)}
+    t_w = KD.window_clock(0.0, 0, win_cfg.plan_freq, start.q).expand(B)
+    plan_k = KD.solve_mpc_batch(loop_spec, start.q, start.v, t_w, *cmd)
+    plan_p = KD.solve_mpc_batch(loop_spec, head(start.q), head(start.v), head(t_w), head(cmd[0]),
+                                head(cmd[1]), admm_backend="torch", ik_backend="torch")
+    torch.cuda.synchronize()
+
+    def end_diff(res, ref):
+        return (float((res.final_state.q[:n].double() - ref.final_state.q.double()).abs().max()),
+                float((res.final_state.v[:n].double() - ref.final_state.v.double()).abs().max()))
+
+    dq, dv = end_diff(win, ref_win[torch.float64])
+    sq, sv = end_diff(ref_win[f32], ref_win[torch.float64])
+    log(f"[7a] one window launches: {win_launches}; end-of-window q |d| {dq:.3e} (< "
+        f"{WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< {WINDOW_V_TOL:.1e}) against the plain path in "
+        f"f64 ({n} episodes); the plain path's own f32 spread here q {sq:.3e}, v {sv:.3e} "
+        f"(CPU test: q {WINDOW_SPREAD[0]:.3e}, v {WINDOW_SPREAD[1]:.3e})")
+    log(f"[7a] the window's plan against the plain path in f64 ({n} episodes):")
+    quantile_gate("xs_int (the window)", plan_k.xs_int[:n, :50].double(), plan_p.xs_int[:, :50])
+    quantile_gate("f_int (substep 0)", plan_k.f_int[:n, 0].double(), plan_p.f_int[:, 0])
+    check(win_launches == {"admm": 1, "ddp": 1, "fused": 0},
+          "one window must launch K1 and K2 once each")
+    check(dq < WINDOW_Q_TOL and dv < WINDOW_V_TOL, "end-of-window state disagrees")
+    check(bool(torch.isfinite(win.states).all()), "window records not finite")
+
+    # ---- 7b. the closed loop at full width: 512 episodes x 3000 steps ----
+    loop_cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
+                                     gait_period=trot_sim.gait_period)
+    nw, spp = loop_cfg.n_windows, loop_cfg.steps_per_plan
+    windows = []  # per window: CUDA events around its solve, the plan's violations
+    solve_batch = KD.solve_mpc_batch
+
+    def timed_solve(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plan = solve_batch(*a, **k)
+        e1.record()
+        windows.append((e0, e1, plan.dyn_violation))
+        return plan
+
+    KD.solve_mpc_batch = timed_solve
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout.rollout_mpc(loop_spec, sim, loop_cfg, start, *cmd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop_launches = counts()
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    T = loop_cfg.episode_length
+    failed, fail_step = res.failed.cpu().numpy(), res.fail_step.cpu().numpy()
+    alive = ~failed
+    steps = torch.arange(T, device=dev)
+    after = steps[None] >= res.fail_step[:, None].long()  # (B, T): at or after the failure
+    frozen = True
+    for rec in (res.states, res.base):
+        at_fail = rec.gather(1, res.fail_step.long().clamp(max=T - 1)[:, None, None].expand(
+            -1, 1, rec.shape[-1]))
+        frozen &= bool(((rec == at_fail) | ~after[..., None]).all())
+    finite = all(bool(torch.isfinite(getattr(res, f)[torch.as_tensor(alive, device=dev)]).all())
+                 for f in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
+                           "contact_pos"))
+    viols = torch.stack([w[2] for w in windows]).cpu().numpy()  # (windows, B)
+    live = fail_step[None, :] > (np.arange(nw) * spp)[:, None]  # alive at the window's start
+    conv_loop = float((viols[live] < 1e-3).mean())
+    solve_ms = [a.elapsed_time(b) for a, b, _ in windows]
+    window_ms = [windows[i][0].elapsed_time(windows[i + 1][0]) for i in range(nw - 1)]
+    sub_ms = [w - s for w, s in zip(window_ms, solve_ms)]
+    rpy = rot_to_rpy(quat_to_rot(res.states[..., 27:31])).cpu().numpy()  # q[3:7] of the features
+    z = res.states[..., 26].cpu().numpy()  # q[2]
+    roll_max = np.rad2deg(np.abs(rpy[alive, 500:, 0]).max(axis=1))
+    z_dev = np.abs(z[alive, -1000:].mean(axis=1) - trot_sim.nom_ht)
+    survival = float(alive.mean())
+    med_roll = float(np.median(roll_max)) if alive.any() else float("nan")
+    med_z = float(np.median(z_dev)) if alive.any() else float("nan")
+    stages = main_path_stage_ms(torch, loop_spec, (start.q, start.v, t_w, *cmd),
+                                cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas"))
+    log(f"[7b] closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
+        f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}")
+    log(f"[7b] survival {survival:.4f} (>= 0.5), mean survival {float(fail_step.mean()):.1f} ms; "
+        f"survivors' median roll_max (500-3000 ms) {med_roll:.3f} deg (< 10), median |mean z "
+        f"(last 1000 ms) - {trot_sim.nom_ht}| {med_z:.4f} m (< 0.03); converged_frac of the "
+        f"live episodes' solves {conv_loop:.4f}; records of live episodes finite {finite}, "
+        f"failed episodes frozen {frozen}")
+    log(json.dumps({
+        "metric": "closed_loop_env_steps_per_sec", "value": round(B * T / wall, 1), "batch": B,
+        "steps": T, "wall_s": round(wall, 3), "survival": survival,
+        "window_ms_mean": round(float(np.mean(window_ms)), 3),
+        "solve_ms_mean": round(float(np.mean(solve_ms)), 3),
+        "substeps_ms_mean": round(float(np.mean(sub_ms)), 3),
+        "first_window_ms": round(window_ms[0], 3), "solve_stage_ms_window0": stages,
+        "card": card,
+    }))
+    check(loop_launches == {"admm": nw, "ddp": nw, "fused": 0},
+          f"the closed loop must launch K1 and K2 once per window ({nw})")
+    check(finite, "records of live episodes not finite")
+    check(frozen, "failed episodes were not frozen")
+    check(survival >= 0.5, f"survival {survival:.4f} below 0.5")
+    check(med_roll < 10.0, f"survivors' median roll_max {med_roll:.3f} deg not below 10")
+    check(med_z < 0.03, f"survivors' median height error {med_z:.4f} m not below 0.03")
 
     # ---- 7. the kernels line ----
     zero_counts()
@@ -547,10 +703,12 @@ def main():
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:589", "launches": main_launches["admm"],
+         "closed_loop_launches": loop_launches["admm"],
          "max_abs_err": k1_err, "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 4),
          "bound_ms": round(k1_bound, 6), "bound_by": k1_by, "library_ms": None},
         {"name": "ddp", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/ddp.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046", "launches": main_launches["ddp"],
+         "closed_loop_launches": loop_launches["ddp"],
          "max_abs_err": k2_err, "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4),
          "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None},
         {"name": "fused", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/fused.cu",

@@ -12,7 +12,9 @@ Pallas-vs-XLA gates (X 1e-4, F 1e-3, viol rtol 1e-3); K2 for one iteration
 with one alpha against the plain version in f64 (xs 2e-4, us 2e-3, cost rtol
 1e-4); the launch counters rise by one per kernel call; K1, K2 and K3 give a
 5-problem batch the rows of the 512-problem batch, bit for bit; K1 at H=40
-and K2 at IK H=20 (fewer problems a block) with the same gates."""
+and K2 at IK H=20 (fewer problems a block) with the same gates; the closed
+loop launches K1 and K2 once a window and gives 37 episodes the records of
+the same episodes inside a batch of 64, bit for bit."""
 
 import pytest
 import torch
@@ -179,3 +181,35 @@ def test_long_horizon_kernels_match_plain(device, main_path):
     torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
     torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
     torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+
+
+def test_closed_loop_launches_once_a_window_and_any_batch_size(device):
+    """Three windows of the closed loop (trot_sim from the settled start):
+    K1 and K2 launch once a window for the whole batch, and 37 episodes give
+    the records of the same episodes inside a batch of 64, bit for bit."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0())
+    sim = workload.closed_loop_sim_params()
+    start = workload.settled_start(64)
+    v_des, w_des = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                    for a in workload.command_draw(64))
+    cfg = rollout.RolloutConfig(episode_length=150, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+    before = (cuda_admm.KERNEL.launches, cuda_ddp.KERNEL.launches)
+    full = rollout.rollout_mpc(spec, sim, cfg, start, v_des, w_des)
+    assert (cuda_admm.KERNEL.launches, cuda_ddp.KERNEL.launches) == (before[0] + 3,
+                                                                      before[1] + 3)
+    part = rollout.rollout_mpc(
+        spec, sim, cfg, physics.SimState(start.q[:37].contiguous(), start.v[:37].contiguous()),
+        v_des[:37].contiguous(), w_des[:37].contiguous())
+    torch.cuda.synchronize()
+    assert torch.isfinite(full.states).all()
+    for name in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
+                 "contact_pos", "in_contact", "failed", "fail_step"):
+        assert torch.equal(getattr(part, name), getattr(full, name)[:37]), name

@@ -46,6 +46,8 @@ def _imported_modules(path):
 def test_no_jax_or_jax_package_imports():
     files = _port_files()
     assert len(files) > 15
+    for sub in ("physics.py", "controllers.py", "rollout.py"):  # the closed loop is scanned
+        assert os.path.join(PKG, "sim", sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -77,6 +79,15 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         KD.solve_mpc_batch(gpu_spec, q, np.zeros((2, 18)), np.zeros(2), np.zeros((2, 3)),
                            np.zeros(2))
+
+
+def test_closed_loop_start_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal applies to CPU-only hosts")
+    from bunmpc_tpu_torch import workload
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workload.settled_start(2)
 
 
 @pytest.mark.parametrize(
