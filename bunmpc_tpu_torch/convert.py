@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port as numpy arrays, so both
 compute with the same constants and their results compare field by field:
-the robot model, MPC plans and warm starts, and the closed loop's simulator
-parameters, states, controller gains and rollout settings.
+the robot model, MPC plans and warm starts, the closed loop's simulator
+parameters, states, controller gains and rollout settings, and policy
+parameters with their normalization payload.
 
 Nothing here imports JAX: the JAX side hands over plain numpy arrays
 (``dataclasses.asdict`` of its ``RobotModel``, ``np.asarray`` of its arrays).
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .learning.networks import GoalConditionedPolicyNet, PolicyBundle
 from .robots.model import Frame, RobotModel
 from .sim import controllers, physics, rollout
 
@@ -104,3 +106,53 @@ def gains_from(g) -> controllers.IdControllerGains:
 def rollout_config_from(c) -> rollout.RolloutConfig:
     """The port's ``RolloutConfig`` from the JAX package's."""
     return rollout.RolloutConfig(**_fields(rollout.RolloutConfig, c))
+
+
+def policy_params_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
+    """The port's ``GoalConditionedPolicyNet`` state dict from the flax
+    net's ``params`` tree (``Dense_i/{kernel, bias}``, ``BatchNorm_i/{scale,
+    bias}``) and, for a BatchNorm net, its ``batch_stats`` (``BatchNorm_i/
+    {mean, var}``), as numpy arrays. Each kernel (in, out) becomes a weight
+    (out, in)."""
+    out = {}
+    n_dense = sum(1 for k in params if k.startswith("Dense_"))
+    for i in range(n_dense):
+        d = params[f"Dense_{i}"]
+        out[f"dense.{i}.weight"] = torch.tensor(np.asarray(d["kernel"]).T)
+        out[f"dense.{i}.bias"] = torch.tensor(np.asarray(d["bias"]))
+    n_norm = sum(1 for k in params if k.startswith("BatchNorm_"))
+    for i in range(n_norm):
+        bn, st = params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"]
+        out[f"norm.{i}.weight"] = torch.tensor(np.asarray(bn["scale"]))
+        out[f"norm.{i}.bias"] = torch.tensor(np.asarray(bn["bias"]))
+        out[f"norm.{i}.running_mean"] = torch.tensor(np.asarray(st["mean"]))
+        out[f"norm.{i}.running_var"] = torch.tensor(np.asarray(st["var"]))
+        out[f"norm.{i}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def policy_from_flax(params: dict, batch_stats: dict | None = None, device="cpu",
+                     dtype=torch.float64) -> GoalConditionedPolicyNet:
+    """A ``GoalConditionedPolicyNet`` in eval mode holding the flax net's
+    parameters; its widths and BatchNorm come from the tree."""
+    sd = policy_params_from_flax(params, batch_stats)
+    n_dense = sum(1 for k in params if k.startswith("Dense_"))
+    w0, w_last = sd["dense.0.weight"], sd[f"dense.{n_dense - 1}.weight"]
+    module = GoalConditionedPolicyNet(
+        input_size=w0.shape[1], output_size=w_last.shape[0], num_hidden_layer=n_dense - 1,
+        hidden_dim=w0.shape[0], batch_norm="BatchNorm_0" in params).to(device, dtype)
+    module.load_state_dict(sd)
+    return module.eval()
+
+
+def policy_bundle_from_flax(params: dict, state_mean, state_std, goal_mean, goal_std,
+                            batch_stats: dict | None = None, device="cpu",
+                            dtype=torch.float64) -> PolicyBundle:
+    """The port's ``PolicyBundle`` from the JAX ``PolicyBundle``'s fields
+    (flax ``params`` and the normalization arrays or scalars)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return PolicyBundle(module=policy_from_flax(params, batch_stats, device, dtype),
+                        state_mean=t(state_mean), state_std=t(state_std),
+                        goal_mean=t(goal_mean), goal_std=t(goal_std))

@@ -84,7 +84,7 @@ def step(
     """One physics step of a batch: ``(SimState, ContactInfo)``."""
     if terrain is not None:
         raise NotImplementedError(
-            "terrain: uneven ground waits for a later slice (ROADMAP, queue 1, item 7)")
+            "terrain: uneven ground waits for a later slice (ROADMAP, queue 1, item 8)")
     q, v = state
     cp = params.contact
     ne = len(eff_frames)

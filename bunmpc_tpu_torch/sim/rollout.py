@@ -1,4 +1,4 @@
-"""Batched closed-loop MPC rollouts.
+"""Batched closed-loop MPC rollouts and policy rollouts.
 
 Counterpart of ``bunmpc_tpu/sim/rollout.py`` (reference ``Simulation``,
 examples/iterative_algorithm/simulation.py:22-2094), batch-leading: an
@@ -18,6 +18,11 @@ Rates follow the reference: 1 kHz simulation and control, a replan every
 ``plan_freq`` (20 Hz, 50 steps). Records per step: state features
 (n_state=43: v, base_wrt_foot, q[2:]), the vc goal (phase, v_des_xy, w_des,
 gait id) and the action (torque / pd_target / structured).
+
+``rollout_policy`` and ``rollout_policy_cc`` run a learned policy in the
+same loop without the MPC: every 1 ms substep evaluates the policy on the
+state features and a vc or cc goal (``cc_goal_fn``) and decodes its action
+(``_decode_action``).
 """
 
 from __future__ import annotations
@@ -165,6 +170,17 @@ def _later(name: str, item: str):
     raise NotImplementedError(f"{name} waits for a later slice (ROADMAP, queue 1, {item})")
 
 
+def _refuse_later(push_force, terrain, q_noise, v_noise):
+    """The options that both the MPC and the policy rollouts take and that
+    wait for a later slice."""
+    if push_force is not None:
+        _later("push_force", "item 3")
+    if terrain is not None:
+        _later("terrain", "item 8")
+    if q_noise is not None or v_noise is not None:
+        _later("q_noise/v_noise", "item 6")
+
+
 def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, prev, n_shift: int):
     """The previous window's (X, F, dual P) shifted one window and moved
     into the new plan frame, where it is finite and sane; the cold start
@@ -239,27 +255,22 @@ def rollout_mpc(
     would be an algorithm neither package runs.
 
     ``gains`` overrides the controller's PD gains with one (kp, kd) for the
-    batch. ``push_force``, ``terrain``, ``q_noise``/``v_noise``,
-    ``swing_blend``, ``force_gate``, per-episode gains or simulator
-    parameters and a per-episode ``start_time`` wait for a later slice and
-    raise ``NotImplementedError``.
+    batch. ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8),
+    ``q_noise``/``v_noise``, ``swing_blend``, ``force_gate``, per-episode
+    gains or simulator parameters (item 6) and a per-episode ``start_time``
+    (item 2) wait for a later slice and raise ``NotImplementedError``.
     """
-    if push_force is not None:
-        _later("push_force", "item 1")
-    if terrain is not None:
-        _later("terrain", "item 7")
+    _refuse_later(push_force, terrain, q_noise, v_noise)
     if swing_blend is not None or force_gate is not None:
-        _later("swing_blend/force_gate", "item 1")
-    if q_noise is not None or v_noise is not None:
-        _later("q_noise/v_noise", "item 1")
+        _later("swing_blend/force_gate", "item 6")
     if gains is not None and (torch.is_tensor(gains.kp) or torch.is_tensor(gains.kd)):
-        _later("per-episode gains", "item 1")
+        _later("per-episode gains", "item 6")
     scalars = (sim_params.dt, sim_params.joint_damping, sim_params.torque_limit,
                *dataclasses.astuple(sim_params.contact))
     if any(torch.is_tensor(x) for x in scalars):
-        _later("per-episode sim_params", "item 1")
+        _later("per-episode sim_params", "item 6")
     if torch.is_tensor(start_time):
-        _later("a per-episode start_time", "item 1")
+        _later("a per-episode start_time", "item 2")
     if admm_backend == "cuda" and warm_start_carry:
         raise ValueError(
             "warm_start_carry=True carries the ADMM dual, which K1 (admm_backend='cuda') does "
@@ -302,7 +313,7 @@ def rollout_mpc(
         in_contact=empty(ne, dt=torch.bool),
     )
     step0 = torch.full((), start_time / cfg.sim_dt, dtype=dtype, device=device)
-    substep = _Substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b)
+    substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des, step0, b)
     prev = None
 
     for w in range(nw):
@@ -366,41 +377,55 @@ _WARMUP = 2  # eager substeps on the card before the capture (lazy library setup
 
 
 class _Substep:
-    """One 1 ms control and physics step of every episode, in place on the
-    loop's buffers. On a CPU tensor it runs eagerly. On the card the first
-    substeps run eagerly on a side stream, then one substep is captured as a
-    CUDA graph and every later substep replays it: the ~2,600 small kernels
-    of a substep are then launched without the host's per-op dispatch."""
+    """One 1 ms step of every episode, ``fn(*args)``, in place on the loop's
+    buffers (the last argument). On a CPU tensor it runs eagerly. On the card
+    the first substeps run eagerly on a side stream, then one substep is
+    captured as a CUDA graph and every later substep replays it: the
+    thousands of small kernels of a substep are then launched without the
+    host's per-op dispatch. A failed capture raises."""
 
-    def __init__(self, spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
-        self.args = (spec, sim_params, cfg, gains, v_des, w_des, step0, b)
-        self.cuda = b.q.device.type == "cuda"
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+        self.cuda = args[-1].q.device.type == "cuda"
         self.warm = 0
         self.graph = None
 
     def __call__(self):
         if not self.cuda:
-            _substep(*self.args)
+            self.fn(*self.args)
         elif self.graph is not None:
             self.graph.replay()
         elif self.warm < _WARMUP:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                _substep(*self.args)
+                self.fn(*self.args)
             torch.cuda.current_stream().wait_stream(side)
             self.warm += 1
         else:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                _substep(*self.args)
+                self.fn(*self.args)
             graph.replay()  # the capture only recorded the step
             self.graph = graph
 
 
+def _advance(b, records, new: physics.SimState, now_failed):
+    """The end of a substep: write the records at step ``b.k``, freeze the
+    state of failed episodes (the reference breaks the loop), step on."""
+    k1 = b.k.view(1)
+    b.fail_step.copy_(torch.where(now_failed & ~b.failed, b.k.to(torch.int32), b.fail_step))
+    for name, val in zip(_RECORDS, records):
+        getattr(b, name).index_copy_(1, k1, val[:, None])
+    b.q.copy_(torch.where(now_failed[:, None], b.q, new.q))
+    b.v.copy_(torch.where(now_failed[:, None], b.v, new.v))
+    b.failed.copy_(now_failed)
+    b.k.add_(1)
+
+
 def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
     model, eff, nq = spec.model, spec.eff_frames, spec.model.nq
-    i1, k1 = b.i.view(1), b.k.view(1)
+    i1 = b.i.view(1)
     qm, vm = _measure(b.q, b.v)
     kin = K.body_velocities(model, qm, vm)
     fk = (kin[2], kin[3])
@@ -415,7 +440,6 @@ def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
     tau = torch.clamp(tau_ff + tau_fb, -lim, lim)
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
-    b.fail_step.copy_(torch.where(now_failed & ~b.failed, b.k.to(torch.int32), b.fail_step))
     records = (
         state_features(model, eff, qm, vm, fk=fk),
         _extract_action(cfg, tau, qm, vm, tau_ff=tau_ff, q_des=q_des, v_des_traj=v_des_traj),
@@ -426,11 +450,174 @@ def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
         cinfo.positions,
         cinfo.in_contact,
     )
-    for name, val in zip(_RECORDS, records):
-        getattr(b, name).index_copy_(1, k1, val[:, None])
-    # freeze the state once failed (the reference breaks the loop)
-    b.q.copy_(torch.where(now_failed[:, None], b.q, new.q))
-    b.v.copy_(torch.where(now_failed[:, None], b.v, new.v))
-    b.failed.copy_(now_failed)
+    _advance(b, records, new, now_failed)
     b.i.add_(1)
-    b.k.add_(1)
+
+
+
+# ---- policy rollouts ----
+
+
+def cc_goal_fn(model, eff_frames, contact_schedule, goal_horizon: int = 1):
+    """Contact-conditioned goal builder for policy rollouts.
+
+    ``contact_schedule``: (B, n_eff, n_events, 4) rows [step, x, y, z] per
+    foot in time order (``learning.contact_planner.ContactPlanner.
+    get_contact_schedule``, which pads a foot by repeating its last row).
+    Returns ``goal(step, q) -> (B, 3*n_eff*goal_horizon)`` with ``step`` the
+    step within the episode (a 0-d tensor) and ``q`` (B, nq): [steps to the
+    foot's next touchdown, com_x - x, com_y - y] per horizon slot and foot,
+    as the JAX package's ``cc_goal_fn`` computes it (the touchdown after
+    ``step``, ``goal_horizon - 1`` more, the last row past the end), matching
+    ``goals.construct_cc_goal`` (reference utils.py:36-102)."""
+    sched = contact_schedule
+    B, ne, n_events, _ = sched.shape
+    times = sched[..., 0].contiguous()  # (B, ne, n_events)
+
+    def goal(step, q):
+        com = K.com(model, q)
+        s = step.to(times.dtype)
+        nxt = torch.searchsorted(times, s.expand(B, ne, 1).contiguous(), right=True)
+        out = []
+        for gh in range(goal_horizon):
+            idx = (nxt + gh).clamp(0, n_events - 1)
+            row = sched.gather(2, idx[..., None].expand(B, ne, 1, 4))[:, :, 0]  # (B, ne, 4)
+            out.append(torch.stack([row[..., 0] - s, com[:, None, 0] - row[..., 1],
+                                    com[:, None, 1] - row[..., 2]], dim=-1))
+        return torch.stack(out, dim=1).flatten(1)
+
+    return goal
+
+
+def rollout_policy_cc(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,
+    v_des,
+    w_des,
+    policy_fn,
+    contact_schedule,  # (B, n_eff, n_events, 4) desired schedule
+    goal_horizon: int = 1,
+    **kwargs,
+) -> RolloutResult:
+    """Contact-conditioned policy rollouts (reference
+    Simulation.rollout_policy_with_cc_replanning, simulation.py:834): the
+    policy consumes cc goals computed online against each episode's desired
+    contact schedule instead of vc goals."""
+    q, _ = _state_on_device(spec, state0)
+    sched = torch.as_tensor(contact_schedule, dtype=q.dtype, device=q.device)
+    gfn = cc_goal_fn(spec.model, spec.eff_frames, sched, goal_horizon)
+    return rollout_policy(spec, sim_params, cfg, state0, v_des, w_des, policy_fn,
+                          goal_fn=gfn, **kwargs)
+
+
+def _state_on_device(spec: KD.CyclicMpcSpec, state0):
+    """``(q, v)`` as tensors: a tensor keeps its device and dtype, anything
+    else goes to ``spec.device`` in float32."""
+    q, v = state0
+    device = KD.resolve_device(q.device if torch.is_tensor(q) else spec.device)
+    dtype = q.dtype if torch.is_tensor(q) else torch.float32
+    return (torch.as_tensor(q, dtype=dtype, device=device),
+            torch.as_tensor(v, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def rollout_policy(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,  # q (B, nq), v (B, nv)
+    v_des,  # (B, 3)
+    w_des,  # (B,)
+    policy_fn,  # (states (B, 43), goals (B, g)) -> actions (B, n_action)
+    goal_fn=None,  # optional (step, q (B, nq)) -> goals (B, g); default the vc goal
+    start_time: float = 0.0,
+    push_force=None,
+    terrain=None,
+    q_noise=None,
+    v_noise=None,
+) -> RolloutResult:
+    """Policy rollouts of a batch of episodes (reference
+    Simulation.rollout_policy, simulation.py:582), on the device of
+    ``state0`` (``spec.device`` for arrays): the policy runs at 1 kHz on
+    [state features, goal], its action is decoded to torques per
+    ``cfg.action_type`` (simulation.py:760-777), and no MPC runs. On the card
+    each substep, the policy's forward pass included, is one CUDA-graph
+    replay. ``vc_goals`` records the goal the policy saw (vc or cc).
+    ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8) and
+    ``q_noise``/``v_noise`` (item 6) raise ``NotImplementedError``."""
+    _refuse_later(push_force, terrain, q_noise, v_noise)
+    if torch.is_tensor(start_time):
+        _later("a per-episode start_time", "item 2")
+    q, v = _state_on_device(spec, state0)
+    B, dtype, device = q.shape[0], q.dtype, q.device
+    v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
+    w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
+    if goal_fn is None:
+        step0 = torch.full((), start_time / cfg.sim_dt, dtype=dtype, device=device)
+
+        def goal_fn(step, q):
+            return vc_goal(cfg, step0 + step, v_des, w_des)
+
+    model, ne, T = spec.model, spec.n_eff, cfg.episode_length
+    k = torch.zeros((), dtype=torch.int64, device=device)
+    n_goal = goal_fn(k, q).shape[-1]
+
+    def empty(*shape, dt=dtype):
+        return torch.empty((B, T) + shape, dtype=dt, device=device)
+
+    b = _PolicyBuffers(
+        q=q.clone(), v=v.clone(),
+        failed=torch.zeros(B, dtype=torch.bool, device=device),
+        fail_step=torch.full((B,), T, dtype=torch.int32, device=device),
+        k=k,
+        states=empty(model.nv + 2 * ne + model.nq - 2),
+        actions=empty(model.n_joints * (3 if cfg.action_type == "structured" else 1)),
+        vc_goals=empty(n_goal), base=empty(3), com=empty(3), contact_forces=empty(ne, 3),
+        contact_pos=empty(ne, 3), in_contact=empty(ne, dt=torch.bool),
+    )
+    substep = _Substep(_policy_substep, spec, sim_params, cfg, policy_fn, goal_fn, b)
+    for _ in range(T):
+        substep()
+    return RolloutResult(
+        states=b.states, actions=b.actions, vc_goals=b.vc_goals, base=b.base, com=b.com,
+        contact_forces=b.contact_forces, contact_pos=b.contact_pos, in_contact=b.in_contact,
+        failed=b.failed, fail_step=b.fail_step, final_state=physics.SimState(q=b.q, v=b.v),
+        mpc_usage=torch.zeros((B, T), dtype=dtype, device=device),
+    )
+
+
+class _PolicyBuffers(NamedTuple):
+    """The policy loop's tensors, updated in place: the state, the failure
+    flags, the step index (on the device) and the (B, T, ...) records."""
+
+    q: torch.Tensor
+    v: torch.Tensor
+    failed: torch.Tensor
+    fail_step: torch.Tensor
+    k: torch.Tensor
+    states: torch.Tensor
+    actions: torch.Tensor
+    vc_goals: torch.Tensor
+    base: torch.Tensor
+    com: torch.Tensor
+    contact_forces: torch.Tensor
+    contact_pos: torch.Tensor
+    in_contact: torch.Tensor
+
+
+def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, b: _PolicyBuffers):
+    model, eff = spec.model, spec.eff_frames
+    qm, vm = _measure(b.q, b.v)
+    kin = K.body_velocities(model, qm, vm)
+    fk = (kin[2], kin[3])
+    feat = state_features(model, eff, qm, vm, fk=fk)
+    goal = goal_fn(b.k, qm)
+    action = policy_fn(feat, goal)
+    tau = _decode_action(cfg, action, qm, vm)
+    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
+    now_failed = b.failed | failed_state(cfg, qm, b.k)
+    records = (feat, action, goal, qm[:, 0:3], K.com_from_fk(model, *fk), cinfo.forces,
+               cinfo.positions, cinfo.in_contact)
+    _advance(b, records, new, now_failed)

@@ -17,7 +17,12 @@ fused path with ``fuse_prep=True`` (K3, K2). Then it drives the closed loop
 (``sim.rollout.rollout_mpc``, the walking trot ``trot_sim`` from a settled
 start): one window against the plain path in f64 (phase 7a), and 512
 episodes of 3000 steps, K1 and K2 once per window, gated on survival and
-the survivors' median roll and height (phase 7b). It checks every path's
+the survivors' median roll and height (phase 7b). Then the learning loop
+(phase 8): one data-collection iteration (``learning.data_collection``,
+K1 and K2 once per window of each expert rollout), BC at the bc.yaml
+widths on its database (``learning.bc``), and the trained policy with cc
+goals at 512 episodes of 3000 steps (``sim.rollout.rollout_policy_cc``, no
+MPC). It checks every path's
 outputs, counts each kernel's launches in each path's run, times them, and
 prints one ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
@@ -46,6 +51,28 @@ H100_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 WINDOW_SPREAD = (9.96e-7, 4.27e-5)
 WINDOW_Q_TOL = 1e-5
 WINDOW_V_TOL = 5e-4
+# Phase 8c: the first 50 steps of the cc policy rollout on the card against
+# the same rollout in f64 on the CPU, end q and v. POLICY_SPREAD is the f32
+# spread of that check (tests/test_torch_policy_rollout.py measures it on a
+# CPU: 8 episodes, a policy trained at the BC widths on expert records); the
+# gates are 10x it, and that test fails where they fall under 3x. How far
+# f32 drifts in 50 steps depends on the policy (1.6e-5..3.3e-3 in q over ten
+# policies trained on the CPU), so where the CPU's own f32 run of this
+# check's policy drifts further, the gates are 10x that.
+POLICY_SPREAD = (2.63e-5, 2.35e-3)
+POLICY_Q_TOL = 2.6e-4
+POLICY_V_TOL = 2.4e-2
+# Phase 8b: one Adam step of the BC policy on the card against the same step
+# on the CPU (f32 both), |d| of the parameters: its 0.999-quantile and its
+# max. ADAM_SPREAD is one step's f32-vs-f64 spread at the BC widths on a
+# trained net, (quantile, max) over three batches (tests/test_torch_learning.py
+# measures it on a CPU); the gates are 10x it, and that test fails where
+# they fall under 3x. The max has a heavy tail (5.5e-6..1.1e-4 over six
+# datasets), so where the CPU's own f32 step of this check drifts further,
+# the gates are 10x that.
+ADAM_SPREAD = (1.4e-8, 8.9e-5)
+ADAM_Q_TOL = 1.4e-7
+ADAM_MAX_TOL = 9e-4
 
 
 class PhaseError(RuntimeError):
@@ -148,6 +175,213 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / H100_HBM_BYTES * 1e3
     t_ops = n_ops / H100_F32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def finite_and_frozen(torch, res):
+    """Whether every record of a live episode of a rollout is finite, and
+    whether every failed episode's state records stay at their value of the
+    failing step."""
+    T = res.states.shape[1]
+    steps = torch.arange(T, device=res.states.device)
+    after = steps[None] >= res.fail_step[:, None].long()  # (B, T): at or after the failure
+    frozen = True
+    for rec in (res.states, res.base):
+        at_fail = rec.gather(1, res.fail_step.long().clamp(max=T - 1)[:, None, None].expand(
+            -1, 1, rec.shape[-1]))
+        frozen &= bool(((rec == at_fail) | ~after[..., None]).all())
+    alive = ~res.failed
+    finite = all(bool(torch.isfinite(getattr(res, f)[alive]).all())
+                 for f in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
+                           "contact_pos"))
+    return finite, frozen
+
+
+def cc_rows(in_contact):
+    """Rows a live episode adds to the database (numpy ``in_contact`` (T,
+    n_eff)): its cc goal ends at the earliest of the feet's last touchdowns
+    (0 where a foot never touches down)."""
+    td = in_contact[1:] & ~in_contact[:-1]
+    return min(int(np.nonzero(td[:, ee])[0].max()) + 1 if td[:, ee].any() else 0
+               for ee in range(td.shape[1]))
+
+
+def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
+    """Phase 8: the learning loop's first half on the port's entry points.
+    8a one data-collection iteration (the data-collection config: a B=1
+    benchmark rollout, then 10 replanning points x 2 perturbations in one
+    batch, K1 and K2 once per window), 8b BC at the bc.yaml widths on its
+    database for 5 of its 150 epochs, 8c the trained policy with cc goals at
+    the batch of ``start`` (no MPC), its first 50 steps against the CPU in
+    f64 on 64 episodes. Returns the launch counts of 8a."""
+    from bunmpc_tpu_torch.learning import bc as BC
+    from bunmpc_tpu_torch.learning import data_collection as DCM
+    from bunmpc_tpu_torch.learning import networks
+    from bunmpc_tpu_torch.learning.contact_planner import ContactPlanner
+    from bunmpc_tpu_torch.sim import physics, rollout
+
+    dev = start.q.device
+    B = start.q.shape[0]
+    T, epochs, n_check = 3000, 5, 64
+    dc_cfg = DCM.DataCollectionConfig(  # scripts/run_data_collection.py on data_collection.yaml
+        episode_length=T, num_perturbations_per_replanning=2, goal_horizon=1,
+        vx_range=(0.0, 0.3), vy_range=(0.0, 0.0), w_range=(0.0, 0.0), action_type="pd_target",
+        database_size=10_000_000)
+
+    # ---- 8a. data collection: one iteration ----
+    dc = DCM.DataCollection(spec, dc_cfg, sim_params=sim, seed=0)
+    calls = []
+    rollout_mpc = rollout.rollout_mpc
+
+    def timed_rollout(*a, **k):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout_mpc(*a, **k)
+        torch.cuda.synchronize()
+        after = counts()
+        calls.append((time.perf_counter() - t0, {n: after[n] - before[n] for n in after}, res))
+        return res
+
+    rollout.rollout_mpc = timed_rollout
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        log_dc = dc.run_iteration(start.q[0], start.v[0])
+        it_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        rollout.rollout_mpc = rollout_mpc
+    nw = dc.rcfg.n_windows
+    expected_rows, rows, ok_records = 0, [], True
+    for i, (wall, ln, res) in enumerate(calls):
+        finite, _ = finite_and_frozen(torch, res)
+        failed = res.failed.cpu().numpy()
+        inc, states = res.in_contact.cpu().numpy(), res.states.cpu().numpy()
+        n_rows = [cc_rows(inc[b]) for b in range(len(failed)) if not failed[b]]
+        expected_rows += sum(n_rows)
+        rows += [states[b, :cc_rows(inc[b])] for b in range(len(failed)) if not failed[b]]
+        log(f"[8a] rollout call {i}: {len(failed)} episodes x {T} steps in {wall:.2f} s "
+            f"({len(failed) * T / wall:.1f} env-steps/s); survival {1 - failed.mean():.4f}; "
+            f"launches {ln}; live records finite {finite}; rows of the live episodes {n_rows}")
+        ok_records &= finite and ln == {"admm": nw, "ddp": nw, "fused": 0}
+    db = dc.database
+    db_equal = len(db) == expected_rows and bool(
+        rows and np.array_equal(db.states, np.concatenate(rows)))
+    log(f"[8a] iteration {it_s:.2f} s (host append and perturbation included); v_des "
+        f"{np.round(log_dc['v_des'], 4).tolist()}; rows added {log_dc['datapoints_added']}, "
+        f"expected {expected_rows}; database {len(db)} rows, equal to the live episodes' "
+        f"records {db_equal}; launches {launches} (K1 and K2 {nw} per call)")
+    log(json.dumps({"metric": "data_collection_iteration", "wall_s": round(it_s, 3),
+                    "rollout_wall_s": [round(c[0], 3) for c in calls],
+                    "rollout_batch": [int(c[2].failed.shape[0]) for c in calls],
+                    "survival": [float(1 - c[2].failed.float().mean()) for c in calls],
+                    "rows": log_dc["datapoints_added"], "card": card}))
+    check(len(calls) == 2 and [int(c[2].failed.shape[0]) for c in calls] == [1, 20],
+          "data collection must run the benchmark rollout and one batch of 20")
+    check(ok_records, f"each rollout call must launch K1 and K2 {nw} times with finite records")
+    check(launches == {"admm": 2 * nw, "ddp": 2 * nw, "fused": 0},
+          f"data collection must launch K1 and K2 {2 * nw} times in all")
+    check(log_dc["datapoints_added"] == expected_rows and db_equal,
+          "rows added disagree with the appended episodes' lengths")
+    check(expected_rows > 0, "data collection added no row")
+
+    # ---- 8b. BC at the bc.yaml widths (3 x 512, batch 256, lr 2e-3, L1) ----
+    bc_cfg = BC.BcConfig(n_epoch=epochs)
+    stamps = [time.perf_counter()]
+    bundle, rep = BC.train_policy(db, bc_cfg, rng_seed=0,
+                                  log_fn=lambda d: stamps.append(time.perf_counter()))
+    epoch_s = np.diff(stamps)
+    n_steps = int(bc_cfg.n_train_frac * len(db)) // bc_cfg.batch_size
+    log(f"[8b] BC {epochs} epochs x {n_steps} steps: epoch s {np.round(epoch_s, 3).tolist()} "
+        f"(the first moves the set to the card), {n_steps / np.median(epoch_s):.1f} steps/s; "
+        f"train loss {np.round(rep.train_losses, 5).tolist()}, valid "
+        f"{np.round(rep.valid_losses, 5).tolist()}")
+    # one Adam step from the trained parameters on the first batch: on the
+    # card, and on the CPU in f32 and f64
+    x, y = db.xy()
+    sd = {k: v.detach().cpu().clone() for k, v in bundle.module.state_dict().items()}
+    stepped = []
+    for d, dt in ((dev, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        net = networks.GoalConditionedPolicyNet(x.shape[1], y.shape[1], bc_cfg.num_hidden_layer,
+                                                bc_cfg.hidden_dim).to(d, dt)
+        net.load_state_dict(sd)
+        BC.train_step(net, BC.make_optimizer(net, bc_cfg.learning_rate),
+                      torch.as_tensor(x[:256], dtype=dt, device=d),
+                      torch.as_tensor(y[:256], dtype=dt, device=d))
+        stepped.append({k: v.detach().cpu().double() for k, v in net.state_dict().items()})
+
+    def param_diff(a, b):
+        d = torch.cat([(a[k] - b[k]).abs().flatten() for k in sd])
+        return float(np.quantile(d.numpy(), 0.999)), float(d.max())
+
+    (adam_q, adam_max), spread = param_diff(*stepped[:2]), param_diff(*stepped[1:])
+    q_tol, max_tol = max(ADAM_Q_TOL, 10 * spread[0]), max(ADAM_MAX_TOL, 10 * spread[1])
+    moved = max(float((stepped[1][k] - sd[k].double()).abs().max()) for k in sd)
+    log(f"[8b] one Adam step, card vs CPU (f32): params |d| q0.999 {adam_q:.3e} (< {q_tol:.1e}), "
+        f"max {adam_max:.3e} (< {max_tol:.1e}); the CPU's f32-vs-f64 spread here "
+        f"{spread[0]:.3e}, {spread[1]:.3e} (CPU test: {ADAM_SPREAD[0]:.1e}, "
+        f"{ADAM_SPREAD[1]:.1e}); the step moved params by up to {moved:.3e}")
+    log(json.dumps({"metric": "bc_steps_per_sec", "value": round(n_steps / np.median(epoch_s), 1),
+                    "epoch_s": np.round(epoch_s, 4).tolist(), "steps_per_epoch": n_steps,
+                    "rows": len(db), "train_losses": rep.train_losses, "card": card}))
+    check(all(np.isfinite(rep.train_losses)) and all(np.isfinite(rep.valid_losses)),
+          "BC losses not finite")
+    check(rep.train_losses[-1] < rep.train_losses[0], "BC train loss did not fall")
+    check(adam_q < q_tol and adam_max < max_tol, "the card's Adam step disagrees with the CPU's")
+
+    # ---- 8c. the trained policy with cc goals: B episodes x T steps, no MPC ----
+    planner = ContactPlanner(spec)
+    v_np, w_np = (c.cpu().double().numpy() for c in cmd)
+    sched, _ = planner.get_contact_schedule(start.q, start.v, v_np, w_np, T, 0.0)
+    pcfg = dc.rcfg
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rollout.rollout_policy_cc(spec, sim, pcfg, start, *cmd, bundle, sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pol_launches = counts()
+    finite, frozen = finite_and_frozen(torch, res)
+    survival = float(1 - res.failed.float().mean())
+    # the first 50 steps against the same rollout in f64 on the CPU
+    cfg50 = dataclasses.replace(pcfg, episode_length=50)
+    card50 = rollout.rollout_policy_cc(spec, sim, cfg50, start, *cmd, bundle, sched)
+    torch.cuda.synchronize()
+    ref = {}
+    for dt in (torch.float64, torch.float32):
+        net = networks.GoalConditionedPolicyNet(x.shape[1], y.shape[1], bc_cfg.num_hidden_layer,
+                                                bc_cfg.hidden_dim).to(dtype=dt)
+        net.load_state_dict(sd)
+        cpu_bundle = networks.PolicyBundle(net.eval(), *(
+            t.detach().cpu().to(dt) for t in (bundle.state_mean, bundle.state_std,
+                                              bundle.goal_mean, bundle.goal_std)))
+        ref[dt] = rollout.rollout_policy_cc(
+            spec, sim, cfg50,
+            physics.SimState(*(a[:n_check].cpu().to(dt) for a in start)),
+            *(c[:n_check].cpu().to(dt) for c in cmd), cpu_bundle, sched[:n_check]).final_state
+
+    def end_diff(a, b):
+        return (float((a.q[:n_check].cpu().double() - b.q.double()).abs().max()),
+                float((a.v[:n_check].cpu().double() - b.v.double()).abs().max()))
+
+    dq, dv = end_diff(card50.final_state, ref[torch.float64])
+    sq, sv = end_diff(ref[torch.float32], ref[torch.float64])
+    q_tol, v_tol = max(POLICY_Q_TOL, 10 * sq), max(POLICY_V_TOL, 10 * sv)
+    log(f"[8c] policy rollout: {B} episodes x {T} steps in {wall:.2f} s, "
+        f"{B * T / wall:.1f} env-steps/s, {1e3 * wall / T:.3f} ms a substep; survival "
+        f"{survival:.4f} (not gated); launches {pol_launches}; records of live episodes finite "
+        f"{finite}, failed episodes frozen {frozen}")
+    log(f"[8c] first 50 steps against the CPU in f64 ({n_check} episodes): end q |d| {dq:.3e} "
+        f"(< {q_tol:.1e}), v |d| {dv:.3e} (< {v_tol:.1e}); the CPU's own f32 spread here q "
+        f"{sq:.3e}, v {sv:.3e} (CPU test: q {POLICY_SPREAD[0]:.3e}, v {POLICY_SPREAD[1]:.3e})")
+    log(json.dumps({"metric": "policy_rollout_env_steps_per_sec", "value": round(B * T / wall, 1),
+                    "batch": B, "steps": T, "wall_s": round(wall, 3),
+                    "substep_ms": round(1e3 * wall / T, 4), "survival": survival, "card": card}))
+    check(pol_launches == {"admm": 0, "ddp": 0, "fused": 0}, "the policy rollout launched MPC")
+    check(finite, "policy rollout records of live episodes not finite")
+    check(frozen, "failed policy episodes were not frozen")
+    check(dq < q_tol and dv < v_tol, "the first 50 policy steps disagree")
+    return launches
 
 
 def main_path_stage_ms(torch, spec, inputs, admm_cfg):
@@ -613,16 +847,7 @@ def main():
     T = loop_cfg.episode_length
     failed, fail_step = res.failed.cpu().numpy(), res.fail_step.cpu().numpy()
     alive = ~failed
-    steps = torch.arange(T, device=dev)
-    after = steps[None] >= res.fail_step[:, None].long()  # (B, T): at or after the failure
-    frozen = True
-    for rec in (res.states, res.base):
-        at_fail = rec.gather(1, res.fail_step.long().clamp(max=T - 1)[:, None, None].expand(
-            -1, 1, rec.shape[-1]))
-        frozen &= bool(((rec == at_fail) | ~after[..., None]).all())
-    finite = all(bool(torch.isfinite(getattr(res, f)[torch.as_tensor(alive, device=dev)]).all())
-                 for f in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
-                           "contact_pos"))
+    finite, frozen = finite_and_frozen(torch, res)
     viols = torch.stack([w[2] for w in windows]).cpu().numpy()  # (windows, B)
     live = fail_step[None, :] > (np.arange(nw) * spp)[:, None]  # alive at the window's start
     conv_loop = float((viols[live] < 1e-3).mean())
@@ -661,6 +886,11 @@ def main():
     check(survival >= 0.5, f"survival {survival:.4f} below 0.5")
     check(med_roll < 10.0, f"survivors' median roll_max {med_roll:.3f} deg not below 10")
     check(med_z < 0.03, f"survivors' median height error {med_z:.4f} m not below 0.03")
+
+    # ---- 8. the learning loop: data collection, BC, the policy rollout ----
+    t0 = time.time()
+    dc_launches = learning_loop(torch, loop_spec, sim, start, cmd, zero_counts, counts, card)
+    log(f"[8] learning loop {time.time() - t0:.1f} s")
 
     # ---- 7. the kernels line ----
     zero_counts()
@@ -704,16 +934,19 @@ def main():
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:589", "launches": main_launches["admm"],
          "closed_loop_launches": loop_launches["admm"],
+         "data_collection_launches": dc_launches["admm"],
          "max_abs_err": k1_err, "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 4),
          "bound_ms": round(k1_bound, 6), "bound_by": k1_by, "library_ms": None},
         {"name": "ddp", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/ddp.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046", "launches": main_launches["ddp"],
          "closed_loop_launches": loop_launches["ddp"],
+         "data_collection_launches": dc_launches["ddp"],
          "max_abs_err": k2_err, "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4),
          "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None},
         {"name": "fused", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/fused.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:1028",
-         "launches": fused_launches["fused"], "max_abs_err": k3_err, "ms": round(k3_ms, 4),
+         "launches": fused_launches["fused"], "data_collection_launches": dc_launches["fused"],
+         "max_abs_err": k3_err, "ms": round(k3_ms, 4),
          "plain_ms": round(k3_plain_ms, 4), "bound_ms": round(k3_bound, 6), "bound_by": k3_by,
          "library_ms": None},
     ]

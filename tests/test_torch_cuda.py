@@ -14,7 +14,9 @@ with one alpha against the plain version in f64 (xs 2e-4, us 2e-3, cost rtol
 5-problem batch the rows of the 512-problem batch, bit for bit; K1 at H=40
 and K2 at IK H=20 (fewer problems a block) with the same gates; the closed
 loop launches K1 and K2 once a window and gives 37 episodes the records of
-the same episodes inside a batch of 64, bit for bit."""
+the same episodes inside a batch of 64, bit for bit; the policy rollouts
+(vc and cc goals) launch no MPC kernel and end within 10x the CPU's f32
+distance to the JAX package's f64 fixture."""
 
 import pytest
 import torch
@@ -213,3 +215,49 @@ def test_closed_loop_launches_once_a_window_and_any_batch_size(device):
     for name in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
                  "contact_pos", "in_contact", "failed", "fail_step"):
         assert torch.equal(getattr(part, name), getattr(full, name)[:37]), name
+
+
+@pytest.mark.parametrize("variant", ["vc", "cc"])
+def test_policy_rollout_on_the_card_matches_the_jax_fixture(device, variant):
+    """100 steps of the policy rollout fixture (tests/torch_learning_reference.py,
+    the JAX package in f64) on the card in f32, each substep a graph replay
+    with the MLP inside: no MPC launch, and the end state within 10x the
+    CPU's own f32 distance to the fixture (q 5.5e-7, v 9.8e-6)."""
+    import numpy as np
+
+    import torch_learning_reference as REF
+    from bunmpc_tpu_torch import convert, workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    ref = dict(np.load(REF.FIXTURE))
+    f32 = torch.float32
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0())
+    bundle = convert.policy_bundle_from_flax(
+        REF.unflat_params(ref, f"{variant}/params"), ref["state_mean"], ref["state_std"],
+        ref[f"{variant}/goal_mean"], ref[f"{variant}/goal_std"], device=device, dtype=f32)
+
+    def rows(a):
+        return torch.as_tensor(a, dtype=f32, device=device).expand(REF.B, -1).contiguous()
+
+    cfg = rollout.RolloutConfig(episode_length=REF.T, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+    args = (spec, workload.closed_loop_sim_params(), cfg,
+            physics.SimState(rows(ref["q0"]), rows(ref["v0"])),
+            torch.as_tensor(ref["v_des"], dtype=f32, device=device),
+            torch.as_tensor(ref["w_des"], dtype=f32, device=device), bundle)
+    before = [k.launches for k in (cuda_admm.KERNEL, cuda_ddp.KERNEL, cuda_fused.KERNEL)]
+    if variant == "vc":
+        res = rollout.rollout_policy(*args)
+    else:
+        res = rollout.rollout_policy_cc(*args, ref["schedule"])
+    torch.cuda.synchronize()
+    assert [k.launches for k in (cuda_admm.KERNEL, cuda_ddp.KERNEL, cuda_fused.KERNEL)] == before
+    assert torch.isfinite(res.states).all() and not res.failed.any()
+    np.testing.assert_allclose(res.final_state.q.double().cpu().numpy(), ref[f"{variant}/final_q"],
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(res.final_state.v.double().cpu().numpy(), ref[f"{variant}/final_v"],
+                               atol=1e-4, rtol=0)

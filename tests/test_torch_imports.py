@@ -48,6 +48,9 @@ def test_no_jax_or_jax_package_imports():
     assert len(files) > 15
     for sub in ("physics.py", "controllers.py", "rollout.py"):  # the closed loop is scanned
         assert os.path.join(PKG, "sim", sub) in files
+    for sub in ("goals.py", "database.py", "networks.py", "bc.py", "perturbations.py",
+                "contact_planner.py", "data_collection.py"):  # and the learning substrate
+        assert os.path.join(PKG, "learning", sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
