@@ -49,12 +49,15 @@ class DataCollectionConfig:
     sigma_vel: float = 0.1
 
 
-def host_records(res: rollout.RolloutResult) -> rollout.RolloutResult:
-    """The records ``DataCollection._append_rollouts`` reads, as numpy arrays
-    (one copy per field); the other fields are None."""
-    return rollout.RolloutResult(**{
-        f: getattr(res, f).cpu().numpy() if f in _HOST_FIELDS else None
-        for f in rollout.RolloutResult._fields})
+def host_records(res: rollout.RolloutResult, fields=_HOST_FIELDS) -> rollout.RolloutResult:
+    """The records ``fields`` (by default those ``DataCollection._append_rollouts``
+    reads) as numpy arrays, one copy per field, and the final state on the
+    device, cloned (a later rollout may start from it); the other fields
+    are None."""
+    out = {f: getattr(res, f).cpu().numpy() if f in fields else None
+           for f in rollout.RolloutResult._fields}
+    out["final_state"] = physics.SimState(res.final_state.q.clone(), res.final_state.v.clone())
+    return rollout.RolloutResult(**out)
 
 
 class DataCollection:

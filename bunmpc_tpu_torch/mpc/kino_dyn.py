@@ -160,15 +160,18 @@ class MpcPlan(NamedTuple):
     P_opt: torch.Tensor  # (B, H+1, 9) ADMM scaled dual (zeros from K1)
 
 
-def window_clock(start_time: float, w_idx: int, plan_freq: float, like: torch.Tensor):
-    """The gait clock of replanning window ``w_idx``, a 0-d tensor of
-    ``like``'s dtype and device: ``round(start_time + w_idx * plan_freq, 3)``
-    in that dtype, the JAX package's expression (sim/rollout.py:322, 375)
-    with numpy's rounding, the reference's. ``torch.round(x, decimals=3)``
+def window_clock(start_time, w_idx: int, plan_freq: float, like: torch.Tensor):
+    """The gait clock of replanning window ``w_idx`` in ``like``'s dtype and
+    device: ``round(start_time + w_idx * plan_freq, 3)``, the JAX package's
+    expression (sim/rollout.py:322, 375) with numpy's rounding, the
+    reference's. ``start_time`` is a float (a 0-d clock) or a (B,) tensor of
+    per-episode start times (a (B,) clock). ``torch.round(x, decimals=3)``
     divides by 1000, where ``x / 1000`` on the card (and ``jnp.round``,
     which XLA compiles) multiplies by a rounded reciprocal; a clock one ulp
     off a knot can degenerate the first knot (``gait.first_knot_dt``)."""
     w = torch.full((), w_idx, dtype=like.dtype, device=like.device)
+    if torch.is_tensor(start_time):
+        start_time = start_time.to(dtype=like.dtype, device=like.device)
     return torch.round(start_time + w * plan_freq * 1.0, decimals=3)
 
 

@@ -19,6 +19,11 @@ Rates follow the reference: 1 kHz simulation and control, a replan every
 (n_state=43: v, base_wrt_foot, q[2:]), the vc goal (phase, v_des_xy, w_des,
 gait id) and the action (torque / pd_target / structured).
 
+``rollout_safedagger`` and ``rollout_dagger`` run the MPC and a learned
+policy side by side: the MPC solves at every window boundary as in
+``rollout_mpc``, and a gate picks the MPC's or the policy's torque at every
+substep (SafeDAgger's danger box, DAgger's per-window coin).
+
 ``rollout_policy`` and ``rollout_policy_cc`` run a learned policy in the
 same loop without the MPC: every 1 ms substep evaluates the policy on the
 state features and a vc or cc goal (``cc_goal_fn``) and decodes its action
@@ -31,6 +36,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kin import algorithms as K
@@ -217,6 +223,31 @@ def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, prev, n_shift: int):
     )
 
 
+def _start_time(start_time, B: int, like: torch.Tensor):
+    """``start_time`` as the rollouts take it: a float, or a (B,) tensor of
+    per-episode start times in ``like``'s dtype and device."""
+    if isinstance(start_time, (int, float)):
+        return float(start_time)
+    st = torch.as_tensor(start_time, dtype=like.dtype, device=like.device)
+    if st.dim() != 0 and tuple(st.shape) != (B,):
+        raise ValueError(f"start_time: a float or a ({B},) tensor, got shape {tuple(st.shape)}")
+    return st
+
+
+def _step0(start_time, cfg: RolloutConfig, like: torch.Tensor):
+    """The absolute step of each episode's first step, ``start_time /
+    sim_dt``, as the vc goal's phase reads it: 0-d, or (B,) per episode."""
+    if torch.is_tensor(start_time):
+        return start_time / cfg.sim_dt
+    return torch.full((), start_time / cfg.sim_dt, dtype=like.dtype, device=like.device)
+
+
+def _check_window(spec: KD.CyclicMpcSpec, cfg: RolloutConfig):
+    if spec.n_int < cfg.steps_per_plan:
+        raise ValueError(f"a plan covers {spec.n_int} ms, less than the {cfg.steps_per_plan} "
+                         "steps of a replanning window")
+
+
 def rollout_mpc(
     spec: KD.CyclicMpcSpec,
     sim_params: physics.SimParams,
@@ -224,7 +255,7 @@ def rollout_mpc(
     state0: physics.SimState,  # q (B, nq), v (B, nv)
     v_des,  # (B, 3)
     w_des,  # (B,)
-    start_time: float = 0.0,
+    start_time=0.0,  # a float, or (B,) per-episode start times
     push_force=None,
     terrain=None,
     q_noise=None,
@@ -244,7 +275,10 @@ def rollout_mpc(
     Each window solves the MPC once for the whole batch with
     ``solve_mpc_batch(admm_backend, ik_backend)`` ("cuda": the kernels K1
     and K2; "torch": their plain versions) at the clock
-    ``KD.window_clock(start_time, w)``.
+    ``KD.window_clock(start_time, w)``, per episode where ``start_time`` is
+    a (B,) tensor (the DAgger drivers' on-trajectory and ending rollouts);
+    the vc goal's phase counts from ``start_time``, the failure grace period
+    from the episode's own first step.
 
     ``warm_start_carry`` feeds each window's ADMM the previous window's
     (X, F, dual P), shifted one window, behind the JAX package's health
@@ -256,9 +290,9 @@ def rollout_mpc(
 
     ``gains`` overrides the controller's PD gains with one (kp, kd) for the
     batch. ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8),
-    ``q_noise``/``v_noise``, ``swing_blend``, ``force_gate``, per-episode
-    gains or simulator parameters (item 6) and a per-episode ``start_time``
-    (item 2) wait for a later slice and raise ``NotImplementedError``.
+    ``q_noise``/``v_noise``, ``swing_blend``, ``force_gate`` and per-episode
+    gains or simulator parameters (item 6) wait for a later slice and raise
+    ``NotImplementedError``.
     """
     _refuse_later(push_force, terrain, q_noise, v_noise)
     if swing_blend is not None or force_gate is not None:
@@ -269,87 +303,34 @@ def rollout_mpc(
                *dataclasses.astuple(sim_params.contact))
     if any(torch.is_tensor(x) for x in scalars):
         _later("per-episode sim_params", "item 6")
-    if torch.is_tensor(start_time):
-        _later("a per-episode start_time", "item 2")
     if admm_backend == "cuda" and warm_start_carry:
         raise ValueError(
             "warm_start_carry=True carries the ADMM dual, which K1 (admm_backend='cuda') does "
             "not keep; use admm_backend='torch' or warm_start_carry=False")
     if warm_start_carry is None:
         warm_start_carry = admm_backend == "torch" and spec.warm_start_style == "tiled"
-    if spec.n_int < cfg.steps_per_plan:
-        raise ValueError(f"a plan covers {spec.n_int} ms, less than the {cfg.steps_per_plan} "
-                         "steps of a replanning window")
+    _check_window(spec, cfg)
 
-    model = spec.model
     if gains is None:
         gains = controllers.IdControllerGains(kp=spec.params.kp, kd=spec.params.kd)
     q, v = state0
     B, dtype, device = q.shape[0], q.dtype, q.device
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
     w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
-    spp, nw = cfg.steps_per_plan, cfg.n_windows
-    T = nw * spp
-    n_shift = max(1, int(round(cfg.plan_freq / spec.params.gait_dt)))
-    nq, ne = model.nq, spec.n_eff
-
-    def empty(*shape, dt=dtype):
-        return torch.empty((B, T) + shape, dtype=dt, device=device)
-
-    b = _Buffers(
-        q=q.clone(), v=v.clone(),
-        failed=torch.zeros(B, dtype=torch.bool, device=device),
-        fail_step=torch.full((B,), cfg.episode_length, dtype=torch.int32, device=device),
-        i=torch.zeros((), dtype=torch.int64, device=device),
-        k=torch.zeros((), dtype=torch.int64, device=device),
-        xs_int=torch.empty((B, spec.n_int, nq + model.nv), dtype=dtype, device=device),
-        us_int=torch.empty((B, spec.n_int, model.nv), dtype=dtype, device=device),
-        f_int=torch.empty((B, spec.n_int, 3 * ne), dtype=dtype, device=device),
-        mpc_bad=torch.zeros(B, dtype=torch.bool, device=device),
-        states=empty(model.nv + 2 * ne + nq - 2),  # n_state = 43
-        actions=empty(model.n_joints * (3 if cfg.action_type == "structured" else 1)),
-        vc_goals=empty(5), base=empty(3),
-        com=empty(3), contact_forces=empty(ne, 3), contact_pos=empty(ne, 3),
-        in_contact=empty(ne, dt=torch.bool),
-    )
-    step0 = torch.full((), start_time / cfg.sim_dt, dtype=dtype, device=device)
-    substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des, step0, b)
-    prev = None
-
-    for w in range(nw):
-        t = KD.window_clock(start_time, w, cfg.plan_freq, b.q).expand(B)
-        qm0, vm0 = _measure(b.q, b.v)
-        warm = None
-        if warm_start_carry:
-            warm = _carried_warm_start(spec, qm0, vm0, prev, n_shift)
-        plan = KD.solve_mpc_batch(
-            spec, qm0, vm0, t, v_des, w_des, admm_cfg=admm_cfg,
-            ddp_cfg=DdpConfig() if ddp_cfg is None else ddp_cfg,
-            admm_backend=admm_backend, ik_backend=ik_backend, warm_start=warm,
-        )
-        if warm_start_carry:  # qm0 is the state buffer the substeps overwrite: copy its xy
-            prev = (plan.X_opt, plan.F_opt, plan.P_opt, qm0[:, 0:2].clone())
-        b.xs_int.copy_(plan.xs_int)
-        b.us_int.copy_(plan.us_int)
-        b.f_int.copy_(plan.f_int)
-        b.mpc_bad.copy_(torch.isnan(plan.f_int).flatten(1).any(1)
-                        | torch.isnan(plan.xs_int).flatten(1).any(1))
-        b.i.zero_()
-        for _ in range(spp):
-            substep()
-
-    return RolloutResult(
-        states=b.states, actions=b.actions, vc_goals=b.vc_goals, base=b.base, com=b.com,
-        contact_forces=b.contact_forces, contact_pos=b.contact_pos, in_contact=b.in_contact,
-        failed=b.failed, fail_step=b.fail_step, final_state=physics.SimState(q=b.q, v=b.v),
-        mpc_usage=torch.ones((B, T), dtype=dtype, device=device),
-    )
+    start_time = _start_time(start_time, B, q)
+    b = _make_buffers(spec, cfg, q, v)
+    substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des,
+                       _step0(start_time, cfg, q), b)
+    _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry,
+             admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
+    return _result(b, torch.ones((B, b.states.shape[1]), dtype=dtype, device=device))
 
 
 class _Buffers(NamedTuple):
     """The loop's tensors, updated in place: the state, the failure flags,
     the substep and step indices (on the device, so no substep needs a host
-    value), the window's plan and the (B, T, ...) records."""
+    value), the window's plan and the (B, T, ...) records; for the gated
+    rollouts also the gate's state and the ``mpc_usage`` record."""
 
     q: torch.Tensor
     v: torch.Tensor
@@ -369,11 +350,81 @@ class _Buffers(NamedTuple):
     contact_forces: torch.Tensor
     contact_pos: torch.Tensor
     in_contact: torch.Tensor
+    use_mpc: torch.Tensor | None = None  # (B,) bool: the MPC is in control
+    steps_blocked: torch.Tensor | None = None  # (B,) int32: MPC steps since the takeover
+    mpc_usage: torch.Tensor | None = None  # (B, T) 1.0 where the MPC acted
 
 
 _RECORDS = ("states", "actions", "vc_goals", "base", "com", "contact_forces", "contact_pos",
             "in_contact")
 _WARMUP = 2  # eager substeps on the card before the capture (lazy library setup)
+
+
+def _make_buffers(spec: KD.CyclicMpcSpec, cfg: RolloutConfig, q, v, gated: bool = False):
+    model, ne = spec.model, spec.n_eff
+    B, dtype, device = q.shape[0], q.dtype, q.device
+    T = cfg.n_windows * cfg.steps_per_plan
+
+    def empty(*shape, dt=dtype):
+        return torch.empty((B, T) + shape, dtype=dt, device=device)
+
+    gate = {}
+    if gated:
+        gate = dict(use_mpc=torch.zeros(B, dtype=torch.bool, device=device),
+                    steps_blocked=torch.zeros(B, dtype=torch.int32, device=device),
+                    mpc_usage=empty())
+    return _Buffers(
+        q=q.clone(), v=v.clone(),
+        failed=torch.zeros(B, dtype=torch.bool, device=device),
+        fail_step=torch.full((B,), cfg.episode_length, dtype=torch.int32, device=device),
+        i=torch.zeros((), dtype=torch.int64, device=device),
+        k=torch.zeros((), dtype=torch.int64, device=device),
+        xs_int=torch.empty((B, spec.n_int, model.nq + model.nv), dtype=dtype, device=device),
+        us_int=torch.empty((B, spec.n_int, model.nv), dtype=dtype, device=device),
+        f_int=torch.empty((B, spec.n_int, 3 * ne), dtype=dtype, device=device),
+        mpc_bad=torch.zeros(B, dtype=torch.bool, device=device),
+        states=empty(model.nv + 2 * ne + model.nq - 2),  # n_state = 43
+        actions=empty(model.n_joints * (3 if cfg.action_type == "structured" else 1)),
+        vc_goals=empty(5), base=empty(3),
+        com=empty(3), contact_forces=empty(ne, 3), contact_pos=empty(ne, 3),
+        in_contact=empty(ne, dt=torch.bool),
+        **gate,
+    )
+
+
+def _windows(spec, cfg, b: _Buffers, substep, start_time, v_des, w_des, warm_start_carry,
+             ddp_cfg=None, **solve_kw):
+    """The loop over replanning windows: one batched solve on the state at
+    the window clock (with the previous window's (X, F, P) carried where
+    ``warm_start_carry``), the plan into the buffers, then the substeps."""
+    B = b.q.shape[0]
+    ddp_cfg = DdpConfig() if ddp_cfg is None else ddp_cfg
+    n_shift = max(1, int(round(cfg.plan_freq / spec.params.gait_dt)))
+    prev = None
+    for w in range(cfg.n_windows):
+        t = KD.window_clock(start_time, w, cfg.plan_freq, b.q).expand(B)
+        qm0, vm0 = _measure(b.q, b.v)
+        warm = _carried_warm_start(spec, qm0, vm0, prev, n_shift) if warm_start_carry else None
+        plan = KD.solve_mpc_batch(spec, qm0, vm0, t, v_des, w_des, warm_start=warm,
+                                  ddp_cfg=ddp_cfg, **solve_kw)
+        if warm_start_carry:  # qm0 is the state buffer the substeps overwrite: copy its xy
+            prev = (plan.X_opt, plan.F_opt, plan.P_opt, qm0[:, 0:2].clone())
+        b.xs_int.copy_(plan.xs_int)
+        b.us_int.copy_(plan.us_int)
+        b.f_int.copy_(plan.f_int)
+        b.mpc_bad.copy_(torch.isnan(plan.f_int).flatten(1).any(1)
+                        | torch.isnan(plan.xs_int).flatten(1).any(1))
+        b.i.zero_()
+        for _ in range(cfg.steps_per_plan):
+            substep()
+
+
+def _result(b, mpc_usage) -> RolloutResult:
+    return RolloutResult(
+        states=b.states, actions=b.actions, vc_goals=b.vc_goals, base=b.base, com=b.com,
+        contact_forces=b.contact_forces, contact_pos=b.contact_pos, in_contact=b.in_contact,
+        failed=b.failed, fail_step=b.fail_step, final_state=physics.SimState(q=b.q, v=b.v),
+        mpc_usage=mpc_usage)
 
 
 class _Substep:
@@ -382,7 +433,9 @@ class _Substep:
     the first substeps run eagerly on a side stream, then one substep is
     captured as a CUDA graph and every later substep replays it: the
     thousands of small kernels of a substep are then launched without the
-    host's per-op dispatch. A failed capture raises."""
+    host's per-op dispatch. A failed capture raises. The graph holds the
+    addresses of every tensor the substep reads, a policy's weights
+    included, and lives as long as this object: one rollout call."""
 
     def __init__(self, fn, *args):
         self.fn, self.args = fn, args
@@ -423,21 +476,27 @@ def _advance(b, records, new: physics.SimState, now_failed):
     b.k.add_(1)
 
 
-def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
-    model, eff, nq = spec.model, spec.eff_frames, spec.model.nq
+def _plan_torques(spec, sim_params, gains, b: _Buffers, qm, vm):
+    """The ID controller's torques at substep ``b.i`` of the window's plan,
+    saturated before they are recorded (the recorded expert action is the
+    torque the actuator can apply): ``(tau, tau_ff, q_des, v_des_traj)``."""
+    model, nq = spec.model, spec.model.nq
     i1 = b.i.view(1)
-    qm, vm = _measure(b.q, b.v)
-    kin = K.body_velocities(model, qm, vm)
-    fk = (kin[2], kin[3])
     xs = b.xs_int.index_select(1, i1)[:, 0]
     q_des, v_des_traj = xs[:, :nq], xs[:, nq:]
     tau_ff, tau_fb = controllers.id_joint_torques(
-        model, eff, gains, qm, vm, q_des, v_des_traj, b.us_int.index_select(1, i1)[:, 0],
-        b.f_int.index_select(1, i1)[:, 0])
-    # saturate before recording: the recorded expert action is the torque
-    # the actuator can apply
+        model, spec.eff_frames, gains, qm, vm, q_des, v_des_traj,
+        b.us_int.index_select(1, i1)[:, 0], b.f_int.index_select(1, i1)[:, 0])
     lim = sim_params.torque_limit
-    tau = torch.clamp(tau_ff + tau_fb, -lim, lim)
+    return torch.clamp(tau_ff + tau_fb, -lim, lim), tau_ff, q_des, v_des_traj
+
+
+def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
+    model, eff = spec.model, spec.eff_frames
+    qm, vm = _measure(b.q, b.v)
+    kin = K.body_velocities(model, qm, vm)
+    fk = (kin[2], kin[3])
+    tau, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, gains, b, qm, vm)
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
     records = (
@@ -453,6 +512,195 @@ def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
     _advance(b, records, new, now_failed)
     b.i.add_(1)
 
+
+# ---- expert-gated rollouts (SafeDAgger, DAgger) ----
+
+# the SafeDAgger safety box's joint limits (simulation.py:222-297): left and
+# right HAA are asymmetric; the joint order is FL, FR, HL, HR x (HAA, HFE, KFE)
+_SAFE_HAA_L = (-0.8, 1.5)
+_SAFE_HAA_R = (-1.5, 0.8)
+_SAFE_HFE = (-2.0, 2.0)
+_SAFE_KFE = (-3.0, 3.0)
+_SAFE_LO = np.array([_SAFE_HAA_L[0], _SAFE_HFE[0], _SAFE_KFE[0],
+                     _SAFE_HAA_R[0], _SAFE_HFE[0], _SAFE_KFE[0]] * 2)
+_SAFE_HI = np.array([_SAFE_HAA_L[1], _SAFE_HFE[1], _SAFE_KFE[1],
+                     _SAFE_HAA_R[1], _SAFE_HFE[1], _SAFE_KFE[1]] * 2)
+
+
+def state_is_dangerous(q, z_bounds=(0.15, 1.0), body_angle_deg=25.0):
+    """SafeDAgger's safety box (simulation.py:222-297) on ``q`` (..., nq):
+    the base height outside ``z_bounds``, roll or pitch beyond
+    ``body_angle_deg``, or a joint outside its box."""
+    rpy = rot_to_rpy(quat_to_rot(q[..., 3:7]))
+    ang = math.radians(body_angle_deg)
+    joints = q[..., 7:]
+    return (
+        (q[..., 2] < z_bounds[0])
+        | (q[..., 2] > z_bounds[1])
+        | (torch.abs(rpy[..., 0]) > ang)
+        | (torch.abs(rpy[..., 1]) > ang)
+        | ((joints < K.const(_SAFE_LO, q)) | (joints > K.const(_SAFE_HI, q))).any(-1)
+    )
+
+
+@torch.no_grad()
+def _gated_rollout(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,  # q (B, nq), v (B, nv)
+    v_des,  # (B, 3)
+    w_des,  # (B,)
+    policy_fn,  # (states (B, 43), goals (B, 5)) -> actions (B, n_action)
+    gate_fn,  # (q, k, use_mpc, steps_blocked) -> (use_mpc, steps_blocked), all (B,)
+    start_time=0.0,
+    admm_cfg=None,
+    ddp_cfg=None,
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+) -> RolloutResult:
+    """Shared skeleton of the expert-gated rollouts (SafeDAgger, DAgger),
+    the JAX package's ``_gated_rollout``: every window solves the MPC once
+    for the batch on the state at the window clock, cold (fixed shapes: the
+    plan is at most one window stale at a mid-window takeover, a documented
+    deviation from the reference's solve-on-takeover); every substep asks
+    ``gate_fn`` whether the MPC or the policy acts, with the episode's step
+    ``k`` and the gate's state as device tensors (the substep is one CUDA
+    graph replay on the card, so no Python value may steer it). The recorded
+    action is whatever acted (the MPC's as ``_extract_action`` encodes it);
+    ``mpc_usage`` records the gate. Both torques are computed every step."""
+    _check_window(spec, cfg)
+    q, v = _state_on_device(spec, state0)
+    B, dtype, device = q.shape[0], q.dtype, q.device
+    v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
+    w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
+    start_time = _start_time(start_time, B, q)
+    gains = controllers.IdControllerGains(kp=spec.params.kp, kd=spec.params.kd)
+    b = _make_buffers(spec, cfg, q, v, gated=True)
+    substep = _Substep(_gated_substep, spec, sim_params, cfg, gains, v_des, w_des,
+                       _step0(start_time, cfg, q), policy_fn, gate_fn, b)
+    _windows(spec, cfg, b, substep, start_time, v_des, w_des, False,
+             admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
+    return _result(b, b.mpc_usage)
+
+
+def _gated_substep(spec, sim_params, cfg, gains, v_des, w_des, step0, policy_fn, gate_fn,
+                   b: _Buffers):
+    model, eff = spec.model, spec.eff_frames
+    qm, vm = _measure(b.q, b.v)
+    kin = K.body_velocities(model, qm, vm)
+    fk = (kin[2], kin[3])
+    feat = state_features(model, eff, qm, vm, fk=fk)
+    goal = vc_goal(cfg, step0 + b.k, v_des, w_des)
+    use, blocked = gate_fn(qm, b.k, b.use_mpc, b.steps_blocked)
+    b.use_mpc.copy_(use)
+    b.steps_blocked.copy_(blocked)
+    tau_mpc, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, gains, b, qm, vm)
+    action_pol = policy_fn(feat, goal)
+    u = b.use_mpc[:, None]
+    tau = torch.where(u, tau_mpc, _decode_action(cfg, action_pol, qm, vm))
+    action_mpc = _extract_action(cfg, tau_mpc, qm, vm, tau_ff=tau_ff, q_des=q_des,
+                                 v_des_traj=v_des_traj)
+    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
+    now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
+    b.mpc_usage.index_copy_(1, b.k.view(1), b.use_mpc.to(b.mpc_usage.dtype)[:, None])
+    records = (feat, torch.where(u, action_mpc, action_pol), goal, qm[:, 0:3],
+               K.com_from_fk(model, *fk), cinfo.forces, cinfo.positions, cinfo.in_contact)
+    _advance(b, records, new, now_failed)
+    b.i.add_(1)
+
+
+def safedagger_gate(num_steps_to_block: int):
+    """SafeDAgger's gate (simulation.py:1290-1323): a dangerous state hands
+    control to the MPC and restarts the block count at a fresh takeover; the
+    MPC keeps control for at least ``num_steps_to_block`` steps and releases
+    it on the first safe step after that."""
+
+    def gate(q, k, use_mpc, steps_blocked):
+        dangerous = state_is_dangerous(q)
+        zero = torch.zeros_like(steps_blocked)
+        blocked = torch.where(dangerous & ~use_mpc, zero,
+                              torch.where(use_mpc, steps_blocked + 1, steps_blocked))
+        release = use_mpc & ~dangerous & (blocked >= num_steps_to_block)
+        return dangerous | (use_mpc & ~release), torch.where(release, zero, blocked)
+
+    return gate
+
+
+def rollout_safedagger(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,
+    v_des,
+    w_des,
+    policy_fn,
+    num_steps_to_block: int = 150,
+    start_time=0.0,
+    admm_cfg=None,
+    ddp_cfg=None,
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+) -> RolloutResult:
+    """Safety-gated rollouts of a batch of episodes (reference
+    Simulation.rollout_safedagger, simulation.py:1097): the MPC takes over
+    when the state enters the danger box and keeps control for at least
+    ``num_steps_to_block`` steps after it is safe again
+    (``safedagger_gate``). Each window launches K1 and K2 once with the
+    "cuda" backends."""
+    return _gated_rollout(spec, sim_params, cfg, state0, v_des, w_des, policy_fn,
+                          safedagger_gate(num_steps_to_block), start_time=start_time,
+                          admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend,
+                          ik_backend=ik_backend)
+
+
+def dagger_coins(generator: torch.Generator, B: int, n_windows: int,
+                 mpc_usage_percentage: float = 0.5):
+    """DAgger's expert coins, (B, n_windows) bool on the generator's device:
+    one Bernoulli(``mpc_usage_percentage``) draw per episode and window (the
+    JAX package draws each episode's from its own key)."""
+    u = torch.rand((B, n_windows), generator=generator, device=generator.device)
+    return u < mpc_usage_percentage
+
+
+def rollout_dagger(
+    spec: KD.CyclicMpcSpec,
+    sim_params: physics.SimParams,
+    cfg: RolloutConfig,
+    state0: physics.SimState,
+    v_des,
+    w_des,
+    policy_fn,
+    generator: torch.Generator | None = None,
+    mpc_usage_percentage: float = 0.5,
+    start_time=0.0,
+    admm_cfg=None,
+    ddp_cfg=None,
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+    coins=None,
+) -> RolloutResult:
+    """Classic DAgger rollouts (reference Simulation.rollout_dagger,
+    simulation.py:1450, mixing at :1584-1589): each replanning window of each
+    episode gives control to the MPC on a Bernoulli(``mpc_usage_percentage``)
+    coin, drawn by ``dagger_coins`` from ``generator`` unless ``coins``
+    ((B, n_windows) bool) is given. The gate reads the coin of window
+    ``k // steps_per_plan`` from the step counter on the device."""
+    q, _ = _state_on_device(spec, state0)
+    B, spp = q.shape[0], cfg.steps_per_plan
+    if coins is None:
+        coins = dagger_coins(generator, B, cfg.n_windows, mpc_usage_percentage)
+    coins = torch.as_tensor(coins, dtype=torch.bool, device=q.device)
+    if tuple(coins.shape) != (B, cfg.n_windows):
+        raise ValueError(f"coins: shape {tuple(coins.shape)}, expected {(B, cfg.n_windows)}")
+
+    def gate(q, k, use_mpc, steps_blocked):
+        w = torch.div(k, spp, rounding_mode="floor")
+        return coins.index_select(1, w.view(1))[:, 0], steps_blocked
+
+    return _gated_rollout(spec, sim_params, cfg, state0, v_des, w_des, policy_fn, gate,
+                          start_time=start_time, admm_cfg=admm_cfg, ddp_cfg=ddp_cfg,
+                          admm_backend=admm_backend, ik_backend=ik_backend)
 
 
 # ---- policy rollouts ----
@@ -532,7 +780,7 @@ def rollout_policy(
     w_des,  # (B,)
     policy_fn,  # (states (B, 43), goals (B, g)) -> actions (B, n_action)
     goal_fn=None,  # optional (step, q (B, nq)) -> goals (B, g); default the vc goal
-    start_time: float = 0.0,
+    start_time=0.0,  # a float, or (B,) per-episode start times (the vc goal's phase)
     push_force=None,
     terrain=None,
     q_noise=None,
@@ -548,14 +796,12 @@ def rollout_policy(
     ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8) and
     ``q_noise``/``v_noise`` (item 6) raise ``NotImplementedError``."""
     _refuse_later(push_force, terrain, q_noise, v_noise)
-    if torch.is_tensor(start_time):
-        _later("a per-episode start_time", "item 2")
     q, v = _state_on_device(spec, state0)
     B, dtype, device = q.shape[0], q.dtype, q.device
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
     w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
     if goal_fn is None:
-        step0 = torch.full((), start_time / cfg.sim_dt, dtype=dtype, device=device)
+        step0 = _step0(_start_time(start_time, B, q), cfg, q)
 
         def goal_fn(step, q):
             return vc_goal(cfg, step0 + step, v_des, w_des)

@@ -22,7 +22,11 @@ the survivors' median roll and height (phase 7b). Then the learning loop
 K1 and K2 once per window of each expert rollout), BC at the bc.yaml
 widths on its database (``learning.bc``), and the trained policy with cc
 goals at 512 episodes of 3000 steps (``sim.rollout.rollout_policy_cc``, no
-MPC). It checks every path's
+MPC). Then the DAgger family (phase 9): ``SafeDagger.run`` with one
+iteration, one ``rollout_dagger`` call, one ``LocoSafeDagger`` iteration (K1
+and K2 once per window of every MPC and gated call), gated on the gate's
+rule, the aggregation rule and the policy's weights on the records, and
+one gated window at B=64 against the plain path in f64. It checks every path's
 outputs, counts each kernel's launches in each path's run, times them, and
 prints one ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
@@ -73,6 +77,21 @@ POLICY_V_TOL = 2.4e-2
 ADAM_SPREAD = (1.4e-8, 8.9e-5)
 ADAM_Q_TOL = 1.4e-7
 ADAM_MAX_TOL = 9e-4
+# Phase 9d: one window of rollout_safedagger on the card against the plain
+# path in f64, end-of-window q and v of the episodes whose gate agrees.
+# Phase 7a's gates proved too tight there: GATED_SPREAD is the plain path's
+# f32-vs-f64 spread of such a window (tests/test_torch_dagger.py measures it
+# on a CPU: 8 perturbed starts with the drivers' sigmas, a policy trained at
+# the BC widths; every episode switches from the policy to the MPC within
+# the window, and the takeover runs a plan made for the window's start from
+# a state the policy has moved, so the spread is heavy-tailed, q 1e-6 ..
+# 2.7e-2 over the episodes); the gates are 10x it, and that test fails where
+# they fall under 3x. Where the card's own plain f32 run drifts further,
+# the gates are 10x that. The window's plan (K1, K2 at the starts) is held to
+# phase 7a's quantile gates.
+GATED_SPREAD = (2.75e-2, 1.63e1)
+GATED_Q_TOL = 2.8e-1
+GATED_V_TOL = 1.7e2
 
 
 class PhaseError(RuntimeError):
@@ -382,6 +401,371 @@ def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
     check(frozen, "failed policy episodes were not frozen")
     check(dq < q_tol and dv < v_tol, "the first 50 policy steps disagree")
     return launches
+
+
+def aggregate_rows(res, expert_only, keep, skip_failed, margin):
+    """The (episode, steps) pairs the drivers' aggregation rule keeps of
+    host records: an episode dropped by ``keep`` gives nothing; a failed one
+    nothing with ``skip_failed``, else its steps before ``fail_step -
+    margin`` where there are at least 100; a live one every step; of a gated
+    rollout (``expert_only``) only the MPC's steps."""
+    out = []
+    for b in range(res.states.shape[0]):
+        if keep is not None and not keep[b]:
+            continue
+        n = res.states.shape[1]
+        if res.failed[b]:
+            if skip_failed:
+                continue
+            n = int(res.fail_step[b]) - margin
+            if n < 100:
+                continue
+        steps = np.arange(n)
+        if expert_only:
+            steps = steps[res.mpc_usage[b, :n] > 0]
+        if len(steps):
+            out.append((b, steps))
+    return out
+
+
+def safedagger_rule(torch, rollout, res, n_block):
+    """SafeDAgger's rule on a gated call's records, over each episode's live
+    steps (up to its failing step): a dangerous recorded state (q rebuilt
+    from the features, xy = 0) is an MPC step; the MPC hands back only after
+    at least ``n_block`` steps in control; it takes over only on a dangerous
+    step. Returns (rule holds, takeovers, releases)."""
+    feat = res.states
+    q = torch.cat([torch.zeros_like(feat[..., :2]), feat[..., 26:]], -1)
+    danger = rollout.state_is_dangerous(q).cpu().numpy()
+    usage = res.mpc_usage.cpu().numpy() > 0
+    fail_step = res.fail_step.cpu().numpy()
+    ok, takeovers, releases = True, 0, 0
+    for b in range(usage.shape[0]):
+        n = min(int(fail_step[b]) + 1, usage.shape[1])
+        u, d = usage[b, :n], danger[b, :n]
+        ok &= bool(u[d].all())
+        prev = np.concatenate([[False], u[:-1]])
+        on = np.nonzero(u & ~prev)[0]
+        off = np.nonzero(~u & prev)[0]
+        ok &= bool(d[on].all())
+        for t in off:  # the run of MPC steps that ends at t
+            start = on[on < t].max()
+            ok &= bool(t - start >= n_block)
+        takeovers, releases = takeovers + len(on), releases + len(off)
+    return ok, takeovers, releases
+
+
+def policy_rows_diff(torch, res, current, other):
+    """Largest |action - policy(features, goal)| over the live steps on
+    which the policy acted, for the policy ``current`` and for ``other``;
+    and the number of such steps."""
+    steps = torch.arange(res.states.shape[1], device=res.states.device)
+    sel = (steps[None] < res.fail_step[:, None]) & (res.mpc_usage == 0)
+    s, g, a = res.states[sel], res.vc_goals[sel], res.actions[sel]
+    if not len(s):
+        return 0.0, 0.0, 0
+    with torch.no_grad():
+        return (float((current(s, g) - a).abs().max()), float((other(s, g) - a).abs().max()),
+                int(len(s)))
+
+
+def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
+    """Phase 9: the DAgger family on the port's entry points, on the closed
+    loop of phases 7b and 8. 9a ``SafeDagger.run`` (the warmup: 8 benchmark
+    and 80 perturbed expert episodes and BC; one iteration: 8 benchmark, 16
+    gated and 16 ending episodes and BC), 9b one ``rollout_dagger`` call of
+    9a's policy on 9a's gated starts and its aggregation by a ``Dagger``
+    driver on 9a's database, 9c one ``LocoSafeDagger`` iteration on 9a's
+    database and policy, 9d the first window of ``rollout_safedagger`` at
+    B=64 from 9a's perturbed starts, the kernels against the plain path in
+    f64. Every driver starts from ``start``'s first episode, phase 7a's 500
+    ms settled start (``settle_ms=0``: the drivers' own settle is the same
+    PD hold). Returns each call's launch counts (9a-9c)."""
+    import copy
+
+    from bunmpc_tpu_torch.learning import bc as BC
+    from bunmpc_tpu_torch.learning import dagger as D
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.sim import physics, rollout
+
+    # the drivers' defaults (8 rollouts an iteration, 2 perturbations, 1 a
+    # warmup replanning point, 1000 ms ending rollouts, the velocity ranges
+    # and sigmas), safedagger.yaml's 150 blocked steps, bc.yaml's widths;
+    # cut: 1 of 10 iterations, 600 of 5000 steps, 5 of 150 and 50 epochs
+    cfg = D.DaggerConfig(episode_length=600, n_iterations=1, num_steps_to_block=150,
+                         warmup_bc_epochs=5, bc=BC.BcConfig(n_epoch=5), settle_ms=0)
+    q0, v0 = start.q[0], start.v[0]
+    calls, solves, aggs = [], [], []
+    names = ("rollout_mpc", "rollout_safedagger", "rollout_dagger", "rollout_policy")
+    originals = {n: getattr(rollout, n) for n in names}
+    solve_batch = KD.solve_mpc_batch
+    phase = ["9a"]
+
+    def spy(name):
+        def fn(*a, **k):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = originals[name](*a, **k)
+            torch.cuda.synchronize()
+            after = counts()
+            calls.append(dict(name=name, phase=phase[0], wall=time.perf_counter() - t0,
+                              launches={n: after[n] - before[n] for n in after}, res=res,
+                              args=a, kwargs=k))
+            return res
+        return fn
+
+    def timed_solve(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plan = solve_batch(*a, **k)
+        e1.record()
+        solves.append((len(calls), e0, e1))
+        return plan
+
+    def spy_aggregate(drv):
+        inner = drv._aggregate
+
+        def fn(res, expert_only=True, keep=None, skip_failed=None):
+            before = len(drv.database)
+            added = inner(res, expert_only=expert_only, keep=keep, skip_failed=skip_failed)
+            aggs.append(dict(phase=phase[0], res=res, expert_only=expert_only, keep=keep,
+                             skip_failed=drv.cfg.skip_failed_episodes if skip_failed is None
+                             else skip_failed, added=added, before=before, db=drv.database))
+            return added
+        drv._aggregate = fn
+
+    for n in names:
+        setattr(rollout, n, spy(n))
+    KD.solve_mpc_batch = timed_solve
+    try:
+        zero_counts()
+        t9 = time.perf_counter()
+        # ---- 9a. SafeDagger.run: warmup and one iteration ----
+        drv = D.SafeDagger(spec, cfg, sim_params=sim, seed=0)
+        spy_aggregate(drv)
+        warm = []
+        logs = drv.run(q0, v0, eval_hook=lambda d: warm.append(d.policy) or {})
+        t9a = time.perf_counter() - t9
+        # ---- 9b. rollout_dagger of 9a's policy on 9a's gated starts ----
+        phase[0] = "9b"
+        gated = next(c for c in calls if c["name"] == "rollout_safedagger")
+        a, k = gated["args"], gated["kwargs"]
+        starts = D.Starts(a[3].q, a[3].v, k["start_time"], a[4], a[5])
+        dag = D.Dagger(spec, cfg, sim_params=sim, seed=1)
+        dag.database, dag.policy = drv.database, drv.policy
+        spy_aggregate(dag)
+        g_state = dag.generator.get_state()
+        dag_added = dag._aggregate(dag._gated(starts))
+        # ---- 9c. one LocoSafeDagger iteration on 9a's database and policy ----
+        phase[0] = "9c"
+        loco = D.LocoSafeDagger(spec, cfg, sim_params=sim, seed=2, grid_n=30)
+        loco.database, loco.policy, loco._params = drv.database, drv.policy, drv._params
+        spy_aggregate(loco)
+        entry = loco.iteration(0, drv._settle(q0, v0))
+        t9c = time.perf_counter() - t9
+        launches = counts()
+    finally:
+        for n in names:
+            setattr(rollout, n, originals[n])
+        KD.solve_mpc_batch = solve_batch
+
+    # ---- per call: launches, records, times ----
+    ok_launch, ok_records = True, True
+    for i, c in enumerate(calls):
+        res = c["res"]
+        B_, T_ = res.states.shape[:2]
+        nw = T_ // 50
+        mpc = c["name"] != "rollout_policy"
+        want = {"admm": nw if mpc else 0, "ddp": nw if mpc else 0, "fused": 0}
+        finite, frozen = finite_and_frozen(torch, res)
+        ev = [(e0, e1) for j, e0, e1 in solves if j == i]
+        solve_ms = [e0.elapsed_time(e1) for e0, e1 in ev]
+        window_ms = [ev[w][0].elapsed_time(ev[w + 1][0]) for w in range(len(ev) - 1)]
+        sub_ms = [w - s_ for w, s_ in zip(window_ms, solve_ms)]
+        times = (f"window / solve / substeps ms {np.mean(window_ms):.1f} / {np.mean(solve_ms):.1f}"
+                 f" / {np.mean(sub_ms):.1f}" if len(ev) > 1 else
+                 f"substep ms {1e3 * c['wall'] / T_:.3f}")
+        c["summary"] = dict(call=c["name"], phase=c["phase"], batch=B_, steps=T_,
+                            wall_s=round(c["wall"], 3),
+                            env_steps_per_sec=round(B_ * T_ / c["wall"], 1),
+                            survival=float(1 - res.failed.float().mean()),
+                            mpc_usage=float(res.mpc_usage.float().mean()),
+                            launches=c["launches"])
+        log(f"[{c['phase']}] {c['name']}: {B_} episodes x {T_} steps in {c['wall']:.2f} s "
+            f"({B_ * T_ / c['wall']:.1f} env-steps/s), {times}; survival "
+            f"{c['summary']['survival']:.4f}, mpc_usage {c['summary']['mpc_usage']:.4f}; "
+            f"launches {c['launches']} (expected {want}); live records finite {finite}, "
+            f"failed episodes frozen {frozen}")
+        ok_launch &= c["launches"] == want
+        ok_records &= finite and frozen
+
+    # ---- aggregation: rows added and the database against the rule ----
+    db = drv.database
+    ok_agg, expected_total = True, 0
+    for g in aggs:
+        rows_ = aggregate_rows(g["res"], g["expert_only"], g["keep"], g["skip_failed"],
+                               D._IterativeDriver.PREFIX_MARGIN)
+        n_rows = sum(len(s) for _, s in rows_)
+        expected_total += n_rows
+        span = slice(g["before"], g["before"] + n_rows)
+        same = all(np.array_equal(
+            getattr(g["db"], f)[span],
+            np.concatenate([getattr(g["res"], f)[b][s] for b, s in rows_]) if rows_ else
+            np.zeros((0, getattr(g["res"], f).shape[-1]), np.float32))
+            for f in ("states", "actions", "vc_goals"))
+        ok_agg &= g["added"] == n_rows and same
+        log(f"[{g['phase']}] aggregate (expert_only {g['expert_only']}, keep "
+            f"{'all' if g['keep'] is None else int(np.sum(g['keep']))}, skip_failed "
+            f"{g['skip_failed']}): rows added {g['added']}, by the rule {n_rows}; the database's "
+            f"rows are the rule's {same}")
+    ok_agg &= len(db) == expected_total
+    log(f"[9] database {len(db)} rows, the rule's total {expected_total}")
+
+    # ---- SafeDAgger's rule, DAgger's coins, the policy's weights ----
+    rule_ok, takeovers, releases = safedagger_rule(torch, rollout, gated["res"],
+                                                   cfg.num_steps_to_block)
+    log(f"[9a] SafeDAgger rule on the gated records: holds {rule_ok} ({takeovers} takeovers, "
+        f"{releases} releases, num_steps_to_block {cfg.num_steps_to_block})")
+    res_dag = next(c for c in calls if c["name"] == "rollout_dagger")["res"]
+    gen = torch.Generator(device=dag.device)
+    gen.set_state(g_state)
+    coins = rollout.dagger_coins(gen, res_dag.states.shape[0], res_dag.states.shape[1] // 50,
+                                 cfg.mpc_usage_percentage)
+    usage = res_dag.mpc_usage.reshape(coins.shape + (50,))
+    coins_ok = bool((usage == coins[..., None].to(usage.dtype)).all())
+    log(f"[9b] DAgger: usage constant within each window and equal to the coins {coins_ok} "
+        f"(coins mean {float(coins.float().mean()):.3f}); rows added {dag_added}")
+    d9a = policy_rows_diff(torch, gated["res"], gated["args"][6], warm[0])
+    d9b = policy_rows_diff(torch, res_dag, drv.policy, warm[0])
+    pol_call = next(c for c in calls if c["name"] == "rollout_policy")
+    d9c = policy_rows_diff(torch, pol_call["res"], pol_call["args"][6], warm[0])
+    stale_tol = 1e-4
+    log(f"[9] policy steps: recorded action vs the current policy |d| max 9a {d9a[0]:.3e} "
+        f"({d9a[2]} steps), 9b {d9b[0]:.3e} ({d9b[2]}), 9c {d9c[0]:.3e} ({d9c[2]}) (< "
+        f"{stale_tol:.0e}); vs the warmup policy 9b {d9b[1]:.3e}, 9c {d9c[1]:.3e} (> "
+        f"{100 * stale_tol:.0e})")
+
+    # ---- 9c: the posterior and the choice ----
+    post = loco.posterior
+    v_des, w_des = np.array([entry["goal"][0], entry["goal"][1], 0.0]), entry["goal"][2]
+    mpc_call = [c for c in calls if c["phase"] == "9c" and c["name"] == "rollout_mpc"][0]
+    errs = [D.weighted_vc_error(c["res"].states.cpu().numpy(), c["res"].fail_step.cpu().numpy(),
+                                c["res"].failed.cpu().numpy(), v_des, w_des)
+            for c in (mpc_call, pol_call)]
+    choice = "mpc" if errs[0] < errs[1] else "policy"
+    log(f"[9c] goal {np.round(entry['goal'], 4).tolist()}: e_mpc {entry['e_mpc']:.6g}, e_policy "
+        f"{entry['e_policy']:.6g} (recomputed {errs[0]:.6g}, {errs[1]:.6g}); aggregated "
+        f"{entry['aggregated']} (the smaller: {choice}); posterior sum {post.sum():.12f}, "
+        f"entropy {entry['posterior_entropy']:.4f} (< log(30^3) = {np.log(30 ** 3):.4f})")
+    losses = [v for e in logs[1:] + [entry] for key, v in e.items() if "loss" in key]
+    log(f"[9a] logs {json.dumps(logs[1:], default=float)}")
+    log(f"[9c] log {json.dumps(entry, default=float)}")
+    log(f"[9] 9a {t9a:.1f} s, 9a-9c {t9c:.1f} s; launches {launches}")
+
+    # ---- 9d. the first gated window at B=64: the kernels against the plain path in f64 ----
+    pert = [c for c in calls if c["phase"] == "9a" and c["name"] == "rollout_mpc"][1]
+    n = 64
+    a, k = pert["args"], pert["kwargs"]
+    sub = (a[3].q[:n], a[3].v[:n], a[4][:n], a[5][:n], k["start_time"][:n])
+    wcfg = dataclasses.replace(drv.rcfg, episode_length=50)
+
+    def policy_in(dtype):
+        p = drv.policy
+        return type(p)(copy.deepcopy(p.module).to(dtype), *(
+            t.to(dtype) for t in (p.state_mean, p.state_std, p.goal_mean, p.goal_std)))
+
+    plans = []
+
+    def gated_window(dtype, **kw):
+        """One window; its plan (the window's one solve) goes to ``plans``."""
+        q, v, vd, wd, st = (t.to(dtype) for t in sub)
+        KD.solve_mpc_batch = lambda *a, **k: plans.append(solve_batch(*a, **k)) or plans[-1]
+        try:
+            return rollout.rollout_safedagger(spec, sim, wcfg, physics.SimState(q, v), vd, wd,
+                                              policy_in(dtype), num_steps_to_block=150,
+                                              start_time=st, **kw)
+        finally:
+            KD.solve_mpc_batch = solve_batch
+
+    t0 = time.perf_counter()
+    zero_counts()
+    win = gated_window(torch.float32)
+    torch.cuda.synchronize()
+    win_launches = counts()
+    plain = {dt: gated_window(dt, admm_backend="torch", ik_backend="torch")
+             for dt in (torch.float64, torch.float32)}
+    torch.cuda.synchronize()
+    ref = plain[torch.float64]
+    agree = (win.mpc_usage == ref.mpc_usage).all(1)
+    agree32 = (plain[torch.float32].mpc_usage == ref.mpc_usage).all(1)
+
+    def end_diff(res, mask):
+        if not bool(mask.any()):
+            return 0.0, 0.0
+        return (float((res.final_state.q.double() - ref.final_state.q)[mask].abs().max()),
+                float((res.final_state.v.double() - ref.final_state.v)[mask].abs().max()))
+
+    dq, dv = end_diff(win, agree)
+    sq, sv = end_diff(plain[torch.float32], agree32)
+    q_tol, v_tol = max(GATED_Q_TOL, 10 * sq), max(GATED_V_TOL, 10 * sv)
+    u = ref.mpc_usage > 0
+    classes = {"MPC": u.all(1), "policy": (~u).all(1), "switching": u.any(1) & (~u).any(1)}
+    by_class = {name: end_diff(win, agree & m) + (int((agree & m).sum()),)
+                for name, m in classes.items()}
+    n_dis = int((~agree).sum())
+    log(f"[9d] one gated window at B={n} ({time.perf_counter() - t0:.1f} s): launches "
+        f"{win_launches}; usage sequences agree with f64 in {int(agree.sum())} episodes, "
+        f"disagree in {n_dis} (<= {int(0.05 * n)}); end-of-window q |d| {dq:.3e} (< {q_tol:.1e}),"
+        f" v |d| {dv:.3e} (< {v_tol:.1e}) against the plain path in f64; by class (q, v, "
+        f"episodes) {by_class}; the plain path's own f32 spread here q {sq:.3e}, v {sv:.3e} "
+        f"(CPU test: q {GATED_SPREAD[0]:.3e}, v {GATED_SPREAD[1]:.3e})")
+    # the window's plan (K1, K2 at the starts) against the plain path in f64,
+    # per episode the largest |d| of xs_int over the window: at these
+    # perturbed starts a third of the problems are so ill-conditioned that
+    # f32 alone moves the plan past phase 7a's max gate, so the kernels are
+    # held to the plain path's own f32 run beside them: a median within 10x
+    # its median, and no more than 5% more episodes past 5e-2
+    ref_xs = plans[1].xs_int[:, :50]
+    per_ep = {name: (p.xs_int[:, :50].double() - ref_xs).abs().flatten(1).amax(1).cpu().numpy()
+              for name, p in (("kernels", plans[0]), ("plain f32", plans[2]))}
+    log("[9d] the window's plan vs the plain path in f64, per-episode max |d xs_int| "
+        "(median / q0.9 / max; episodes over 7a's max gate 5e-2): " + "; ".join(
+            f"{name} {np.median(d):.3e} / {np.quantile(d, 0.9):.3e} / {d.max():.3e}; "
+            f"{int((d > 5e-2).sum())}" for name, d in per_ep.items()))
+    plan_med_tol = max(5e-3, 10 * float(np.median(per_ep["plain f32"])))
+    plan_far = [int((d > 5e-2).sum()) for d in per_ep.values()]
+    log(f"[9d] gates: the kernels' median < {plan_med_tol:.1e}, episodes past 5e-2 <= "
+        f"{plan_far[1]} + {int(0.05 * n)}")
+
+    log(json.dumps({"metric": "dagger_family", "calls": [c["summary"] for c in calls],
+                    "phase_9a_s": round(t9a, 3), "phase_9a_to_9c_s": round(t9c, 3),
+                    "database_rows": len(db), "goal": entry["goal"], "e_mpc": entry["e_mpc"],
+                    "e_policy": entry["e_policy"], "card": card}, default=float))
+
+    # ---- gates ----
+    check(ok_launch, "a phase-9 call did not launch K1 and K2 once per window (K3 never; "
+                     "none in the policy rollout)")
+    check(launches == {n_: sum(c["launches"][n_] for c in calls) for n_ in launches},
+          "phase-9 launch counts do not add up")
+    check(ok_records, "phase-9 records of live episodes not finite, or failed ones not frozen")
+    check(ok_agg, "phase-9 aggregation disagrees with the rule")
+    check(rule_ok, "the gated records break SafeDAgger's rule")
+    check(coins_ok, "DAgger's usage is not its coins")
+    check(max(d9a[0], d9b[0], d9c[0]) < stale_tol, "a rollout did not run the current policy")
+    check(d9b[2] > 0 and d9b[1] > 100 * stale_tol,
+          "the check cannot tell the warmup policy from the current one")
+    check(abs(post.sum() - 1.0) < 1e-9 and entry["posterior_entropy"] < np.log(30 ** 3),
+          "the posterior is not normalised or did not concentrate")
+    check(entry["aggregated"] == choice and errs == [entry["e_mpc"], entry["e_policy"]],
+          "LocoSafeDagger did not aggregate the rollout with the smaller error")
+    check(all(np.isfinite(losses)), "phase-9 losses not finite")
+    check(win_launches == {"admm": 1, "ddp": 1, "fused": 0}, "9d: one window, K1 and K2 once")
+    check(n_dis <= 0.05 * n, f"9d: {n_dis} usage sequences disagree with f64")
+    check(dq < q_tol and dv < v_tol, "9d: end-of-window state disagrees with the plain path")
+    check(float(np.median(per_ep["kernels"])) < plan_med_tol and
+          plan_far[0] <= plan_far[1] + 0.05 * n, "9d: the window's plan disagrees")
+    return [c["launches"] for c in calls]
 
 
 def main_path_stage_ms(torch, spec, inputs, admm_cfg):
@@ -892,6 +1276,11 @@ def main():
     dc_launches = learning_loop(torch, loop_spec, sim, start, cmd, zero_counts, counts, card)
     log(f"[8] learning loop {time.time() - t0:.1f} s")
 
+    # ---- 9. the DAgger family: SafeDagger, rollout_dagger, LocoSafeDagger ----
+    t0 = time.time()
+    dagger_launches = dagger_family(torch, loop_spec, sim, start, zero_counts, counts, card)
+    log(f"[9] DAgger family {time.time() - t0:.1f} s")
+
     # ---- 7. the kernels line ----
     zero_counts()
     solve()
@@ -935,17 +1324,20 @@ def main():
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:589", "launches": main_launches["admm"],
          "closed_loop_launches": loop_launches["admm"],
          "data_collection_launches": dc_launches["admm"],
+         "dagger_launches": [c["admm"] for c in dagger_launches],
          "max_abs_err": k1_err, "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 4),
          "bound_ms": round(k1_bound, 6), "bound_by": k1_by, "library_ms": None},
         {"name": "ddp", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/ddp.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046", "launches": main_launches["ddp"],
          "closed_loop_launches": loop_launches["ddp"],
          "data_collection_launches": dc_launches["ddp"],
+         "dagger_launches": [c["ddp"] for c in dagger_launches],
          "max_abs_err": k2_err, "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4),
          "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None},
         {"name": "fused", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/fused.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:1028",
          "launches": fused_launches["fused"], "data_collection_launches": dc_launches["fused"],
+         "dagger_launches": [c["fused"] for c in dagger_launches],
          "max_abs_err": k3_err, "ms": round(k3_ms, 4),
          "plain_ms": round(k3_plain_ms, 4), "bound_ms": round(k3_bound, 6), "bound_by": k3_by,
          "library_ms": None},

@@ -16,7 +16,9 @@ and K2 at IK H=20 (fewer problems a block) with the same gates; the closed
 loop launches K1 and K2 once a window and gives 37 episodes the records of
 the same episodes inside a batch of 64, bit for bit; the policy rollouts
 (vc and cc goals) launch no MPC kernel and end within 10x the CPU's f32
-distance to the JAX package's f64 fixture."""
+distance to the JAX package's f64 fixture; the gated rollouts (SafeDAgger,
+DAgger) launch K1 and K2 once a window and keep the gate of the JAX
+package's f64 fixture."""
 
 import pytest
 import torch
@@ -261,3 +263,65 @@ def test_policy_rollout_on_the_card_matches_the_jax_fixture(device, variant):
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(res.final_state.v.double().cpu().numpy(), ref[f"{variant}/final_v"],
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["safedagger", "dagger"])
+def test_gated_rollouts_on_the_card_match_the_jax_fixture(device, variant, monkeypatch):
+    """The gated rollouts of tests/fixtures/torch_gated_rollout_solo12_trot_sim.npz
+    (three episodes with their own start times, 100 steps, the JAX
+    package's window clocks) on the card in f32, each substep a graph replay
+    with the policy and the gate inside: K1 and K2 launch once a window, the
+    gate's record is the fixture's, and the end state lies within 10x the
+    CPU's own f32 distance to the fixture (q 1.1e-5, v 4.3e-4). SafeDAgger's
+    tilted episode 0 is chaotic (in f32 its release moves by a step on the
+    CPU too): it must take over at step 0 and hand back, and agree with the
+    fixture's gate on all but 3 steps."""
+    import numpy as np
+
+    import torch_dagger_reference as REF
+    import torch_learning_reference as POLICY_REF
+    from bunmpc_tpu_torch import convert, workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    ref = dict(np.load(REF.FIXTURE))
+    pol = dict(np.load(POLICY_REF.FIXTURE))
+    f32 = torch.float32
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0())
+    bundle = convert.policy_bundle_from_flax(
+        POLICY_REF.unflat_params(pol, "vc/params"), pol["state_mean"], pol["state_std"],
+        pol["vc/goal_mean"], pol["vc/goal_std"], device=device, dtype=f32)
+    q0 = ref["q_tilt"] if variant == "safedagger" else np.tile(ref["q0"], (REF.B, 1))
+    cfg = rollout.RolloutConfig(episode_length=REF.T, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=f32, device=device)
+
+    monkeypatch.setattr(KD, "window_clock", lambda st, w, pf, like: t(ref["jax_clocks"][:, w]))
+    args = (spec, workload.closed_loop_sim_params(), cfg,
+            physics.SimState(t(q0), t(np.tile(ref["v0"], (REF.B, 1)))), t(ref["v_des"]),
+            t(ref["w_des"]), bundle)
+    kernels = (cuda_admm.KERNEL, cuda_ddp.KERNEL, cuda_fused.KERNEL)
+    before = [k.launches for k in kernels]
+    if variant == "safedagger":
+        res = rollout.rollout_safedagger(*args, num_steps_to_block=REF.NUM_STEPS_TO_BLOCK,
+                                         start_time=t(ref["start_times"]))
+    else:
+        res = rollout.rollout_dagger(*args, coins=torch.as_tensor(ref["dagger/coins"]),
+                                     start_time=t(ref["start_times"]))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 0]
+    assert torch.isfinite(res.states).all() and not res.failed.any()
+    usage, want = res.mpc_usage.cpu().numpy(), ref[f"{variant}/mpc_usage"]
+    calm = [1, 2] if variant == "safedagger" else [0, 1, 2]
+    np.testing.assert_array_equal(usage[calm], want[calm])
+    if variant == "safedagger":
+        assert usage[0, 0] == 1 and usage[0, -1] == 0 and (usage[0] != want[0]).sum() <= 3
+    np.testing.assert_allclose(res.final_state.q[calm].double().cpu().numpy(),
+                               ref[f"{variant}/final_q"][calm], atol=1.1e-4, rtol=0)
+    np.testing.assert_allclose(res.final_state.v[calm].double().cpu().numpy(),
+                               ref[f"{variant}/final_v"][calm], atol=4.3e-3, rtol=0)

@@ -49,12 +49,21 @@ def test_no_jax_or_jax_package_imports():
     for sub in ("physics.py", "controllers.py", "rollout.py"):  # the closed loop is scanned
         assert os.path.join(PKG, "sim", sub) in files
     for sub in ("goals.py", "database.py", "networks.py", "bc.py", "perturbations.py",
-                "contact_planner.py", "data_collection.py"):  # and the learning substrate
+                "contact_planner.py", "data_collection.py",  # the learning substrate
+                "dagger.py", "bayes.py", "gp_bo.py"):  # and the DAgger family
         assert os.path.join(PKG, "learning", sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "bunmpc_tpu"), f"{path} imports {mod}"
+
+
+def test_scipy_only_in_gp_bo():
+    """The port imports torch and numpy; scipy only for the GP's L-BFGS-B
+    acquisition search (``learning/gp_bo.py``)."""
+    users = {os.path.relpath(path, REPO) for path in _port_files()
+             if any(m.split(".")[0] == "scipy" for m in _imported_modules(path))}
+    assert users == {os.path.join("bunmpc_tpu_torch", "learning", "gp_bo.py")}
 
 
 def test_robot_asset_is_byte_identical():

@@ -180,7 +180,6 @@ def _later_kwargs():
         "terrain": dict(terrain=object()),
         "q_noise": dict(q_noise=torch.zeros(19, dtype=F64)),
         "v_noise": dict(v_noise=torch.zeros(18, dtype=F64)),
-        "per-episode start_time": dict(start_time=torch.zeros(2, dtype=F64)),
     }
 
 

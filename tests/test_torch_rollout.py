@@ -203,7 +203,6 @@ def test_one_window_f32_spread_is_inside_the_card_gate(spec):
 
 
 def _later_kwargs():
-    z = torch.zeros(2, 3, dtype=F64)
     return {
         "push_force": dict(push_force=torch.zeros(100, 3, dtype=F64)),
         "terrain": dict(terrain=object()),
@@ -217,7 +216,6 @@ def _later_kwargs():
             joint_damping=torch.full((2,), 0.02, dtype=F64))),
         "per-episode contact": dict(sim_params=physics.SimParams(contact=physics.ContactParams(
             kn=torch.full((2,), 1e4, dtype=F64)))),
-        "per-episode start_time": dict(start_time=z[:, 0]),
     }
 
 
