@@ -74,11 +74,13 @@ def construct_contact_schedule(new_contact_pos: np.ndarray, n_eff: int):
 
 
 def ee_contact_index(time, ee_schedule_times):
-    """Index of the next contact switch (utils.py:86-102)."""
-    for sw in range(len(ee_schedule_times) - 1):
-        if ee_schedule_times[sw] <= time < ee_schedule_times[sw + 1]:
-            return sw + 1
-    return 0
+    """Index of the next contact switch (utils.py:86-102): one past the
+    first ``sw`` with ``times[sw] <= time < times[sw + 1]``, 0 where there is
+    none. ``time`` may be an array of steps."""
+    times = np.asarray(ee_schedule_times)
+    t = np.asarray(time)[..., None]
+    hit = (times[:-1] <= t) & (t < times[1:])
+    return np.where(hit.any(-1), hit.argmax(-1) + 1, 0)
 
 
 def construct_cc_goal(
@@ -92,23 +94,24 @@ def construct_cc_goal(
 ):
     """Contact-conditioned goal [time-to-contact, dx, dy] per foot per horizon
     slot (utils.py:36-84). Note the reference overrides sim_dt=1.0 inside
-    base_wrt_goal so 'time' is in steps — preserved."""
+    base_wrt_goal so 'time' is in steps — preserved. All steps of a foot at
+    once: the JAX package's per-step loop, element for element."""
     end_time = episode_length
     for ee in range(n_eff):
         end_time = int(min(end_time, np.max(contact_schedule[ee, :, 0])))
     if end_time <= start_step:
         return np.zeros((0, 3 * n_eff * goal_horizon))
 
-    goal = np.zeros((end_time - start_step, 3 * n_eff * goal_horizon))
-    for t in range(start_step, end_time):
+    ts = np.arange(start_step, end_time)
+    goal = np.zeros((len(ts), 3 * n_eff * goal_horizon))
+    last = contact_schedule.shape[1] - 1
+    for ee in range(n_eff):
+        nxt = ee_contact_index(ts, contact_schedule[ee, :, 0])
         for gh in range(goal_horizon):
-            for ee in range(n_eff):
-                idx = ee_contact_index(t, contact_schedule[ee, :, 0]) + gh
-                idx = min(idx, contact_schedule.shape[1] - 1)
-                sched = contact_schedule[ee, idx]
-                col = 3 * n_eff * gh + 3 * ee
-                goal[t - start_step, col] = sched[0] - t  # steps to contact
-                goal[t - start_step, col + 1 : col + 3] = com[t - start_step, :2] - sched[1:3]
+            sched = contact_schedule[ee, np.minimum(nxt + gh, last)]  # (steps, 4)
+            col = 3 * n_eff * gh + 3 * ee
+            goal[:, col] = sched[:, 0] - ts  # steps to contact
+            goal[:, col + 1 : col + 3] = com[: len(ts), :2] - sched[:, 1:3]
     return goal
 
 

@@ -176,11 +176,9 @@ def _later(name: str, item: str):
     raise NotImplementedError(f"{name} waits for a later slice (ROADMAP, queue 1, {item})")
 
 
-def _refuse_later(push_force, terrain, q_noise, v_noise):
+def _refuse_later(terrain, q_noise, v_noise):
     """The options that both the MPC and the policy rollouts take and that
     wait for a later slice."""
-    if push_force is not None:
-        _later("push_force", "item 3")
     if terrain is not None:
         _later("terrain", "item 8")
     if q_noise is not None or v_noise is not None:
@@ -221,6 +219,29 @@ def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, prev, n_shift: int):
         torch.where(h4, shF, torch.zeros_like(shF)),
         torch.where(h3, shP, torch.zeros_like(shP)),
     )
+
+
+def _push(push_force, B: int, T: int, like: torch.Tensor):
+    """``push_force`` as the substeps read it: None, or a (B, T, 3) tensor in
+    ``like``'s dtype and device (a (T, 3) push, one for the batch, is
+    expanded). Row ``k`` is the external world-frame force on the base at
+    episode step ``k``; at least the ``T`` steps the rollout runs."""
+    if push_force is None:
+        return None
+    p = torch.as_tensor(push_force, dtype=like.dtype, device=like.device)
+    if p.dim() == 2:
+        p = p.expand(B, -1, -1)
+    if p.dim() != 3 or p.shape[0] != B or p.shape[1] < T or p.shape[2] != 3:
+        raise ValueError(f"push_force: a (T, 3) or ({B}, T, 3) tensor with T >= {T}, got shape "
+                         f"{tuple(torch.as_tensor(push_force).shape)}")
+    return p
+
+
+def _push_at(push, k):
+    """The push of every episode at the device step ``k`` (B, 3), or None:
+    read through the step counter, so a substep captured in a CUDA graph
+    replays the push of its own step."""
+    return None if push is None else push.index_select(1, k.view(1))[:, 0]
 
 
 def _start_time(start_time, B: int, like: torch.Tensor):
@@ -289,12 +310,15 @@ def rollout_mpc(
     would be an algorithm neither package runs.
 
     ``gains`` overrides the controller's PD gains with one (kp, kd) for the
-    batch. ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8),
+    batch. ``push_force`` pushes the base: a (T, 3) world-frame force per
+    episode step for the whole batch, or (B, T, 3) per episode (the JAX
+    package's ``vmap`` over a (T, 3) push); each substep adds its step's row
+    to the physics step as ``f_ext``. ``terrain`` (ROADMAP queue 1, item 8),
     ``q_noise``/``v_noise``, ``swing_blend``, ``force_gate`` and per-episode
     gains or simulator parameters (item 6) wait for a later slice and raise
     ``NotImplementedError``.
     """
-    _refuse_later(push_force, terrain, q_noise, v_noise)
+    _refuse_later(terrain, q_noise, v_noise)
     if swing_blend is not None or force_gate is not None:
         _later("swing_blend/force_gate", "item 6")
     if gains is not None and (torch.is_tensor(gains.kp) or torch.is_tensor(gains.kd)):
@@ -319,8 +343,9 @@ def rollout_mpc(
     w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
     start_time = _start_time(start_time, B, q)
     b = _make_buffers(spec, cfg, q, v)
+    push = _push(push_force, B, b.states.shape[1], q)
     substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des,
-                       _step0(start_time, cfg, q), b)
+                       _step0(start_time, cfg, q), push, b)
     _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry,
              admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
     return _result(b, torch.ones((B, b.states.shape[1]), dtype=dtype, device=device))
@@ -491,13 +516,14 @@ def _plan_torques(spec, sim_params, gains, b: _Buffers, qm, vm):
     return torch.clamp(tau_ff + tau_fb, -lim, lim), tau_ff, q_des, v_des_traj
 
 
-def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, b: _Buffers):
+def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, push, b: _Buffers):
     model, eff = spec.model, spec.eff_frames
     qm, vm = _measure(b.q, b.v)
     kin = K.body_velocities(model, qm, vm)
     fk = (kin[2], kin[3])
     tau, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, gains, b, qm, vm)
-    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
+    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
+                              f_ext=_push_at(push, b.k), kin=kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
     records = (
         state_features(model, eff, qm, vm, fk=fk),
@@ -793,9 +819,10 @@ def rollout_policy(
     ``cfg.action_type`` (simulation.py:760-777), and no MPC runs. On the card
     each substep, the policy's forward pass included, is one CUDA-graph
     replay. ``vc_goals`` records the goal the policy saw (vc or cc).
-    ``push_force`` (ROADMAP queue 1, item 3), ``terrain`` (item 8) and
-    ``q_noise``/``v_noise`` (item 6) raise ``NotImplementedError``."""
-    _refuse_later(push_force, terrain, q_noise, v_noise)
+    ``push_force`` pushes the base as in ``rollout_mpc``. ``terrain``
+    (ROADMAP queue 1, item 8) and ``q_noise``/``v_noise`` (item 6) raise
+    ``NotImplementedError``."""
+    _refuse_later(terrain, q_noise, v_noise)
     q, v = _state_on_device(spec, state0)
     B, dtype, device = q.shape[0], q.dtype, q.device
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
@@ -823,7 +850,8 @@ def rollout_policy(
         vc_goals=empty(n_goal), base=empty(3), com=empty(3), contact_forces=empty(ne, 3),
         contact_pos=empty(ne, 3), in_contact=empty(ne, dt=torch.bool),
     )
-    substep = _Substep(_policy_substep, spec, sim_params, cfg, policy_fn, goal_fn, b)
+    substep = _Substep(_policy_substep, spec, sim_params, cfg, policy_fn, goal_fn,
+                       _push(push_force, B, T, q), b)
     for _ in range(T):
         substep()
     return RolloutResult(
@@ -853,7 +881,7 @@ class _PolicyBuffers(NamedTuple):
     in_contact: torch.Tensor
 
 
-def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, b: _PolicyBuffers):
+def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, push, b: _PolicyBuffers):
     model, eff = spec.model, spec.eff_frames
     qm, vm = _measure(b.q, b.v)
     kin = K.body_velocities(model, qm, vm)
@@ -862,7 +890,8 @@ def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, b: _PolicyBuffers
     goal = goal_fn(b.k, qm)
     action = policy_fn(feat, goal)
     tau = _decode_action(cfg, action, qm, vm)
-    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau, kin=kin)
+    new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
+                              f_ext=_push_at(push, b.k), kin=kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k)
     records = (feat, action, goal, qm[:, 0:3], K.com_from_fk(model, *fk), cinfo.forces,
                cinfo.positions, cinfo.in_contact)

@@ -1,7 +1,8 @@
 """The inputs the port is driven and measured with, made from a seed with
-numpy: bench.py's batch of Solo12 trot states, the random IK problems of
-the JAX package's own DDP kernel check (tests/test_pallas_ddp.py), and the
-closed loop's settled standing start and command draw."""
+numpy: bench.py's batch of Solo12 trot states (and, per gait, the same batch
+led by the gait's own check), the random IK problems of the JAX package's own
+DDP kernel check (tests/test_pallas_ddp.py), and the closed loop's settled
+standing start and command draw."""
 
 from __future__ import annotations
 
@@ -27,6 +28,27 @@ def trot_states(n: int, seed: int = 0):
     t = rng.uniform(0, 0.5, size=n)
     v_des = np.stack([rng.uniform(-0.3, 0.5, n), rng.uniform(-0.2, 0.2, n), np.zeros(n)], -1)
     w_des = rng.uniform(-0.3, 0.3, size=n)
+    return q, v, t, v_des, w_des
+
+
+# Each gait's command on its own check: the JAX package's where it solves the
+# gait (tests/test_mpc.py:177-221: walk at vx 0.15, air_bound at vx 0.2,
+# bound_turn at vx 0.2 and a yaw rate of 0.5); vx 0.2 elsewhere, with a yaw
+# rate of 0.3 on the trot's turning variant and no motion for the stand-still.
+GAIT_COMMANDS = {
+    "trot": (0.2, 0.0), "trot_sim": (0.2, 0.0), "trot_turn": (0.2, 0.3), "jump": (0.2, 0.0),
+    "bound": (0.2, 0.0), "bound_turn": (0.2, 0.5), "air_bound": (0.2, 0.0), "still": (0.0, 0.0),
+    "gallop": (0.2, 0.0), "walk": (0.15, 0.0),
+}
+
+
+def gait_states(name: str, n: int, seed: int = 0):
+    """``trot_states(n, seed)`` led by the gait's own check: problem 0 is
+    Solo12's q0 at rest at t=0 with ``GAIT_COMMANDS[name]``."""
+    q, v, t, v_des, w_des = trot_states(n, seed)
+    vx, w = GAIT_COMMANDS[name]
+    q[0], v[0], t[0], w_des[0] = Solo12Config.q0(), 0.0, 0.0, w
+    v_des[0] = (vx, 0.0, 0.0)
     return q, v, t, v_des, w_des
 
 

@@ -26,9 +26,15 @@ MPC). Then the DAgger family (phase 9): ``SafeDagger.run`` with one
 iteration, one ``rollout_dagger`` call, one ``LocoSafeDagger`` iteration (K1
 and K2 once per window of every MPC and gated call), gated on the gate's
 rule, the aggregation rule and the policy's weights on the records, and
-one gated window at B=64 against the plain path in f64. It checks every path's
-outputs, counts each kernel's launches in each path's run, times them, and
-prints one ``kernels`` JSON line, the card's name and power limit, and last
+one gated window at B=64 against the plain path in f64. Then phase 10: the
+main and the fused path on every Solo12 gait of ``GAITS`` (K1, K2 and K3 at
+horizons 6..30), and the eval suite (``bunmpc_tpu_torch.eval``: the MPC
+velocity grid, the policy comparison, the cc-replanning ablation, the
+max-force search with its exactness against an unpushed run, the past-goals
+matrix), K1 and K2 once per window of every MPC eval call. It checks every
+path's outputs, counts each kernel's launches in each path's run, times
+them, and prints one ``kernels`` JSON line, the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
 on a miss; without CUDA, or without the repository next to it, it exits
 non-zero and prints no result.
@@ -231,7 +237,8 @@ def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
     batch, K1 and K2 once per window), 8b BC at the bc.yaml widths on its
     database for 5 of its 150 epochs, 8c the trained policy with cc goals at
     the batch of ``start`` (no MPC), its first 50 steps against the CPU in
-    f64 on 64 episodes. Returns the launch counts of 8a."""
+    f64 on 64 episodes. Returns the launch counts of 8a and the cc policy
+    of 8b."""
     from bunmpc_tpu_torch.learning import bc as BC
     from bunmpc_tpu_torch.learning import data_collection as DCM
     from bunmpc_tpu_torch.learning import networks
@@ -400,7 +407,7 @@ def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
     check(finite, "policy rollout records of live episodes not finite")
     check(frozen, "failed policy episodes were not frozen")
     check(dq < q_tol and dv < v_tol, "the first 50 policy steps disagree")
-    return launches
+    return launches, bundle
 
 
 def aggregate_rows(res, expert_only, keep, skip_failed, margin):
@@ -480,7 +487,9 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
     B=64 from 9a's perturbed starts, the kernels against the plain path in
     f64. Every driver starts from ``start``'s first episode, phase 7a's 500
     ms settled start (``settle_ms=0``: the drivers' own settle is the same
-    PD hold). Returns each call's launch counts (9a-9c)."""
+    PD hold). Returns each call's launch counts (9a-9c) and 9a's policies,
+    ``{"warmup": (policy, rows), "final": (policy, rows)}`` with the rows of
+    the database each was trained on."""
     import copy
 
     from bunmpc_tpu_torch.learning import bc as BC
@@ -544,8 +553,9 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
         # ---- 9a. SafeDagger.run: warmup and one iteration ----
         drv = D.SafeDagger(spec, cfg, sim_params=sim, seed=0)
         spy_aggregate(drv)
-        warm = []
-        logs = drv.run(q0, v0, eval_hook=lambda d: warm.append(d.policy) or {})
+        warm, warm_rows = [], []
+        logs = drv.run(q0, v0, eval_hook=lambda d: warm.append(d.policy)
+                       or warm_rows.append(len(d.database)) or {})
         t9a = time.perf_counter() - t9
         # ---- 9b. rollout_dagger of 9a's policy on 9a's gated starts ----
         phase[0] = "9b"
@@ -765,7 +775,427 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
     check(dq < q_tol and dv < v_tol, "9d: end-of-window state disagrees with the plain path")
     check(float(np.median(per_ep["kernels"])) < plan_med_tol and
           plan_far[0] <= plan_far[1] + 0.05 * n, "9d: the window's plan disagrees")
-    return [c["launches"] for c in calls]
+    return [c["launches"] for c in calls], {"warmup": (warm[0], warm_rows[0]),
+                                            "final": (drv.policy, len(db))}
+
+
+def per_problem_max(a, b):
+    """Per-problem largest |a - b| over every other axis (numpy); inf where
+    either is not finite."""
+    d = (a.double() - b.double()).abs().flatten(1)
+    return d.nan_to_num(nan=float("inf")).amax(1).cpu().numpy()
+
+
+PLAN_FIELDS = ("xs_int", "us_int", "f_int", "X_opt", "F_opt", "xs", "us")
+
+
+def diverged(plan):
+    """The problems whose ADMM diverged: dyn_violation above 1e3 or not
+    finite (jump from mid-trot states, ROADMAP "Faults found")."""
+    return ~(plan.dyn_violation <= 1e3)
+
+
+def finite_rows(torch, plan):
+    """Per problem, whether every plan field is finite."""
+    return torch.stack([torch.isfinite(getattr(plan, f)).flatten(1).all(1)
+                        for f in PLAN_FIELDS]).all(0)
+
+
+def every_gait(torch, model, dev, zero_counts, counts, card):
+    """Phase 10a: the main path and the fused path on every Solo12 gait of
+    ``GAITS`` at B=512 on bench.py's draws, problem 0 the gait's own check
+    (``workload.gait_states``). Per gait: H and IK H, problems a block, both
+    paths' solves/s, K1, K2 and K3 ms, converged_frac; gates: launches per
+    path, finite plans, K3's contact plan against its plain prologue (phase
+    5b's plan gates), both paths against the plain path in f64 on 64
+    problems (phase 6's quantile gate, or where f32 alone moves the plan
+    past it, phase 9d's rule against the plain f32 run beside them; K3's
+    ADMM is held to the plain one there), and problem 0's dyn_violation
+    under the JAX package's bound. Where the ADMM
+    diverges (jump from mid-trot draws, in the JAX package too), f32
+    overflows: plans must be finite on every problem that did not diverge,
+    and the problems that diverged on the kernels must be those that diverge
+    on the plain path in f64 (of the 64, within 5%). Returns each gait's
+    launches per path."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+
+    n, ddp_cfg, m = 64, DdpConfig(), model.total_mass
+    bound0 = {"bound_turn": 1e-3, "air_bound": 1e-3, "walk": 1e-2}  # tests/test_mpc.py:177-221
+    launches, table, failures, fallback = {}, [], [], []
+    for name, g in GAITS.items():
+        t_gait = time.perf_counter()
+        spec = KD.make_cyclic_spec(model, g, Solo12Config.q0(), device=dev)
+        H, Hik = spec.horizon, spec.ik_hor
+        inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                       for a in workload.gait_states(name, B))
+        cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, x_solver="thomas", fista_max_iters=30)
+        row = {"gait": name, "H": H, "ik_H": Hik,
+               "per_block": {"k1_k3": cuda_admm.launch_per_block(H),
+                             "k2": cuda_ddp.launch_per_block(Hik)}}
+        plans, launches[name] = {}, {}
+        for path, fuse in (("main", False), ("fused", True)):
+            def solve():
+                return KD.solve_mpc_batch(spec, *inputs, admm_cfg=cfg, ddp_cfg=ddp_cfg,
+                                          admm_backend="cuda", ik_backend="cuda", fuse_prep=fuse)
+
+            zero_counts()
+            plans[path] = solve()
+            torch.cuda.synchronize()
+            launches[name][path] = counts()
+            reps = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+            row[f"{path}_solves_per_sec"] = round(B / float(np.median(reps)), 1)
+            p = plans[path]
+            row[f"{path}_converged_frac"] = float((p.dyn_violation < 1e-3).float().mean())
+            row[f"{path}_diverged"] = int(diverged(p).sum())
+            row[f"{path}_finite"] = bool((finite_rows(torch, p) | diverged(p)).all())
+        # the kernels alone, by CUDA events, on this gait's inputs
+        prob = KD._prepare_problem(spec, *inputs)
+        admm_in = (prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
+                   prob["X_wm"], prob["F_wm"], prob["x_bounds"])
+        X = cuda_admm.solve(*admm_in, cfg)[0]
+        tk, x0 = KD._build_ik_tasks(spec, prob, X)
+        ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
+        ddp_in = (model, spec.eff_frames, x0, tk.ee_targets, tk.com_ref, tk.mom_ref, xr, ws, wt,
+                  cw, tk.dts)
+        ci = KD._compact_inputs(spec, *inputs)
+        k3_in = (ci[1], ci[2], inputs[4], ci[3], ci[4], ci[5], ci[6], m, KD.make_prep_consts(spec))
+        row["ms"] = {k: round(cuda_ms(torch, fn, 3), 4) for k, fn in (
+            ("k1", lambda: cuda_admm.solve(*admm_in, cfg)),
+            ("k2", lambda: cuda_ddp.solve_ik_batch(*ddp_in)),
+            ("k3", lambda: cuda_fused.solve_from_state(*k3_in, cfg, H, spec.n_eff)))}
+        # K3's contact plan against its plain prologue (phase 5b's plan gates)
+        K = cuda_fused.solve_from_state(*k3_in, cfg, H, spec.n_eff)
+        pv = cuda_fused.prep_values(*k3_in[:7], pc=k3_in[8], m=m, H=H, ne=spec.n_eff)
+        flags = torch.equal(K[4], pv[0]) and torch.equal(K[7], pv[3] > 0.5)
+        dr, ddt = float((K[5] - pv[1]).abs().max()), float((K[6] - pv[2]).abs().max())
+        row["k3_plan"] = {"flags_equal": flags, "dr": dr, "ddt": ddt}
+        # both paths against the plain path in f64 on n problems: phase 6's
+        # quantile gate, or where f32 alone misses it, phase 9d's rule
+        # against the plain f32 run beside them (the plain versions' time is
+        # bound by their launches, ~3-6 s a call at n = 4..16, so n is
+        # phase 6's 64 problems)
+        sub = tuple(a[:n].double() for a in inputs)
+        plain = {}
+
+        def plain_path(dtype):
+            if dtype not in plain:
+                plain[dtype] = KD.solve_mpc_batch(
+                    spec, *(a.to(dtype) for a in sub), admm_cfg=cuda_admm.plain_config(cfg),
+                    ddp_cfg=ddp_cfg, admm_backend="torch", ik_backend="torch")
+            return plain[dtype]
+
+        ref = plain_path(torch.float64)
+        div_p = diverged(ref).cpu()
+        row["parity"], row["parity_gate"], quant = {}, {}, True
+        row["parity_diverged"] = {"plain_f64": div_p.nonzero().flatten().tolist()}
+        div_same = True
+        for path, plan in plans.items():
+            dk = {f: per_problem_max(getattr(plan, f)[:n], getattr(ref, f))
+                  for f in ("xs", "X_opt")}
+            allk = {f: np.nan_to_num((getattr(plan, f)[:n].double() - getattr(ref, f)).abs()
+                                     .flatten().cpu().numpy(), nan=np.inf) for f in dk}
+            div_k = diverged(plan)[:n].cpu()
+            row["parity_diverged"][path] = div_k.nonzero().flatten().tolist()
+            div_same &= int((div_k ^ div_p).sum()) <= int(0.05 * n)
+            ok = all(float(np.quantile(d, 0.999)) < 5e-3 and float(d.max()) < 5e-2
+                     for d in allk.values())
+            row["parity"][path] = {f: {"q999": float(np.quantile(allk[f], 0.999)),
+                                       "max": float(allk[f].max())} for f in allk}
+            row["parity_gate"][path] = "f64 quantile" if ok else "plain f32"
+            if not ok:
+                fallback.append(f"{name} {path}")
+                ref32 = plain_path(torch.float32)
+                dp = {f: per_problem_max(getattr(ref32, f), getattr(ref, f)) for f in dk}
+                row["parity"][path]["plain_f32_rule"] = {
+                    f: {"median_kernels": float(np.median(dk[f])),
+                        "median_plain_f32": float(np.median(dp[f])),
+                        "far_kernels": int((dk[f] > 5e-2).sum()),
+                        "far_plain_f32": int((dp[f] > 5e-2).sum())} for f in dk}
+                ok = all(np.median(dk[f]) < max(5e-3, 10 * float(np.median(dp[f]))) and
+                         (dk[f] > 5e-2).sum() <= (dp[f] > 5e-2).sum() + int(0.05 * n)
+                         for f in dk)
+            quant &= ok
+        main = plans["main"]
+        v0 = float(main.dyn_violation[0])
+        row["problem0_dyn_violation"] = v0
+        row["wall_s"] = round(time.perf_counter() - t_gait, 2)
+        log(f"[10a] {name}: H {H}, IK H {Hik}; problems a block K1/K3 "
+            f"{row['per_block']['k1_k3']}, K2 {row['per_block']['k2']}; solves/s main "
+            f"{row['main_solves_per_sec']}, fused {row['fused_solves_per_sec']}; ms {row['ms']}; "
+            f"converged_frac main {row['main_converged_frac']:.4f}, fused "
+            f"{row['fused_converged_frac']:.4f}; diverged {row['main_diverged']}/"
+            f"{row['fused_diverged']}; launches {launches[name]}; finite where not diverged "
+            f"{row['main_finite']}/{row['fused_finite']}; K3's plan vs its plain prologue "
+            f"{row['k3_plan']}; parity ({n} problems, {row['parity_gate']}) {row['parity']}; "
+            f"diverged of the {n} {row['parity_diverged']}; problem 0 dyn_violation "
+            f"{v0:.3e} (< {bound0.get(name, 'not gated')}); {row['wall_s']} s")
+        table.append(row)
+        miss = []
+        if launches[name] != {"main": {"admm": 1, "ddp": 1, "fused": 0},
+                              "fused": {"admm": 0, "ddp": 1, "fused": 1}}:
+            miss.append("launches")
+        if not (row["main_finite"] and row["fused_finite"]):
+            miss.append("finite")
+        if not (flags and dr < 1e-5 and ddt < 1e-5):
+            miss.append("K3's plan")
+        if not quant:
+            miss.append("parity")
+        if not div_same:
+            miss.append("diverged set")
+        if name in bound0 and not v0 < bound0[name]:
+            miss.append("problem 0 dyn_violation")
+        if miss:
+            failures.append(f"{name}: {', '.join(miss)}")
+    log(json.dumps({"metric": "gaits", "batch": B, "gaits": table,
+                    "parity_against_plain_f32": fallback, "card": card}))
+    check(not failures, f"10a: {failures}")
+    return launches
+
+
+class Spy:
+    """Records every call of the named functions of ``module`` (their
+    arguments, result, wall seconds and the launches made inside) while in
+    a ``with`` block; a call made inside another recorded call is recorded
+    too."""
+
+    def __init__(self, torch, module, names, counts):
+        self.torch, self.module, self.counts = torch, module, counts
+        self.originals = {n: getattr(module, n) for n in names}
+        self.calls = []
+
+    def _wrap(self, name):
+        inner, torch = self.originals[name], self.torch
+
+        def fn(*a, **k):
+            before = self.counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner(*a, **k)
+            torch.cuda.synchronize()
+            after = self.counts()
+            self.calls.append(dict(name=name, args=a, kwargs=k, res=res,
+                                   wall=time.perf_counter() - t0,
+                                   launches={n: after[n] - before[n] for n in after}))
+            return res
+        return fn
+
+    def __enter__(self):
+        for n in self.originals:
+            setattr(self.module, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.originals.items():
+            setattr(self.module, n, f)
+
+
+def grid_on_host(res, v_des, w_des, skip):
+    """A grid's metrics computed on the host from a rollout's records (in
+    their dtype), independently of ``eval.velocity_grid``."""
+    st = res.states[..., 0:2].cpu().numpy()
+    vd = v_des.cpu().numpy()
+    failed = res.failed.cpu().numpy()
+    return {"vx_mse": ((st[:, skip:, 0] - vd[:, None, 0]) ** 2).mean(1),
+            "vy_mse": ((st[:, skip:, 1] - vd[:, None, 1]) ** 2).mean(1),
+            "survived": ~failed, "mean_speed": st[:, skip:, 0].mean(1),
+            "fail_step": np.where(failed, res.fail_step.cpu().numpy(), st.shape[1])}
+
+
+def eval_suite(torch, spec, sim, start, zero_counts, counts, card, vc_policies, cc_policy):
+    """Phase 10b-10f: the eval suite on the port's entry points, on the
+    closed loop of phase 7b (trot_sim from the 500 ms settled start, the
+    "cuda" backends), 600-step episodes (``scripts/run_eval.py`` runs 2000;
+    failures count after the first 500). 10b ``eval_mpc_grid`` over 16 vx x
+    32 w; 10c ``compare_policies`` of 9a's warmup and final policies on that
+    grid; 10d ``compare_cc_replanning`` of 9a's vc policy and 8b's cc policy
+    over ``workload.command_draw(512)``; 10e ``max_force_search`` over 64
+    directions (3 bisections) and its exactness against an unpushed call;
+    10f ``run_past_goals_eval`` over 4 goals (BC 5 epochs at bc.yaml's
+    widths). Returns each call's launches."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.eval import cc_replanning as CCR
+    from bunmpc_tpu_torch.eval import max_force as MF
+    from bunmpc_tpu_torch.eval import multi_database as MDB
+    from bunmpc_tpu_torch.eval import past_goals as PG
+    from bunmpc_tpu_torch.eval import velocity_grid as VG
+    from bunmpc_tpu_torch.learning import bc as BC
+    from bunmpc_tpu_torch.sim import physics, rollout
+
+    p = spec.params
+    cfg = rollout.RolloutConfig(episode_length=600, kp=p.kp, kd=p.kd, gait_period=p.gait_period)
+    T, nw = cfg.episode_length, cfg.n_windows
+    skip = int(0.2 * T)
+    state0 = physics.SimState(start.q[0], start.v[0])
+    names = ("rollout_mpc", "rollout_policy")
+    mpc_once = {"admm": nw, "ddp": nw, "fused": 0}
+    none = {"admm": 0, "ddp": 0, "fused": 0}
+    out, fails = {}, []
+
+    def record(tag, calls, launches):
+        out[tag] = launches
+        for c in calls:
+            B_, T_ = c["res"].states.shape[:2]
+            log(f"  [{tag}] {c['name']}: {B_} episodes x {T_} steps in {c['wall']:.2f} s "
+                f"({B_ * T_ / c['wall']:.1f} env-steps/s), survival "
+                f"{float(1 - c['res'].failed.float().mean()):.4f}; launches {c['launches']}")
+
+    # ---- 10b. eval_mpc_grid: 16 vx x 32 w = 512 episodes ----
+    vx, w = np.linspace(-0.3, 0.5, 16), np.linspace(-0.3, 0.3, 32)
+    t0 = time.perf_counter()
+    with Spy(torch, rollout, names, counts) as spy:
+        zero_counts()
+        grid = VG.eval_mpc_grid(spec, sim, cfg, state0, vx, w)
+        launches = counts()
+    record("10b", spy.calls, launches)
+    (c,) = spy.calls
+    finite, frozen = finite_and_frozen(torch, c["res"])
+    host = grid_on_host(c["res"], c["args"][4], c["args"][5], skip)
+    same = all(np.array_equal(getattr(grid, k), v) for k, v in host.items())
+    surv = grid.survived.reshape(16, 32)
+    speed = [float(grid.mean_speed.reshape(16, 32)[i][surv[i]].mean()) if surv[i].any()
+             else float("nan") for i in range(16)]
+    log(f"[10b] eval_mpc_grid {time.perf_counter() - t0:.1f} s: {grid.summary()}; survival by vx "
+        f"{np.round(surv.mean(1), 3).tolist()}; survivors' mean speed by vx "
+        f"{np.round(speed, 4).tolist()} (vx {np.round(vx, 3).tolist()}); launches {launches} "
+        f"(expected {mpc_once}); records finite {finite}, frozen {frozen}; the result equals the "
+        f"host's recomputation from the records {same}")
+    if not (launches == mpc_once and c["launches"] == mpc_once and finite and frozen and same):
+        fails.append("10b")
+
+    # ---- 10c. compare_policies: 9a's warmup and final vc policies ----
+    t0 = time.perf_counter()
+    entries = [MDB.PolicyEntry(label=k, bundle=pol, db_size=rows, final_train_loss=float("nan"),
+                               final_valid_loss=float("nan"))
+               for k, (pol, rows) in vc_policies.items()]
+    with Spy(torch, rollout, names, counts) as spy:
+        zero_counts()
+        cmp = MDB.compare_policies(spec, sim, cfg, state0, entries, vx, w)
+        launches = counts()
+    record("10c", spy.calls, launches)
+    alone = {e.label: VG.eval_policy_grid(spec, sim, cfg, state0, e.bundle, vx, w)
+             for e in entries}
+    same = all(np.array_equal(getattr(cmp.grids[k], f.name), getattr(g, f.name))
+               for k, g in alone.items() for f in dataclasses.fields(g))
+    log(f"[10c] compare_policies {time.perf_counter() - t0:.1f} s: {json.dumps(cmp.summary())}; "
+        f"launches {launches} (expected {none}); each grid equals eval_policy_grid alone {same}")
+    if not (launches == none and same and len(spy.calls) == 2):
+        fails.append("10c")
+
+    # ---- 10d. compare_cc_replanning: 512 commands ----
+    t0 = time.perf_counter()
+    v_np, w_np = workload.command_draw(B, seed=0)
+    with Spy(torch, rollout, names, counts) as spy:
+        zero_counts()
+        ccr = CCR.compare_cc_replanning(spec, sim, cfg, state0, vc_policies["final"][0], cc_policy,
+                                        v_np, w_np)
+        launches = counts()
+    record("10d", spy.calls, launches)
+    static_res, replan_res = spy.calls[1]["res"], spy.calls[2]["res"]
+    q0h, v0h = start.q[0].cpu().double().numpy(), start.v[0].cpu().double().numpy()
+    sched = CCR.desired_schedules(spec, q0h, v0h, v_np, w_np, T)
+    goals = torch.as_tensor(CCR.static_cc_goals(spec, sched, q0h, v_np, T),
+                            dtype=torch.float32, device=start.q.device)
+    static_ok = torch.equal(static_res.vc_goals, goals)
+    gfn = rollout.cc_goal_fn(spec.model, spec.eff_frames,
+                             torch.as_tensor(sched, dtype=torch.float32, device=start.q.device))
+    q_rec = torch.cat([replan_res.base[..., 0:2], replan_res.states[..., 26:43]], -1)
+    d_replan = max(float((gfn(torch.tensor(k, device=q_rec.device), q_rec[:, k])
+                          - replan_res.vc_goals[:, k]).abs().max()) for k in range(T))
+    log(f"[10d] compare_cc_replanning {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(ccr.summary())}; launches {launches} (expected {none}); cc_static's "
+        f"recorded goals equal static_cc_goals {static_ok}; cc_replanned's against cc_goal_fn "
+        f"on the recorded q |d| max {d_replan:.3e} (< 1e-5)")
+    if not (launches == none and len(spy.calls) == 3 and static_ok and d_replan < 1e-5):
+        fails.append("10d")
+
+    # ---- 10e. max_force_search: 64 directions, push at step 333 for 100 ms ----
+    t0 = time.perf_counter()
+    ang = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    dirs = np.stack([np.cos(ang), np.sin(ang), np.zeros(64)], -1).astype(np.float32)
+    ps, pd, v_des = T // 3, 100, np.zeros(3)  # max_force_search's default push start
+    with Spy(torch, rollout, names, counts) as spy:
+        zero_counts()
+        f_max, hist = MF.max_force_search(spec, sim, cfg, state0, v_des, 0.0, n_bisect=3,
+                                          directions=dirs, push_start=ps, push_duration=pd)
+        launches = counts()
+        frac0 = MF.survival_fraction(spec, sim, cfg, state0, v_des, 0.0, 0.0, dirs, ps, pd)
+    record("10e", spy.calls, launches)
+    lo, hi, rule = 0.0, 30.0, True
+    for mid, frac in hist:
+        rule &= mid == 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if frac >= 0.5 else (lo, mid)
+    rule &= f_max == lo
+    first, zero = spy.calls[0]["res"], spy.calls[-1]["res"]
+    before = all(torch.equal(getattr(first, f)[:, :ps + 1], getattr(zero, f)[:, :ps + 1])
+                 for f in ("states", "actions", "base"))
+    after = int((first.states[:, ps + 1:] != zero.states[:, ps + 1:]).flatten(1).any(1).sum())
+    per_call = [c["launches"] for c in spy.calls]
+    log(f"[10e] max_force_search {time.perf_counter() - t0:.1f} s: f_max {f_max}, history "
+        f"{hist}, unpushed survival {frac0}; launches per call {per_call} (expected {mpc_once} "
+        f"each); the history follows the bisection rule {rule}; records before step {ps} equal "
+        f"to the unpushed call's bit for bit {before}, episodes that differ after it {after}")
+    if not (rule and before and after > 0 and all(x == mpc_once for x in per_call)
+            and len(per_call) == 4):
+        fails.append("10e")
+    out["10e"] = per_call[:3]
+
+    # ---- 10f. run_past_goals_eval: 4 goals, BC 5 epochs ----
+    t0 = time.perf_counter()
+    goal_list = np.stack([np.linspace(0.0, 0.4, 4), np.zeros(4), np.zeros(4), np.zeros(4)], 1)
+    dbs, train = [], PG.train_policy
+
+    def train_spy(db, *a, **k):
+        dbs.append(db)
+        return train(db, *a, **k)
+
+    PG.train_policy = train_spy
+    try:
+        with Spy(torch, rollout, names, counts) as spy:
+            zero_counts()
+            pg = PG.run_past_goals_eval(spec, sim, cfg, start.q[0], start.v[0], goal_list,
+                                        bc_cfg=BC.BcConfig(n_epoch=5))
+            launches = counts()
+    finally:
+        PG.train_policy = train
+    record("10f", spy.calls, launches)
+    mpc = spy.calls[0]["res"]
+    fs, failed = mpc.fail_step.cpu().numpy(), mpc.failed.cpu().numpy()
+    keep = [(i, int(fs[i]) if failed[i] else T) for i in range(4)]
+    keep = [(i, n_) for i, n_ in keep if n_ > 50]
+    db = dbs[-1]
+    rows_ok = len(db) == sum(n_ for _, n_ in keep) and all(
+        np.array_equal(getattr(db, f), np.concatenate([getattr(mpc, f)[i, :n_].cpu().numpy()
+                                                       for i, n_ in keep]))
+        for f in ("states", "actions", "vc_goals")) if keep else len(db) == 0
+    upper = np.triu(np.ones((4, 4), bool), 1)
+    tri = bool((np.isnan(pg.error_vx) == upper).all() and (np.isnan(pg.error_vy) == upper).all()
+               and not pg.survived[upper].any())
+    names_ = [c["name"] for c in spy.calls]
+    log(f"[10f] run_past_goals_eval {time.perf_counter() - t0:.1f} s: error_vx "
+        f"{np.round(pg.error_vx, 5).tolist()}, survived {pg.survived.astype(int).tolist()}, "
+        f"forgetting {pg.forgetting():.5g}; calls {names_}; launches {launches} (K1, K2 {nw} "
+        f"in the one MPC call); the matrices lower-triangular with NaN exactly above the "
+        f"diagonal {tri}; the database's {len(db)} rows are the T > 50 rule's {rows_ok}")
+    if not (names_ == ["rollout_mpc"] + ["rollout_policy"] * 4 and spy.calls[0]["launches"]
+            == mpc_once and launches == mpc_once and tri and rows_ok):
+        fails.append("10f")
+    log(json.dumps({"metric": "eval_suite", "grid": grid.summary(), "compare_policies":
+                    cmp.summary(), "cc_replanning": ccr.summary(), "f_max": f_max,
+                    "history": hist, "forgetting": pg.forgetting(), "launches": out,
+                    "card": card}, default=float))
+    check(not fails, f"phase-10 gates missed: {fails}")
+    return out
 
 
 def main_path_stage_ms(torch, spec, inputs, admm_cfg):
@@ -1273,13 +1703,24 @@ def main():
 
     # ---- 8. the learning loop: data collection, BC, the policy rollout ----
     t0 = time.time()
-    dc_launches = learning_loop(torch, loop_spec, sim, start, cmd, zero_counts, counts, card)
+    dc_launches, cc_policy = learning_loop(torch, loop_spec, sim, start, cmd, zero_counts, counts,
+                                           card)
     log(f"[8] learning loop {time.time() - t0:.1f} s")
 
     # ---- 9. the DAgger family: SafeDagger, rollout_dagger, LocoSafeDagger ----
     t0 = time.time()
-    dagger_launches = dagger_family(torch, loop_spec, sim, start, zero_counts, counts, card)
+    dagger_launches, vc_policies = dagger_family(torch, loop_spec, sim, start, zero_counts,
+                                                 counts, card)
     log(f"[9] DAgger family {time.time() - t0:.1f} s")
+
+    # ---- 10. every gait (10a) and the eval suite (10b-10f) ----
+    t0 = time.time()
+    gait_launches = every_gait(torch, model, dev, zero_counts, counts, card)
+    log(f"[10a] every gait {time.time() - t0:.1f} s")
+    t1 = time.time()
+    eval_launches = eval_suite(torch, loop_spec, sim, start, zero_counts, counts, card, vc_policies,
+                               cc_policy)
+    log(f"[10] eval suite {time.time() - t1:.1f} s; phase 10 {time.time() - t0:.1f} s")
 
     # ---- 7. the kernels line ----
     zero_counts()
@@ -1319,6 +1760,14 @@ def main():
     k2_bytes = 4.0 * B * (nx + Hik * 12 + (Hik + 1) * (3 + 6 + nx) + Hik * 57 + 45 + Hik * nv
                           + Hik + (Hik + 1) * nx + Hik * nv + 1)
     k2_bound, k2_by = bound_ms(k2_bytes, ddp_ops(B, Hik, full))
+    def phase10(k):
+        """Kernel ``k``'s launches per gait and path (10a) and per eval call
+        (10b-10f; a list per call where a phase makes several)."""
+        return {"gait_launches": {g: {p: n[k] for p, n in paths.items()}
+                                  for g, paths in gait_launches.items()},
+                "eval_launches": {tag: [c[k] for c in v] if isinstance(v, list) else v[k]
+                                  for tag, v in eval_launches.items()}}
+
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:589", "launches": main_launches["admm"],
@@ -1326,21 +1775,23 @@ def main():
          "data_collection_launches": dc_launches["admm"],
          "dagger_launches": [c["admm"] for c in dagger_launches],
          "max_abs_err": k1_err, "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 4),
-         "bound_ms": round(k1_bound, 6), "bound_by": k1_by, "library_ms": None},
+         "bound_ms": round(k1_bound, 6), "bound_by": k1_by, "library_ms": None,
+         **phase10("admm")},
         {"name": "ddp", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/ddp.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046", "launches": main_launches["ddp"],
          "closed_loop_launches": loop_launches["ddp"],
          "data_collection_launches": dc_launches["ddp"],
          "dagger_launches": [c["ddp"] for c in dagger_launches],
          "max_abs_err": k2_err, "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4),
-         "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None},
+         "bound_ms": round(k2_bound, 6), "bound_by": k2_by, "library_ms": None,
+         **phase10("ddp")},
         {"name": "fused", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/fused.cu",
          "replaces": "bunmpc_tpu/solvers/pallas_admm.py:1028",
          "launches": fused_launches["fused"], "data_collection_launches": dc_launches["fused"],
          "dagger_launches": [c["fused"] for c in dagger_launches],
          "max_abs_err": k3_err, "ms": round(k3_ms, 4),
          "plain_ms": round(k3_plain_ms, 4), "bound_ms": round(k3_bound, 6), "bound_by": k3_by,
-         "library_ms": None},
+         "library_ms": None, **phase10("fused")},
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -134,10 +134,11 @@ def test_kernel_math_fista_cap_and_box(lib, problem):
     np.testing.assert_array_equal(got[3], ref[3])
 
 
-@pytest.mark.parametrize("h", [1, 20, 30, 40])
+@pytest.mark.parametrize("h", [1, 6, 10, 12, 20, 24, 30, 40])
 def test_scratch_layout_matches_kernel(lib, h):
     """The wrapper's size of a problem's shared-memory slice is the kernel's
-    layout (K1's and K3's), at the trot's horizon (20), 30 and 40."""
+    layout (K1's and K3's), at every Solo12 gait's horizon (6, 10, 12, 20,
+    24, 30) and 40."""
     lib.admm_shared_size.restype = ctypes.c_long
     lib.admm_shared_size.argtypes = [ctypes.c_int]
     assert lib.admm_shared_size(h) == cuda_admm.shared_size(h)
@@ -214,3 +215,52 @@ def test_kernel_math_fista_precondition_f32(lib, problem4):
     np.testing.assert_allclose(got[2], ref[2], rtol=1e-3, atol=1e-6)
     np.testing.assert_allclose(got[0], ref[0], atol=5e-3, rtol=0)
     np.testing.assert_allclose(got[1], ref[1], atol=2e-1, rtol=0)
+
+
+# the gaits whose shapes the trot never reaches: jump (H=30, every foot in
+# phase, knots with all feet in flight), walk (H=6), still (stance 1.0)
+GAIT_CASES = ("jump", "walk", "still")
+
+
+@pytest.mark.parametrize("name", GAIT_CASES)
+def test_kernel_math_at_gait_horizons(lib, name):
+    """K1's per-problem math on a gait's own problems (its horizon and
+    contact plan, ``workload.gait_states(name, 4)``): the g++ build against
+    the plain version in f64 with bench.py's config (thomas, capped FISTA,
+    the accelerated schedule), X and F within 1e-7 and equal iteration
+    counts, as the trot's f64 gate. Jump from a mid-trot draw (problem 1:
+    seven knots of flight from the window's start) makes the ADMM diverge
+    in both, as it does in the JAX package (its solve of such a draw ends
+    at a violation of 1.2e7, tests/fixtures/torch_gaits_solo12.npz): there
+    both stop at the iteration cap with a violation above 1e3, and rounding
+    grows without bound, so their iterates are not compared."""
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.workload import gait_states
+
+    g = GAITS[name]
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), g, Solo12Config.q0(), device="cpu")
+    pr = KD._prepare_problem(spec, *[torch.as_tensor(a, dtype=torch.float64)
+                                     for a in gait_states(name, 4)])
+    args = (pr["plan"], spec.model.total_mass, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"],
+            pr["X_wm"], pr["F_wm"], pr["x_bounds"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, fista_max_iters=30)
+    kargs, keep, out = cuda_admm.kernel_args(*args, cfg)
+    call_host(lib, "admm_host_f64", cuda_admm.ARGTYPES, kargs)
+    ref = cuda_admm.solve_plain(*args, cfg)
+    assert out[0].shape == (4, spec.horizon + 1, 9)
+    np.testing.assert_array_equal(out[3].numpy(), ref[3].numpy())
+    ok = ref[2] < cfg.exit_tol
+    assert int(ok.sum()) == (3 if name == "jump" else 4)
+    assert_f64_match([a[ok].numpy() for a in out[:4]], [a[ok].numpy() for a in ref])
+    assert bool((out[2][~ok] > 1e3).all() and (ref[2][~ok] > 1e3).all())
+    assert bool((ref[3][~ok] == cfg.max_admm_iters).all())
+    assert bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all())
+    cnt = pr["plan"].cnt
+    if name == "jump":
+        assert bool((cnt.sum(-1) == 0).any())
+        flight = cnt == 0
+        assert float(out[1].abs()[flight].max()) < 1e-12  # no force on a foot in flight
+    if name == "still":
+        assert bool((cnt == 1).all())

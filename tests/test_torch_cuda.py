@@ -18,7 +18,8 @@ the same episodes inside a batch of 64, bit for bit; the policy rollouts
 (vc and cc goals) launch no MPC kernel and end within 10x the CPU's f32
 distance to the JAX package's f64 fixture; the gated rollouts (SafeDAgger,
 DAgger) launch K1 and K2 once a window and keep the gate of the JAX
-package's f64 fixture."""
+package's f64 fixture; every Solo12 gait's K1, K2 and K3 against the plain
+versions at B=16."""
 
 import pytest
 import torch
@@ -185,6 +186,65 @@ def test_long_horizon_kernels_match_plain(device, main_path):
     torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
     torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
     torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+
+
+GAIT_NAMES = ("trot", "trot_sim", "trot_turn", "jump", "bound", "bound_turn", "air_bound",
+              "still", "gallop", "walk")
+
+
+@pytest.mark.parametrize("name", GAIT_NAMES)
+def test_gait_kernels_match_plain(device, name):
+    """Every Solo12 gait at B=16 on its own problems (``workload.
+    gait_states``: H 6..30, IK H 3..15, stance 1.0, all-flight knots): K1 and
+    K3 with the reference schedule and 15 iterations against their plain
+    versions (X 1e-4, F 1e-3, viol rtol 1e-3; K3's contact plan flags exact,
+    r and dt 1e-5), K2 one iteration with one alpha on the random IK
+    problems at the gait's IK horizon against the plain version in f64 (xs
+    2e-4, us 2e-3, cost rtol 1e-4); each call launches its kernel once."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    g = GAITS[name]
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), g, Solo12Config.q0())
+    m, H = spec.model.total_mass, spec.horizon
+    inputs = [torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in workload.gait_states(name, 16)]
+    prob = KD._prepare_problem(spec, *inputs)
+    args = (prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
+            prob["X_wm"], prob["F_wm"], prob["x_bounds"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, max_admm_iters=15, dual_relax=1.0, rho_growth=1.0)
+    before = {k: mod.KERNEL.launches for k, mod in (("admm", cuda_admm), ("ddp", cuda_ddp),
+                                                     ("fused", cuda_fused))}
+    Xk, Fk, vk, _ = cuda_admm.solve(*args, cfg)
+    Xp, Fp, vp, _ = cuda_admm.solve_plain(*args, cfg)
+    torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(Fk, Fp, atol=1e-3, rtol=0)
+    torch.testing.assert_close(vk, vp, rtol=1e-3, atol=1e-6)
+    _, t, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
+    k3_in = (t, vdw, inputs[4], x_init, ee, hip, amom, m, KD.make_prep_consts(spec), cfg, H,
+             spec.n_eff)
+    K = cuda_fused.solve_from_state(*k3_in)
+    P = cuda_fused.solve_from_state_plain(*k3_in)
+    assert torch.equal(K[4], P[4]) and torch.equal(K[7], P[7])
+    torch.testing.assert_close(K[5], P[5], atol=1e-5, rtol=0)
+    torch.testing.assert_close(K[6], P[6], atol=1e-5, rtol=0)
+    torch.testing.assert_close(K[0], P[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(K[1], P[1], atol=1e-3, rtol=0)
+    ik = workload.random_ik_problems(spec.model, spec.eff_frames, 16, spec.ik_hor, device)
+    ik64 = tuple(a.double() if torch.is_tensor(a) else a for a in ik)
+    one = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
+    xs, us, cost = cuda_ddp.solve_ik_batch(*ik, cfg=one)
+    xs_p, us_p, cost_p = cuda_ddp.solve_ik_batch_plain(*ik64, cfg=one)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+    after = {k: mod.KERNEL.launches for k, mod in (("admm", cuda_admm), ("ddp", cuda_ddp),
+                                                    ("fused", cuda_fused))}
+    assert {k: after[k] - before[k] for k in after} == {"admm": 1, "ddp": 1, "fused": 1}
 
 
 def test_closed_loop_launches_once_a_window_and_any_batch_size(device):

@@ -180,10 +180,11 @@ def test_kernel_math_f32_matches_plain(lib, tspec):
     np.testing.assert_allclose(viol.numpy(), ref[2].numpy(), rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("h", [1, 20, 30, 40])
+@pytest.mark.parametrize("h", [1, 6, 10, 12, 20, 24, 30, 40])
 def test_work_layout_matches_kernel(lib, h):
     """The wrapper's device-memory workspace and K1's shared-memory slice
-    (K3 runs in it) are the kernel's, at the trot's horizon (20), 30 and 40."""
+    (K3 runs in it) are the kernel's, at every Solo12 gait's horizon (6, 10,
+    12, 20, 24, 30) and 40."""
     for name, size in (("fused_work_size", cuda_fused.work_size),
                        ("fused_shared_size", cuda_admm.shared_size)):
         fn = getattr(lib, name)
@@ -210,3 +211,38 @@ def test_fused_path_matches_unfused_path(tspec):
     with pytest.raises(ValueError, match="fuse_prep"):
         TKD.solve_mpc_batch(tspec, *st, admm_cfg=cuda_admm.plain_config(cfg),
                             admm_backend="torch", fuse_prep=True)
+
+
+@pytest.mark.parametrize("name", ["jump", "walk", "still"])
+def test_kernel_math_at_gait_horizons(lib, name):
+    """K3's per-problem math on a gait's own compact inputs
+    (``workload.gait_states(name, 4)``: jump H=30 with all-flight knots,
+    walk H=6, still with every foot in stance): the g++ build against K3's
+    plain version in f64 with bench.py's config, the gates of
+    ``test_kernel_math_f64_matches_plain``. Jump's problem 1 diverges in
+    both (tests/test_torch_admm.py): its plan flags must still agree, its
+    iterates are not compared."""
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+    from bunmpc_tpu_torch.workload import gait_states
+
+    g = GAITS[name]
+    sp = TKD.make_cyclic_spec(TSolo.load_model(), g, TSolo.q0(), device="cpu")
+    pc, m, Hg = TKD.make_prep_consts(sp), float(sp.model.total_mass), sp.horizon
+    st = [torch.as_tensor(a, dtype=torch.float64) for a in gait_states(name, 4)]
+    _, t, vdw, x_init, ee, hip, amom = TKD._compact_inputs(sp, *st)
+    ins = (t, vdw, st[4], x_init, ee, hip, amom)
+    cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, fista_max_iters=30)
+    args, keep, out = cuda_fused.kernel_args(*ins, m, pc, cfg, Hg, NE)
+    call_host(lib, "fused_host_f64", cuda_fused.ARGTYPES, args)
+    X, F, viol, iters, cnt, r, dt, swing, _ = out
+    ref = cuda_fused.solve_from_state(*ins, m, pc, cfg, Hg, NE)
+    assert X.shape == (4, Hg + 1, 9)
+    assert torch.equal(cnt, ref[4]) and torch.equal(swing > 0.5, ref[7])
+    torch.testing.assert_close(r, ref[5], atol=1e-12, rtol=0)
+    torch.testing.assert_close(dt, ref[6], atol=1e-12, rtol=0)
+    assert torch.equal(iters, ref[3])
+    ok = ref[2] < cfg.exit_tol
+    assert int(ok.sum()) == (3 if name == "jump" else 4)
+    torch.testing.assert_close(X[ok], ref[0][ok], atol=1e-7, rtol=0)
+    torch.testing.assert_close(F[ok], ref[1][ok], atol=1e-7, rtol=0)
+    assert bool((viol[~ok] > 1e3).all() and torch.isfinite(X).all())

@@ -178,11 +178,11 @@ def test_kernel_math_single_iteration_f32(lib, data, one_f32):
     np.testing.assert_allclose(cost, one_f32[2], rtol=1e-4)
 
 
-@pytest.mark.parametrize("h", [1, 3, 10, 20, 40])
+@pytest.mark.parametrize("h", [1, 3, 5, 6, 10, 12, 15, 20, 40])
 def test_scratch_layout_matches_kernel(lib, h):
     """The wrapper's sizes of a problem's shared-memory slice and device
-    scratch are the kernel's layout, at the trot's IK horizon (10), twice it
-    and at 40."""
+    scratch are the kernel's layout, at every Solo12 gait's IK horizon (3,
+    5, 6, 10, 12, 15), 20 and 40."""
     for name, size in (("ddp_scratch_size", cuda_ddp.scratch_size),
                        ("ddp_shared_size", cuda_ddp.shared_size)):
         fn = getattr(lib, name)
@@ -210,3 +210,43 @@ def test_kernel_math_single_iteration_f64(lib, data):
     np.testing.assert_allclose(xs, res.xs.numpy(), atol=1e-11, rtol=0)
     np.testing.assert_allclose(us, res.us.numpy(), atol=1e-9, rtol=0)
     np.testing.assert_allclose(cost, res.cost.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["jump", "walk", "still"])
+def test_kernel_math_at_gait_horizons(lib, name):
+    """K2's per-problem math on a gait's own IK problems (jump IK H=15,
+    walk 3, still 10), built from the plain ADMM's converged solves of
+    ``workload.gait_states(name, 4)``: the g++ build against the plain
+    version in f64, one Gauss-Newton step with one alpha at the gates of
+    ``test_kernel_math_single_iteration_f64``, and the full DdpConfig at the
+    whole plan's f64 gate on real problems (tests/test_torch_kino_dyn.py:
+    xs 1e-6; us 1e-6 / dt): six steps on these weights (1e-5..1e4) move
+    f64 rounding to ~1e-8."""
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+    from bunmpc_tpu_torch.solvers import cuda_admm
+    from bunmpc_tpu_torch.workload import gait_states
+
+    g = GAITS[name]
+    model = TSolo.load_model()
+    spec = KD.make_cyclic_spec(model, g, TSolo.q0(), device="cpu")
+    pr = KD._prepare_problem(spec, *[torch.as_tensor(a, dtype=torch.float64)
+                                     for a in gait_states(name, 4)])
+    cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, fista_max_iters=30)
+    X, _, viol, _ = cuda_admm.solve_plain(
+        pr["plan"], model.total_mass, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"],
+        pr["F_wm"], pr["x_bounds"], cfg)
+    ok = viol < cfg.exit_tol  # jump's problem 1 diverges (test_torch_admm.py)
+    tasks, x0 = KD._build_ik_tasks(spec, pr, X)
+    w_stage, w_term, ctrl_w, x_reg = TIK.dense_weights(model, EFF, tasks)
+    args = tuple(a[ok].contiguous() for a in (x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref,
+                                              x_reg, w_stage, w_term, ctrl_w, tasks.dts))
+    assert args[-1].shape[1] == spec.ik_hor
+    for cfg_, xs_tol, us_tol, c_tol in ((cuda_ddp.CudaDdpConfig(**ONE), 1e-11, 1e-9, 1e-12),
+                                        (cuda_ddp.CudaDdpConfig(), 1e-6, 1e-6 / 0.05, 1e-10)):
+        kargs, keep, out = cuda_ddp.kernel_args(model, EFF, *args, cfg_)
+        call_host(lib, "ddp_host_f64", cuda_ddp.ARGTYPES, kargs)
+        ref = cuda_ddp.solve_ik_batch_plain(model, EFF, *args, cfg=cfg_)
+        np.testing.assert_allclose(out[0].numpy(), ref[0].numpy(), atol=xs_tol, rtol=0)
+        np.testing.assert_allclose(out[1].numpy(), ref[1].numpy(), atol=us_tol, rtol=0)
+        np.testing.assert_allclose(out[2].numpy(), ref[2].numpy(), rtol=c_tol)

@@ -7,6 +7,7 @@ import ast
 import dataclasses
 import filecmp
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -52,6 +53,9 @@ def test_no_jax_or_jax_package_imports():
                 "contact_planner.py", "data_collection.py",  # the learning substrate
                 "dagger.py", "bayes.py", "gp_bo.py"):  # and the DAgger family
         assert os.path.join(PKG, "learning", sub) in files
+    for sub in ("velocity_grid.py", "max_force.py", "cc_replanning.py", "past_goals.py",
+                "multi_database.py", "visualize.py"):  # the eval suite
+        assert os.path.join(PKG, "eval", sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -64,6 +68,25 @@ def test_scipy_only_in_gp_bo():
     users = {os.path.relpath(path, REPO) for path in _port_files()
              if any(m.split(".")[0] == "scipy" for m in _imported_modules(path))}
     assert users == {os.path.join("bunmpc_tpu_torch", "learning", "gp_bo.py")}
+
+
+def test_plotting_imports_stay_inside_functions():
+    """The port imports torch and numpy at module level; the eval suite's
+    plots import matplotlib and PIL inside the functions that draw
+    (``eval/visualize.py`` alone), so that no entry point needs them."""
+    top = {"torch", "numpy", "scipy", "h5py", "bunmpc_tpu_torch"}
+    users = set()
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in tree.body:  # module level only
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+            for mod in names:
+                assert mod.split(".")[0] in top | {"__future__"} or mod.split(".")[0] in (
+                    sys.stdlib_module_names), f"{path} imports {mod} at module level"
+        if any(m.split(".")[0] in ("matplotlib", "PIL") for m in _imported_modules(path)):
+            users.add(os.path.relpath(path, REPO))
+    assert users == {os.path.join("bunmpc_tpu_torch", "eval", "visualize.py")}
 
 
 def test_robot_asset_is_byte_identical():
