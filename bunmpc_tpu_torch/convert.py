@@ -6,6 +6,10 @@ parameters with their normalization payload.
 
 Nothing here imports JAX: the JAX side hands over plain numpy arrays
 (``dataclasses.asdict`` of its ``RobotModel``, ``np.asarray`` of its arrays).
+The Go2 needs nothing more: its robot ships as the port's own copy of the
+asset (``robots/go2.py``) and it has no learned parameters; per-episode
+gains and simulator parameters are (B,) tensors the caller builds (the
+converters here take the JAX package's scalar ones).
 """
 
 from __future__ import annotations

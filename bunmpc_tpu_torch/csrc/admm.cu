@@ -4,8 +4,11 @@
 // (x_solver "thomas" and "fista", with and without precondition): the
 // per-problem code is admm_core.cuh, which K3 (fused.cu) runs as well. This
 // file reads the problem's inputs from device memory, runs it, and writes
-// X, F, viol = sqrt(viol2) of the last active iteration, iters (the active
-// count) and, for measuring the work, the F-step's FISTA iterations.
+// X, F, the scaled dual P at the base rho, viol = sqrt(viol2) of the last
+// active iteration, iters (the active count) and, for measuring the work, the
+// F-step's FISTA iterations. The dual starts from P0 where the caller carries
+// one (a receding-horizon warm start, read at the base rho as the plain
+// version reads P_wm), from zero where P0 is null.
 //
 // What bounds it on an H100: it reads about 2,000 floats and writes about 430
 // per problem (about 5 MB at B=512, 1.5 us of HBM time), so it is bound by
@@ -34,8 +37,8 @@ namespace bk {
 template <typename T, class Exec>
 HD void admm_one(int b, const AdmmParams<T>& pr, const T* cnt, const T* r, const T* dt,
                  const T* x_init, const T* W, const T* ql, const T* WF, const T* qF,
-                 const T* lb, const T* ub, const T* X0, const T* F0, T* Xo, T* Fo, T* viol,
-                 int* iters, int* fista, T* sh, const Exec& exec) {
+                 const T* lb, const T* ub, const T* X0, const T* F0, const T* P0, T* Xo,
+                 T* Fo, T* Po, T* viol, int* iters, int* fista, T* sh, const Exec& exec) {
   const int H = pr.H;
   const long nX = (H + 1) * 9, nF = H * NE * 3;
   const AdmmLayout L = admm_layout(H);
@@ -48,12 +51,14 @@ HD void admm_one(int b, const AdmmParams<T>& pr, const T* cnt, const T* r, const
   exec([&](int lane) {
     for (int q = 0; q < 12; ++q)
       for (long i = lane; i < len[q]; i += LANES) sh[dst[q] + i] = src[q][i];
+    for (long i = lane; i < nX; i += LANES) w.P[i] = P0 ? P0[b * nX + i] : T(0);
   });
   const AdmmInputs<T> in = admm_inputs(sh, L);
   admm_problem(pr, in, w, viol + b, iters + b, fista + b, exec);
   exec([&](int lane) {
     for (long i = lane; i < nX; i += LANES) Xo[b * nX + i] = w.X[i];
     for (long i = lane; i < nF; i += LANES) Fo[b * nF + i] = w.F[i];
+    for (long i = lane; i < nX; i += LANES) Po[b * nX + i] = w.P[i];
   });
 }
 
@@ -65,10 +70,10 @@ extern "C" long admm_shared_size(int H) { return bk::admm_layout(H).n; }
 #define ADMM_ARGS(T)                                                                       \
   int B, ADMM_CFG_ARGS, const T *cnt, const T *r, const T *dt, const T *x_init, const T *W, \
       const T *ql, const T *WF, const T *qF, const T *lb, const T *ub, const T *X0,        \
-      const T *F0, T *Xo, T *Fo, T *viol, int *iters, int *fista
+      const T *F0, const T *P0, T *Xo, T *Fo, T *Po, T *viol, int *iters, int *fista
 #define ADMM_CALL(T, b, sh, exec)                                                          \
-  bk::admm_one<T>(b, pr, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, Xo, Fo, viol,   \
-                  iters, fista, sh, exec)
+  bk::admm_one<T>(b, pr, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, P0, Xo, Fo, Po, \
+                  viol, iters, fista, sh, exec)
 
 #ifdef __CUDACC__
 
@@ -76,8 +81,8 @@ __global__ void admm_kernel(bk::AdmmParams<float> prm, int B, const float* cnt, 
                             const float* dt, const float* x_init, const float* W,
                             const float* ql, const float* WF, const float* qF,
                             const float* lb, const float* ub, const float* X0,
-                            const float* F0, float* Xo, float* Fo, float* viol, int* iters,
-                            int* fista) {
+                            const float* F0, const float* P0, float* Xo, float* Fo,
+                            float* Po, float* viol, int* iters, int* fista) {
   extern __shared__ float smem[];
   const bk::AdmmParams<float> pr = prm;  // a local copy: a kernel parameter's address goes to the stack
   const int p = threadIdx.x / bk::LANES, lane = threadIdx.x % bk::LANES;
@@ -100,7 +105,8 @@ extern "C" int admm_launch_f32(ADMM_ARGS(float), int problems, void* stream) {
       cudaFuncSetAttribute(admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   admm_kernel<<<blocks, problems * bk::LANES, bytes, (cudaStream_t)stream>>>(
-      pr, B, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, Xo, Fo, viol, iters, fista);
+      pr, B, cnt, r, dt, x_init, W, ql, WF, qF, lb, ub, X0, F0, P0, Xo, Fo, Po, viol, iters,
+      fista);
   return (int)cudaGetLastError();
 }
 

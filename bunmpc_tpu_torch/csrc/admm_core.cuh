@@ -760,23 +760,23 @@ HD void thomas_x(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWor
   });
 }
 
-// The ADMM of one problem on LANES lanes from the warm start already in w.X
-// and w.F, with the X-step by FISTA (XF) or block-Thomas and the FISTA solves
+// The ADMM of one problem on LANES lanes from the warm start already in w.X,
+// w.F and w.P (the scaled dual at the base rho pr.rho; zeros for the cold
+// start), with the X-step by FISTA (XF) or block-Thomas and the FISTA solves
 // in the Jacobi metric (PRE) or not; exec(f) calls f(lane) on every lane and
 // then waits for all of them (a warp barrier on the card, a loop over the
 // lanes on the host). Code outside exec runs on every lane alike: the loop
 // decisions are taken from partial sums the lanes left in w.part, so the
 // lanes of a problem always agree; problems never wait for
-// each other. Leaves X, F in w.X, w.F; fista_out counts the F-step's FISTA
+// each other. Leaves X, F in w.X, w.F and the dual in w.P, rescaled from the
+// final rho to the base rho a warm-started solve restarts from (the plain
+// version's BiconvexResult.P); fista_out counts the F-step's FISTA
 // iterations.
 template <bool XF, bool PRE, typename T, class Exec>
 HD void admm_branch(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const AdmmWork<T>& w,
                     T* viol_out, int* iters_out, int* fista_out, const Exec& exec) {
   const int H = pr.H;
   const int nX = (H + 1) * 9, nF = H * NE * 3;
-  exec([&](int lane) {
-    for (int i = lane; i < nX; i += LANES) w.P[i] = T(0);
-  });
   T rho = pr.rho, viol2 = T(3.0e38), chk = T(3.0e38);
   int iters = 0, fista_total = 0;
   const T exit2 = pr.exit_tol * pr.exit_tol;
@@ -842,6 +842,10 @@ HD void admm_branch(const AdmmParams<T>& pr, const AdmmInputs<T>& in, const Admm
     if (!act) break;
   }
   exec.prof.add(PH_TOTAL, t_all);
+  const T to_base = rho / pr.rho;
+  exec([&](int lane) {
+    for (int i = lane; i < nX; i += LANES) w.P[i] = w.P[i] * to_base;
+  });
   exec([&](int lane) {
     if (lane != 0) return;
     *viol_out = s_sqrt(viol2);

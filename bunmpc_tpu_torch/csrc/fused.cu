@@ -232,8 +232,11 @@ HD void prep_problem(const AdmmParams<T>& pr, const PrepParams<T>& pp, const Pre
       }
       for (int a = 0; a < 3; ++a) xr[3 + a] = s.vdes[a];
       for (int j = 0; j < 9; ++j) qr[j] = T(-2) * Wr[j] * xr[j];
-      // the ADMM's warm start: x_init tiled, or riding the command
-      for (int j = 0; j < 9; ++j) w.X[k * 9 + j] = s.x_init[j];
+      // the ADMM's warm start: x_init tiled, or riding the command; a zero dual
+      for (int j = 0; j < 9; ++j) {
+        w.X[k * 9 + j] = s.x_init[j];
+        w.P[k * 9 + j] = T(0);
+      }
       if (pp.vdes) {
         const T tg = k == 0 ? T(0) : cum[k - 1];
         w.X[k * 9 + 0] = s.x_init[0] + tg * vx;

@@ -39,7 +39,7 @@ def survival_fraction(
     episode b is pushed by ``magnitude * directions[b]`` newtons over steps
     ``push_start .. push_start + push_duration``; the (B, T, 3) push is built
     on the rollout's device. The rollout keeps ``rollout_mpc``'s default
-    warm start (carried on "torch", cold on "cuda", as ``eval_mpc_grid``)."""
+    warm start (carried for "tiled" specs, as ``eval_mpc_grid``)."""
     B = len(directions)
     T = cfg.episode_length
     start = batch_start(spec, state0, B)

@@ -84,8 +84,8 @@ def run_past_goals_eval(
     ONE batched ``rollout_mpc`` call over the goals before the loop (K1 and
     K2 once per window), and iteration i appends goal i's records as the
     JAX package's per-iteration rollout does: the only change of order. That
-    call keeps ``rollout_mpc``'s default warm start (carried on "torch" as
-    the JAX package's, cold on "cuda"). Everything runs on ``q0``'s device
+    call keeps ``rollout_mpc``'s default warm start (carried for "tiled"
+    specs, as the JAX package's). Everything runs on ``q0``'s device
     and dtype (``spec.device`` in float32 for arrays); the policy trains on
     that device."""
     goal_list = np.asarray(host(goal_list), np.float32)

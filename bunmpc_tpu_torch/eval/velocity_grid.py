@@ -129,10 +129,8 @@ def eval_mpc_grid(
 ) -> GridEvalResult:
     """MPC tracking over a (vx, w) grid — the expert baseline the policy is
     compared to (reference error_mpc, test_bayesian_optimization.py:477-515).
-    One ``rollout_mpc`` call runs the grid with its default warm start: on
-    "torch" it carries (X, F, P) for "tiled" specs, as the JAX package's
-    does; on "cuda" it cold-starts (K1 keeps no dual; ROADMAP queue 2, item
-    4)."""
+    One ``rollout_mpc`` call runs the grid with its default warm start: it
+    carries (X, F, P) for "tiled" specs, as the JAX package's does."""
     start = batch_start(spec, state0, len(vx_values) * len(w_values))
     v_des, w_des = grid_commands(vx_values, w_values, vy, start.q)
     res = rollout.rollout_mpc(spec, sim_params, cfg, start, v_des, w_des, admm_cfg=admm_cfg,

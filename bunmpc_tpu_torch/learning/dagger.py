@@ -13,10 +13,9 @@ records once and aggregates them. LocoSafeDagger's Bayesian grid update is
 
 Algorithm notes against the JAX driver:
 
-* The expert rollouts carry (X, F, P) from window to window on
-  ``admm_backend="torch"``, as the JAX driver's XLA ADMM does; on "cuda"
-  they cold-start, because K1 keeps its dual inside the kernel (ROADMAP
-  queue 2, item 4). The gated rollouts cold-start on both, as the JAX
+* The expert rollouts carry (X, F, P) from window to window for "tiled"
+  specs on both backends, as the JAX driver's XLA ADMM does (K1 takes the
+  dual in and gives it back). The gated rollouts cold-start, as the JAX
   ``_gated_rollout`` does.
 * The perturbations of an iteration are drawn in one batch from the
   driver's ``torch.Generator`` (the JAX driver splits a key per row), and

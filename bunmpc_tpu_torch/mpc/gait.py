@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kin import algorithms as K
 from ..utils.quat import quat_to_rot, yaw_quat
 from .centroidal import ContactPlan
 
@@ -51,7 +52,10 @@ def _mod(x, y: float):
 
 
 def _vec(vals, like):
-    return torch.as_tensor(vals, dtype=like.dtype, device=like.device)
+    """A tuple of ``GaitParams`` as a tensor of ``like``'s dtype and device,
+    converted once (``K.const``): a substep captured in a CUDA graph (the
+    closed loop's ``swing_blend``) may copy nothing from the host."""
+    return K.const(vals, like)
 
 
 def phi(params: GaitParams, t):

@@ -72,8 +72,9 @@ class CyclicMpcSpec:
     by: float = 0.45
     bz: float = 0.45
     # ADMM warm start: "tiled" = the current centroidal state over the horizon
-    # (kino_dyn.cpp:83-99), the Solo family's; "vdes" = xy and velocity rows
-    # riding the command, which only the fused path (K3) builds
+    # (kino_dyn.cpp:83-99), the Solo family's; "vdes" = the same start with the
+    # xy and velocity rows riding the command (x_init + v_des t), which keeps
+    # the Go2's alternation out of the stay-put basin the tiled start lands in
     warm_start_style: str = "tiled"
 
     @property
@@ -90,22 +91,47 @@ def make_cyclic_spec(
     ik_hor_ratio: float = 0.5,
     foot_size: float = 0.018,
     x_reg: np.ndarray | None = None,
+    offset_style: str | None = None,
+    warm_start_style: str | None = None,
     device="cuda",
 ) -> CyclicMpcSpec:
     """Host-side setup (in f64 on the CPU): Raibert planning offsets relative
-    to the CoM at q0 (the Solo12 hip offsets with their lateral nudges,
-    abstract_cyclic_gen.py:51-76) and the composite inertia for the
-    yaw-momentum target. ``device`` is where ``solve_mpc_batch`` runs by
-    default. The other robots' foot offsets and command-riding warm start are
-    not ported."""
+    to the CoM at q0 and the composite inertia for the yaw-momentum target.
+    ``device`` is where ``solve_mpc_batch`` runs by default.
+
+    ``offset_style``: "solo12_hip" = hip - com with Solo12's hand-tuned
+    lateral nudges (abstract_cyclic_gen.py:51-76; their signs assume the
+    first foot at +y, Solo12's FL, where the Go2's first foot, FR, sits at
+    -y, so on the Go2 they narrow the stance);
+    "generic" = foot - com, no nudges (abstract_cyclic_gen1.py:50-65); None =
+    "solo12_hip" for the Solo family, else "generic". ``warm_start_style``
+    None = "tiled" for the Solo family, else "vdes" (``CyclicMpcSpec``).
+
+    The kernels take a tree of 12 joints in four 3-joint legs off the base
+    (``cuda_ddp.pack_model``); another model, such as Solo8, raises."""
     device = resolve_device(device)
-    if not model.name.startswith("solo"):
-        raise NotImplementedError(f"only the Solo family is ported, got {model.name!r}")
+    if model.n_joints != 12:
+        raise NotImplementedError(
+            f"{model.name!r} has {model.n_joints} joints; the kernels take 12 "
+            "(ROADMAP, queue 1, item 8)")
+    solo = model.name.startswith("solo")
+    if offset_style is None:
+        offset_style = "solo12_hip" if solo else "generic"
+    if warm_start_style is None:
+        warm_start_style = "tiled" if solo else "vdes"
+    if warm_start_style not in ("tiled", "vdes"):
+        raise ValueError(f"unknown warm_start_style {warm_start_style!r}")
     q0t = torch.as_tensor(np.asarray(q0), dtype=torch.float64)
     com0 = K.com(model, q0t).numpy()
-    hips = K.frame_positions(model, q0t, hip_frames).numpy()
-    offsets = np.round(hips - com0, 3)
-    offsets[:, 1] += np.array([0.04, -0.04, 0.04, -0.04])  # widen the stance
+    if offset_style == "solo12_hip":
+        hips = K.frame_positions(model, q0t, hip_frames).numpy()
+        offsets = np.round(hips - com0, 3)
+        offsets[:, 1] += np.array([0.04, -0.04, 0.04, -0.04])  # widen the stance
+    elif offset_style == "generic":
+        feet = K.frame_positions(model, q0t, eff_frames).numpy()
+        offsets = np.round(feet - com0, 3)
+    else:
+        raise ValueError(f"unknown offset_style {offset_style!r}")
     R0 = Q.quat_to_rot(q0t[3:7]).numpy()
     offsets = offsets @ R0  # into the base frame
     I_comp = K.composite_inertia_about_com(model, q0t).numpy()
@@ -139,6 +165,7 @@ def make_cyclic_spec(
         size=size,
         n_int=n_int,
         device=device,
+        warm_start_style=warm_start_style,
     )
 
 
@@ -157,22 +184,28 @@ class MpcPlan(NamedTuple):
     dyn_violation: torch.Tensor  # (B,)
     admm_iters: torch.Tensor  # (B,)
     ik_cost: torch.Tensor  # (B,)
-    P_opt: torch.Tensor  # (B, H+1, 9) ADMM scaled dual (zeros from K1)
+    P_opt: torch.Tensor  # (B, H+1, 9) ADMM scaled dual at the base rho (zeros from K3)
 
 
-def window_clock(start_time, w_idx: int, plan_freq: float, like: torch.Tensor):
-    """The gait clock of replanning window ``w_idx`` in ``like``'s dtype and
-    device: ``round(start_time + w_idx * plan_freq, 3)``, the JAX package's
-    expression (sim/rollout.py:322, 375) with numpy's rounding, the
-    reference's. ``start_time`` is a float (a 0-d clock) or a (B,) tensor of
-    per-episode start times (a (B,) clock). ``torch.round(x, decimals=3)``
-    divides by 1000, where ``x / 1000`` on the card (and ``jnp.round``,
-    which XLA compiles) multiplies by a rounded reciprocal; a clock one ulp
-    off a knot can degenerate the first knot (``gait.first_knot_dt``)."""
+def window_start(start_time, w_idx: int, plan_freq: float, like: torch.Tensor):
+    """The start time of replanning window ``w_idx``, ``start_time + w_idx *
+    plan_freq`` in ``like``'s dtype and device, unrounded (the JAX package's
+    ``sim_t``, sim/rollout.py:322). ``start_time`` is a float (a 0-d time)
+    or a (B,) tensor of per-episode start times."""
     w = torch.full((), w_idx, dtype=like.dtype, device=like.device)
     if torch.is_tensor(start_time):
         start_time = start_time.to(dtype=like.dtype, device=like.device)
-    return torch.round(start_time + w * plan_freq * 1.0, decimals=3)
+    return start_time + w * plan_freq * 1.0
+
+
+def window_clock(start_time, w_idx: int, plan_freq: float, like: torch.Tensor):
+    """The gait clock of replanning window ``w_idx``: ``round(window_start,
+    3)``, the JAX package's expression (sim/rollout.py:375) with numpy's
+    rounding, the reference's. ``torch.round(x, decimals=3)`` divides by
+    1000, where ``x / 1000`` on the card (and ``jnp.round``, which XLA
+    compiles) multiplies by a rounded reciprocal; a clock one ulp off a knot
+    can degenerate the first knot (``gait.first_knot_dt``)."""
+    return torch.round(window_start(start_time, w_idx, plan_freq, like), decimals=3)
 
 
 def _interp_1khz(spec: CyclicMpcSpec, dts, knots):
@@ -195,14 +228,12 @@ def _interp_1khz(spec: CyclicMpcSpec, dts, knots):
 def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     """Batched problem assembly: contact plan + dynamics costs + warm starts
     (abstract_cyclic_gen.py create_cnt_plan/create_costs; kino_dyn.cpp:83-99
-    for the cold warm start). Forces regularize toward zero (the reference's
-    ``f_reg_style="zero"``; the weight-distributed style is not ported)."""
+    for the cold warm start, with the spec's ``warm_start_style``). Forces
+    regularize toward zero (``f_reg_style="zero"``, the reference's) or, with
+    ``"weight"``, toward m g shared by a knot's stance feet (``F_ref``)."""
     p = spec.params
-    if p.f_reg_style != "zero":
-        raise NotImplementedError(f"f_reg_style={p.f_reg_style!r} is not ported")
-    if spec.warm_start_style != "tiled":
-        raise NotImplementedError(
-            f"warm_start_style={spec.warm_start_style!r} is built by the fused path only")
+    if p.f_reg_style not in ("zero", "weight"):
+        raise ValueError(f"unknown f_reg_style {p.f_reg_style!r}")
     m = spec.model.total_mass
     dtype, device = q.dtype, q.device
     H = spec.horizon
@@ -270,13 +301,26 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     b_hi = vec([spec.bx, spec.by, spec.bz])
     x_bounds = biconvex.kinematic_box_bounds(plan, b_lo, b_hi)
 
-    # cold warm start: the current centroidal state tiled, zero forces
+    # mass-normalized force regularization point: a knot's stance feet share
+    # m g, swing feet pull to zero
+    F_ref = None
+    if p.f_reg_style == "weight":
+        n_act = torch.clamp(torch.sum(plan.cnt, dim=-1, keepdim=True), min=1.0)
+        F_ref = torch.zeros((B, H, spec.n_eff, 3), dtype=dtype, device=device)
+        F_ref[..., 2] = plan.cnt * (m * 9.81) / n_act
+
+    # cold warm start: the current centroidal state tiled, zero forces; "vdes"
+    # rides the command on the plan's time grid
     X_wm = x_init[:, None, :].expand(B, H + 1, 9).contiguous()
+    if spec.warm_start_style == "vdes":
+        tgrid = torch.cat([torch.zeros_like(dt_arr[:, :1]), torch.cumsum(dt_arr, dim=1)], dim=1)
+        X_wm[..., 0:2] += tgrid[..., None] * v_des_w[:, None, 0:2]
+        X_wm[..., 3:6] = v_des_w[:, None, :]
     F_wm = torch.zeros((B, H, spec.n_eff, 3), dtype=dtype, device=device)
     return dict(
         q=q, v=v, plan=plan, swing_mask=swing_mask, x_init=x_init,
         W=W.contiguous(), X_ref=X_ref, W_F=W_F.contiguous(), x_bounds=x_bounds,
-        X_wm=X_wm, F_wm=F_wm,
+        X_wm=X_wm, F_wm=F_wm, F_ref=F_ref,
     )
 
 
@@ -432,14 +476,14 @@ def solve_mpc_batch(
     warm_start=None,  # optional (X_wm (B, H+1, 9), F_wm (B, H, n_eff, 3), P_wm (B, H+1, 9))
 ) -> MpcPlan:
     """Batched kino-dynamic MPC. ``"cuda"`` backends run the hand-written
-    kernels (K1 and K3 return no dual, so ``P_opt`` is zeros); ``"torch"``
-    runs the plain versions and returns the dual. ``fuse_prep=True`` builds
-    the problem inside the ADMM kernel (K3; flat ground, as the JAX package's
-    fused path) and needs ``admm_backend="cuda"``. Any B is accepted.
+    kernels, ``"torch"`` their plain versions; both return the ADMM's scaled
+    dual in ``P_opt``. ``fuse_prep=True`` builds the problem inside the ADMM
+    kernel (K3; flat ground, as the JAX package's fused path), needs
+    ``admm_backend="cuda"`` and returns a zero dual. Any B is accepted.
 
     ``warm_start`` replaces the ADMM's cold start with a carried solution
-    and its scaled dual (the JAX package's ``solve_mpc(warm_start=...)``);
-    only the plain ADMM (``admm_backend="torch"``) takes a dual."""
+    and its scaled dual (the JAX package's ``solve_mpc(warm_start=...)``), on
+    either backend; the fused path starts cold, as the JAX package's does."""
     if admm_backend not in ("cuda", "torch"):
         raise ValueError(f"admm_backend must be 'cuda' or 'torch', got {admm_backend!r}")
     if ik_backend not in ("cuda", "torch"):
@@ -447,8 +491,9 @@ def solve_mpc_batch(
     if fuse_prep and admm_backend != "cuda":
         # the JAX package falls back to the unfused path here without a word
         raise ValueError("fuse_prep=True runs the fused kernel (K3): admm_backend must be 'cuda'")
-    if warm_start is not None and admm_backend != "torch":
-        raise ValueError("warm_start carries the ADMM dual: only admm_backend='torch' takes it")
+    if warm_start is not None and fuse_prep:
+        raise ValueError("the fused path (K3) builds its own cold start: warm_start needs "
+                         "fuse_prep=False")
     p = spec.params
     m = spec.model.total_mass
     q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
@@ -464,27 +509,27 @@ def solve_mpc_batch(
         prob = dict(q=qr, v=v, x_init=x_init, plan=G.ContactPlan(cnt=cnt, r=r, dt=dts),
                     swing_mask=swing)
         P = torch.zeros_like(X)
-    elif admm_backend == "cuda":
-        prob = _prepare_problem(spec, q, v, t, v_des, w_des)
-        if admm_cfg is None:
-            admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
-        X, F, viol, iters = cuda_admm.solve(
-            prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
-            prob["X_wm"], prob["F_wm"], prob["x_bounds"], admm_cfg,
-        )
-        P = torch.zeros_like(X)
     else:
         prob = _prepare_problem(spec, q, v, t, v_des, w_des)
-        if admm_cfg is None:
-            admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
-        if warm_start is None:
-            warm_start = (prob["X_wm"], prob["F_wm"], torch.zeros_like(prob["X_wm"]))
-        dyn = biconvex.solve(
-            prob["plan"], m, prob["x_init"],
-            biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]), prob["W_F"],
-            *warm_start, admm_cfg, x_bounds=prob["x_bounds"],
-        )
-        X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
+        X_wm, F_wm, P_wm = (prob["X_wm"], prob["F_wm"], None) if warm_start is None \
+            else warm_start
+        if admm_backend == "cuda":
+            if admm_cfg is None:
+                admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
+            X, F, viol, iters, P = cuda_admm.solve(
+                prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
+                X_wm, F_wm, prob["x_bounds"], admm_cfg, prob["F_ref"], P_wm,
+            )
+        else:
+            if admm_cfg is None:
+                admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
+            dyn = biconvex.solve(
+                prob["plan"], m, prob["x_init"],
+                biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]), prob["W_F"], X_wm, F_wm,
+                torch.zeros_like(X_wm) if P_wm is None else P_wm, admm_cfg,
+                x_bounds=prob["x_bounds"], F_ref=prob["F_ref"],
+            )
+            X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
 
     tasks, x0 = _build_ik_tasks(spec, prob, X)
     w_stage, w_term, ctrl_w, x_reg = IK.dense_weights(spec.model, spec.eff_frames, tasks)

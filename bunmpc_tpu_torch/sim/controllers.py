@@ -14,10 +14,14 @@ import torch
 
 from ..kin import algorithms as K
 from ..robots.model import RobotModel
+from .physics import per_robot
 
 
 @dataclasses.dataclass(frozen=True)
 class IdControllerGains:
+    """PD gains: floats for the whole batch, or (B,) tensors per episode
+    (the JAX package's ``vmap`` over gains)."""
+
     kp: float
     kd: float
 
@@ -49,5 +53,6 @@ def id_joint_torques(
             fj = fj * f_scale[..., j : j + 1]
         tau_eff = tau_eff + K._mv(J.transpose(-1, -2), fj)
     tau_ff = (tau_id - tau_eff)[..., 6:]
-    tau_fb = -gains.kp * (q[..., 7:] - q_des[..., 7:]) - gains.kd * (v[..., 6:] - v_des[..., 6:])
+    kp, kd = per_robot(gains.kp), per_robot(gains.kd)
+    tau_fb = -kp * (q[..., 7:] - q_des[..., 7:]) - kd * (v[..., 6:] - v_des[..., 6:])
     return tau_ff, tau_fb

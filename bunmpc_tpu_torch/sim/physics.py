@@ -14,6 +14,10 @@ State convention is Pinocchio's (q: base position + quaternion (xyzw) +
 joints; v: local-frame base twist + joint rates). Every step is batched
 tensor ops with no host synchronisation, so a loop of steps on the card
 never waits for the host.
+
+Every field of ``ContactParams`` and ``SimParams`` but ``dt`` is a float for
+the whole batch or a (B,) tensor per robot (the JAX package's ``vmap`` over
+a batch of parameters: domain randomisation and the stability sweeps).
 """
 
 from __future__ import annotations
@@ -42,6 +46,12 @@ class SimParams:
     contact: ContactParams = ContactParams()
     joint_damping: float = 0.02  # motor/transmission damping
     torque_limit: float = 2.7  # Solo12 actuator limit [N m]
+
+
+def per_robot(x):
+    """A parameter as it broadcasts against (B, n) rows: a float as it is, a
+    (B,) tensor as (B, 1)."""
+    return x[..., None] if torch.is_tensor(x) else x
 
 
 class SimState(NamedTuple):
@@ -91,15 +101,17 @@ def step(
     dt = params.dt
     if kin is None:
         kin = K.body_velocities(model, q, v)
-    tau_joints = torch.clamp(tau_joints, -params.torque_limit, params.torque_limit)
+    lim = per_robot(params.torque_limit)
+    tau_joints = torch.clamp(tau_joints, -lim, lim)
+    kn, dn, kt, mu = (per_robot(x) for x in (cp.kn, cp.dn, cp.kt, cp.mu))
 
     pos, _, J = _foot_kinematics(model, eff_frames, q, v, kin)
-    pen = cp.foot_radius - pos[..., 2]  # (..., ne) penetration depth
+    pen = per_robot(cp.foot_radius) - pos[..., 2]  # (..., ne) penetration depth
     active = (pen > 0).to(q.dtype)
 
     # free dynamics
     zeros6 = torch.zeros(q.shape[:-1] + (6,), dtype=q.dtype, device=q.device)
-    tau = torch.cat([zeros6, tau_joints - params.joint_damping * v[..., 6:]], dim=-1)
+    tau = torch.cat([zeros6, tau_joints - per_robot(params.joint_damping) * v[..., 6:]], dim=-1)
     R0T = kin[2][..., 0, :, :].transpose(-1, -2)
     if f_ext is not None:
         tau = torch.cat([tau[..., 0:3] + K._mv(R0T, f_ext), tau[..., 3:]], dim=-1)
@@ -121,9 +133,9 @@ def step(
     # implicit contact solve (I + dt D G) f = k - D u_free, rows masked by activity
     MinvJT = sol[..., 1:]  # (..., nv, 3ne)
     G = J @ MinvJT
-    D = torch.stack([cp.kt * active, cp.kt * active, cp.dn * active], dim=-1).flatten(-2)
+    D = torch.stack([kt * active, kt * active, dn * active], dim=-1).flatten(-2)
     zero = torch.zeros_like(pen)
-    kvec = torch.stack([zero, zero, cp.kn * pen * active], dim=-1).flatten(-2)
+    kvec = torch.stack([zero, zero, kn * pen * active], dim=-1).flatten(-2)
     eye = torch.eye(3 * ne, dtype=q.dtype, device=q.device)
     A = eye + dt * D[..., :, None] * G
     f, _ = torch.linalg.solve_ex(A, (kvec - D * u_free)[..., None])
@@ -133,7 +145,7 @@ def step(
     fn = torch.clamp(f[..., 2], min=0.0) * active
     ft = f[..., 0:2]
     ft_norm = torch.sqrt(torch.sum(ft * ft, dim=-1) + 1e-12)
-    scale = torch.clamp(cp.mu * fn / ft_norm, max=1.0)
+    scale = torch.clamp(mu * fn / ft_norm, max=1.0)
     f = torch.cat([ft * scale[..., None], fn[..., None]], dim=-1)
 
     v_next = v_free + dt * K._mv(MinvJT, f.flatten(-2))

@@ -129,19 +129,61 @@ def settle_state(
 ) -> physics.SimState:
     """PD-hold the initial pose for ``ms`` steps, so that episodes start from
     a standing state settled into the soft contacts rather than from the raw
-    configuration dropped onto the ground."""
-    q0j = state0.q[..., 7:]
-    s = state0
+    configuration dropped onto the ground. ``kp``, ``kd`` and the fields of
+    ``sim_params`` are floats or (B,) tensors per episode (the stability
+    sweep settles each episode at its own gains and contact). On the card
+    the steps replay one captured CUDA graph, as the rollouts' substeps."""
+    b = physics.SimState(state0.q.clone(), state0.v.clone())
+    step = _Substep(_settle_step, model, eff_frames, sim_params, state0.q[..., 7:],
+                    physics.per_robot(kp), physics.per_robot(kd), gain_scale, b)
     for _ in range(ms):
-        tau = -gain_scale * kp * (s.q[..., 7:] - q0j) - gain_scale * kd * s.v[..., 6:]
-        s, _ = physics.step(model, eff_frames, sim_params, s, tau)
-    return s
+        step()
+    return b
 
 
-def _measure(q, v):
-    """The state the controller sees: the true state (sensor bias,
-    ``q_noise``/``v_noise``, waits for a later slice)."""
-    return q, v
+def _settle_step(model, eff_frames, sim_params, q0j, kp, kd, gain_scale, b: physics.SimState):
+    tau = -gain_scale * kp * (b.q[..., 7:] - q0j) - gain_scale * kd * b.v[..., 6:]
+    s, _ = physics.step(model, eff_frames, sim_params, b, tau)
+    b.q.copy_(s.q)
+    b.v.copy_(s.v)
+
+
+def _measure(q, v, q_noise=None, v_noise=None):
+    """The state the controller sees (simulation.py:471-477): the true state
+    plus a constant sensor bias, ``q_noise`` (nq,) or (B, nq) with the
+    quaternion renormalised, ``v_noise`` (nv,) or (B, nv); without a bias
+    the state buffers themselves."""
+    if q_noise is None and v_noise is None:
+        return q, v
+    qm = q
+    if q_noise is not None:
+        qm = q + q_noise
+        quat = qm[..., 3:7]
+        qm = torch.cat([qm[..., :3], quat / torch.linalg.norm(quat, dim=-1, keepdim=True),
+                        qm[..., 7:]], dim=-1)
+    vm = v if v_noise is None else v + v_noise
+    return qm, vm
+
+
+def leg_joint_mask(model: RobotModel, eff_frames):
+    """(n_eff, n_joints) incidence: 1 where the joint lies on the path from
+    the base to that end-effector frame (a numpy constant)."""
+    mask = np.zeros((len(eff_frames), model.nv - 6), np.float32)
+    for e, name in enumerate(eff_frames):
+        for j in model.ancestors(model.frames[name].body):
+            mask[e, j] = 1.0
+    return mask
+
+
+def swing_blend_scale(leg_mask_j, planned_st, meas_cnt, sb):
+    """Per-joint scale of the PD feedback for the contact-adaptive swing
+    release: the joints of a leg the gait plans as swinging
+    (``planned_st == 0``) whose foot is measured in contact get ``sb`` (0
+    releases the leg, 1 is the reference's behaviour), every other joint 1.
+    ``leg_mask_j`` (n_eff, nj), ``planned_st`` and ``meas_cnt`` (..., n_eff),
+    ``sb`` a float or a tensor that broadcasts against (..., nj)."""
+    gate = ((planned_st == 0) & meas_cnt).to(leg_mask_j.dtype)
+    return 1.0 - (1.0 - sb) * (gate @ leg_mask_j).clamp(0.0, 1.0)
 
 
 def _decode_action(cfg: RolloutConfig, action, q, v):
@@ -172,28 +214,30 @@ def _extract_action(cfg: RolloutConfig, tau, q, v, tau_ff=None, q_des=None, v_de
     raise ValueError(f"unsupported action_type {cfg.action_type!r}")
 
 
-def _later(name: str, item: str):
-    raise NotImplementedError(f"{name} waits for a later slice (ROADMAP, queue 1, {item})")
-
-
-def _refuse_later(terrain, q_noise, v_noise):
-    """The options that both the MPC and the policy rollouts take and that
-    wait for a later slice."""
+def _refuse_terrain(terrain):
     if terrain is not None:
-        _later("terrain", "item 8")
-    if q_noise is not None or v_noise is not None:
-        _later("q_noise/v_noise", "item 6")
+        raise NotImplementedError(
+            "terrain waits for a later slice (ROADMAP, queue 1, item 8)")
 
 
-def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, prev, n_shift: int):
+def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, t, v_des, prev, n_shift: int):
     """The previous window's (X, F, dual P) shifted one window and moved
-    into the new plan frame, where it is finite and sane; the cold start
-    (the tiled centroidal state, zero forces and dual) elsewhere."""
+    into the new plan frame, where it is finite and sane; elsewhere the
+    spec's cold start (the tiled centroidal state, or for "vdes" specs the
+    same riding the command on the plan's time grid at the window clock
+    ``t``), zero forces and dual."""
     model = spec.model
     B, H = qm0.shape[0], spec.horizon
     q_reset = torch.cat([torch.zeros_like(qm0[:, 0:2]), qm0[:, 2:]], dim=-1)
     com, h_lin, h_ang = K.centroidal_momentum(model, q_reset, vm0)
     defX = torch.cat([com, h_lin / model.total_mass, h_ang], dim=-1)[:, None].expand(B, H + 1, 9)
+    if spec.warm_start_style == "vdes":
+        dts = torch.full((B, H), spec.params.gait_dt, dtype=qm0.dtype, device=qm0.device)
+        dts[:, 0] = G.first_knot_dt(spec.gait, t)
+        tg = torch.cat([torch.zeros_like(dts[:, :1]), torch.cumsum(dts, dim=1)], dim=1)
+        vdw = (quat_to_rot(q_reset[:, 3:7]) @ v_des[..., None])[..., 0]
+        defX = torch.cat([defX[..., 0:2] + tg[..., None] * vdw[:, None, 0:2], defX[..., 2:3],
+                          vdw[:, None, :].expand(B, H + 1, 3), defX[..., 6:]], dim=-1)
     if prev is None:
         zF = torch.zeros((B, H, spec.n_eff, 3), dtype=qm0.dtype, device=qm0.device)
         return defX.contiguous(), zF, torch.zeros_like(defX)
@@ -303,36 +347,32 @@ def rollout_mpc(
 
     ``warm_start_carry`` feeds each window's ADMM the previous window's
     (X, F, dual P), shifted one window, behind the JAX package's health
-    gate. None means on for "tiled" specs with ``admm_backend="torch"``.
-    With ``admm_backend="cuda"`` None means off, the reference's cold start,
-    and True raises ``ValueError``: K1, like the JAX package's Pallas ADMM,
-    keeps its dual inside the kernel, and carrying X and F with a zero dual
-    would be an algorithm neither package runs.
+    gate, on either backend (K1 takes the dual in and gives it back). None
+    means on for "tiled" specs (the Solo family) and off for "vdes" specs
+    (the Go2: a carried solution drags the next solve back to the stay-put
+    basin the command-riding start avoids), the JAX package's default.
 
-    ``gains`` overrides the controller's PD gains with one (kp, kd) for the
-    batch. ``push_force`` pushes the base: a (T, 3) world-frame force per
-    episode step for the whole batch, or (B, T, 3) per episode (the JAX
-    package's ``vmap`` over a (T, 3) push); each substep adds its step's row
-    to the physics step as ``f_ext``. ``terrain`` (ROADMAP queue 1, item 8),
-    ``q_noise``/``v_noise``, ``swing_blend``, ``force_gate`` and per-episode
-    gains or simulator parameters (item 6) wait for a later slice and raise
-    ``NotImplementedError``.
+    Sensor bias (simulation.py:56-61, 471-477): ``q_noise`` (nq,) or (B, nq)
+    and ``v_noise`` (nv,) or (B, nv) are added to the state the solver, the
+    controller and the records see; the physics integrates the true state.
+
+    Per episode: ``gains`` overrides the controller's PD gains with floats
+    or (B,) tensors; every field of ``sim_params`` but ``dt`` may be a (B,)
+    tensor. ``swing_blend`` (a float or (B,)) scales the PD feedback of a
+    leg the gait plans as swinging while its foot is measured in contact
+    (0 releases the leg, 1 is the reference's behaviour); ``force_gate`` (a
+    float or (B,)) scales the feed-forward J^T f of a leg measured airborne.
+    Both read the previous step's measured contact (all feet down at the
+    start) and, like the push, live in device buffers that the substep's
+    CUDA graph reads. ``push_force`` pushes the base: a (T, 3) world-frame
+    force per episode step for the whole batch, or (B, T, 3) per episode (the
+    JAX package's ``vmap`` over a (T, 3) push); each substep adds its step's
+    row to the physics step as ``f_ext``. ``terrain`` (ROADMAP queue 1,
+    item 8) waits for a later slice and raises ``NotImplementedError``.
     """
-    _refuse_later(terrain, q_noise, v_noise)
-    if swing_blend is not None or force_gate is not None:
-        _later("swing_blend/force_gate", "item 6")
-    if gains is not None and (torch.is_tensor(gains.kp) or torch.is_tensor(gains.kd)):
-        _later("per-episode gains", "item 6")
-    scalars = (sim_params.dt, sim_params.joint_damping, sim_params.torque_limit,
-               *dataclasses.astuple(sim_params.contact))
-    if any(torch.is_tensor(x) for x in scalars):
-        _later("per-episode sim_params", "item 6")
-    if admm_backend == "cuda" and warm_start_carry:
-        raise ValueError(
-            "warm_start_carry=True carries the ADMM dual, which K1 (admm_backend='cuda') does "
-            "not keep; use admm_backend='torch' or warm_start_carry=False")
+    _refuse_terrain(terrain)
     if warm_start_carry is None:
-        warm_start_carry = admm_backend == "torch" and spec.warm_start_style == "tiled"
+        warm_start_carry = spec.warm_start_style == "tiled"
     _check_window(spec, cfg)
 
     if gains is None:
@@ -342,13 +382,76 @@ def rollout_mpc(
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
     w_des = torch.as_tensor(w_des, dtype=dtype, device=device)
     start_time = _start_time(start_time, B, q)
+    gains = controllers.IdControllerGains(kp=_per_episode(gains.kp, "gains.kp", B, q),
+                                          kd=_per_episode(gains.kd, "gains.kd", B, q))
+    sim_params = _sim_params_on(sim_params, B, q)
+    opts = _LoopOptions(
+        q_noise=_noise(q_noise, "q_noise", B, q), v_noise=_noise(v_noise, "v_noise", B, v),
+        swing_blend=_per_episode(swing_blend, "swing_blend", B, q),
+        force_gate=None if force_gate is None else torch.as_tensor(
+            _per_episode(force_gate, "force_gate", B, q), dtype=dtype, device=device).expand(B),
+        leg_mask=None if swing_blend is None else torch.as_tensor(
+            leg_joint_mask(spec.model, spec.eff_frames), dtype=dtype, device=device))
     b = _make_buffers(spec, cfg, q, v)
     push = _push(push_force, B, b.states.shape[1], q)
     substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des,
-                       _step0(start_time, cfg, q), push, b)
-    _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry,
+                       _step0(start_time, cfg, q), push, opts, b)
+    _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry, opts,
              admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
     return _result(b, torch.ones((B, b.states.shape[1]), dtype=dtype, device=device))
+
+
+class _LoopOptions(NamedTuple):
+    """The closed loop's per-run options as the substeps read them: tensors
+    on the state's device (or floats), made before any capture."""
+
+    q_noise: torch.Tensor | None = None  # (B, nq)
+    v_noise: torch.Tensor | None = None  # (B, nv)
+    swing_blend: torch.Tensor | float | None = None  # (B,) or a float
+    force_gate: torch.Tensor | None = None  # (B,)
+    leg_mask: torch.Tensor | None = None  # (n_eff, nj), with swing_blend
+
+
+def _per_episode(x, name: str, B: int, like: torch.Tensor):
+    """A float (or None) as it is; a tensor or array as a (B,) tensor in
+    ``like``'s dtype and device, one value per episode."""
+    if x is None or isinstance(x, (int, float)):
+        return x
+    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if t.dim() == 0:
+        return float(t)
+    if tuple(t.shape) != (B,):
+        raise ValueError(f"{name}: a float or a ({B},) tensor, got shape {tuple(t.shape)}")
+    return t
+
+
+def _sim_params_on(sp: physics.SimParams, B: int, like: torch.Tensor) -> physics.SimParams:
+    """``sp`` with each per-episode field as a (B,) tensor on ``like``'s
+    device and dtype (``dt`` stays one float)."""
+    if torch.is_tensor(sp.dt):
+        raise ValueError("sim_params.dt is one step for the batch: a float")
+
+    contact = physics.ContactParams(**{
+        f.name: _per_episode(getattr(sp.contact, f.name), f.name, B, like)
+        for f in dataclasses.fields(sp.contact)})
+    return physics.SimParams(
+        dt=sp.dt, contact=contact,
+        joint_damping=_per_episode(sp.joint_damping, "joint_damping", B, like),
+        torque_limit=_per_episode(sp.torque_limit, "torque_limit", B, like))
+
+
+def _noise(x, name: str, B: int, like: torch.Tensor):
+    """A sensor bias as a (B, n) tensor in ``like``'s dtype and device: one
+    (n,) bias for the batch is expanded."""
+    if x is None:
+        return None
+    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    n = like.shape[-1]
+    if t.shape == (n,):
+        t = t.expand(B, n)
+    if tuple(t.shape) != (B, n):
+        raise ValueError(f"{name}: a ({n},) or ({B}, {n}) tensor, got shape {tuple(t.shape)}")
+    return t.contiguous()
 
 
 class _Buffers(NamedTuple):
@@ -363,6 +466,8 @@ class _Buffers(NamedTuple):
     fail_step: torch.Tensor
     i: torch.Tensor  # substep within the window
     k: torch.Tensor  # step within the episode
+    sim_t: torch.Tensor  # (B,) the window's start time, unrounded (swing_blend's clock)
+    prev_cnt: torch.Tensor  # (B, n_eff) bool: the previous step's measured contact
     xs_int: torch.Tensor
     us_int: torch.Tensor
     f_int: torch.Tensor
@@ -404,6 +509,8 @@ def _make_buffers(spec: KD.CyclicMpcSpec, cfg: RolloutConfig, q, v, gated: bool 
         fail_step=torch.full((B,), cfg.episode_length, dtype=torch.int32, device=device),
         i=torch.zeros((), dtype=torch.int64, device=device),
         k=torch.zeros((), dtype=torch.int64, device=device),
+        sim_t=torch.zeros(B, dtype=dtype, device=device),
+        prev_cnt=torch.ones((B, ne), dtype=torch.bool, device=device),  # a standing start
         xs_int=torch.empty((B, spec.n_int, model.nq + model.nv), dtype=dtype, device=device),
         us_int=torch.empty((B, spec.n_int, model.nv), dtype=dtype, device=device),
         f_int=torch.empty((B, spec.n_int, 3 * ne), dtype=dtype, device=device),
@@ -418,18 +525,21 @@ def _make_buffers(spec: KD.CyclicMpcSpec, cfg: RolloutConfig, q, v, gated: bool 
 
 
 def _windows(spec, cfg, b: _Buffers, substep, start_time, v_des, w_des, warm_start_carry,
-             ddp_cfg=None, **solve_kw):
-    """The loop over replanning windows: one batched solve on the state at
-    the window clock (with the previous window's (X, F, P) carried where
-    ``warm_start_carry``), the plan into the buffers, then the substeps."""
+             opts: _LoopOptions = _LoopOptions(), ddp_cfg=None, **solve_kw):
+    """The loop over replanning windows: one batched solve on the measured
+    state at the window clock (with the previous window's (X, F, P) carried
+    where ``warm_start_carry``), the plan into the buffers, then the
+    substeps."""
     B = b.q.shape[0]
     ddp_cfg = DdpConfig() if ddp_cfg is None else ddp_cfg
     n_shift = max(1, int(round(cfg.plan_freq / spec.params.gait_dt)))
     prev = None
     for w in range(cfg.n_windows):
         t = KD.window_clock(start_time, w, cfg.plan_freq, b.q).expand(B)
-        qm0, vm0 = _measure(b.q, b.v)
-        warm = _carried_warm_start(spec, qm0, vm0, prev, n_shift) if warm_start_carry else None
+        b.sim_t.copy_(KD.window_start(start_time, w, cfg.plan_freq, b.q).expand(B))
+        qm0, vm0 = _measure(b.q, b.v, opts.q_noise, opts.v_noise)
+        warm = (_carried_warm_start(spec, qm0, vm0, t, v_des, prev, n_shift)
+                if warm_start_carry else None)
         plan = KD.solve_mpc_batch(spec, qm0, vm0, t, v_des, w_des, warm_start=warm,
                                   ddp_cfg=ddp_cfg, **solve_kw)
         if warm_start_carry:  # qm0 is the state buffer the substeps overwrite: copy its xy
@@ -501,29 +611,44 @@ def _advance(b, records, new: physics.SimState, now_failed):
     b.k.add_(1)
 
 
-def _plan_torques(spec, sim_params, gains, b: _Buffers, qm, vm):
+def _plan_torques(spec, sim_params, cfg, gains, b: _Buffers, qm, vm,
+                  opts: _LoopOptions = _LoopOptions()):
     """The ID controller's torques at substep ``b.i`` of the window's plan,
-    saturated before they are recorded (the recorded expert action is the
-    torque the actuator can apply): ``(tau, tau_ff, q_des, v_des_traj)``."""
+    with ``force_gate`` on the feed-forward forces and ``swing_blend`` on
+    the feedback, saturated before they are recorded (the recorded expert
+    action is the torque the actuator can apply): ``(tau, tau_ff, q_des,
+    v_des_traj)``."""
     model, nq = spec.model, spec.model.nq
     i1 = b.i.view(1)
     xs = b.xs_int.index_select(1, i1)[:, 0]
     q_des, v_des_traj = xs[:, :nq], xs[:, nq:]
+    f_scale = None
+    if opts.force_gate is not None:  # scale the forces of legs measured airborne
+        fg = opts.force_gate[:, None]
+        f_scale = torch.where(b.prev_cnt, torch.ones_like(fg), fg)
     tau_ff, tau_fb = controllers.id_joint_torques(
         model, spec.eff_frames, gains, qm, vm, q_des, v_des_traj,
-        b.us_int.index_select(1, i1)[:, 0], b.f_int.index_select(1, i1)[:, 0])
-    lim = sim_params.torque_limit
+        b.us_int.index_select(1, i1)[:, 0], b.f_int.index_select(1, i1)[:, 0], f_scale=f_scale)
+    if opts.swing_blend is not None:  # release planned-swing legs still on the ground
+        t_ms = b.sim_t + b.i.to(qm.dtype) * cfg.sim_dt
+        planned = G.in_stance(spec.gait, t_ms)
+        tau_fb = swing_blend_scale(opts.leg_mask, planned, b.prev_cnt,
+                                   physics.per_robot(opts.swing_blend)) * tau_fb
+    lim = physics.per_robot(sim_params.torque_limit)
     return torch.clamp(tau_ff + tau_fb, -lim, lim), tau_ff, q_des, v_des_traj
 
 
-def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, push, b: _Buffers):
+def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, push, opts: _LoopOptions,
+             b: _Buffers):
     model, eff = spec.model, spec.eff_frames
-    qm, vm = _measure(b.q, b.v)
+    biased = opts.q_noise is not None or opts.v_noise is not None
+    qm, vm = _measure(b.q, b.v, opts.q_noise, opts.v_noise)
     kin = K.body_velocities(model, qm, vm)
     fk = (kin[2], kin[3])
-    tau, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, gains, b, qm, vm)
+    tau, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, cfg, gains, b, qm, vm, opts)
+    # the physics steps the true state: the measured state's kinematics only without a bias
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
-                              f_ext=_push_at(push, b.k), kin=kin)
+                              f_ext=_push_at(push, b.k), kin=None if biased else kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
     records = (
         state_features(model, eff, qm, vm, fk=fk),
@@ -536,6 +661,7 @@ def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, push, b: _Buffer
         cinfo.in_contact,
     )
     _advance(b, records, new, now_failed)
+    b.prev_cnt.copy_(cinfo.in_contact)
     b.i.add_(1)
 
 
@@ -621,7 +747,7 @@ def _gated_substep(spec, sim_params, cfg, gains, v_des, w_des, step0, policy_fn,
     use, blocked = gate_fn(qm, b.k, b.use_mpc, b.steps_blocked)
     b.use_mpc.copy_(use)
     b.steps_blocked.copy_(blocked)
-    tau_mpc, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, gains, b, qm, vm)
+    tau_mpc, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, cfg, gains, b, qm, vm)
     action_pol = policy_fn(feat, goal)
     u = b.use_mpc[:, None]
     tau = torch.where(u, tau_mpc, _decode_action(cfg, action_pol, qm, vm))
@@ -819,10 +945,10 @@ def rollout_policy(
     ``cfg.action_type`` (simulation.py:760-777), and no MPC runs. On the card
     each substep, the policy's forward pass included, is one CUDA-graph
     replay. ``vc_goals`` records the goal the policy saw (vc or cc).
-    ``push_force`` pushes the base as in ``rollout_mpc``. ``terrain``
-    (ROADMAP queue 1, item 8) and ``q_noise``/``v_noise`` (item 6) raise
-    ``NotImplementedError``."""
-    _refuse_later(terrain, q_noise, v_noise)
+    ``push_force`` pushes the base and ``q_noise``/``v_noise`` bias the
+    measured state as in ``rollout_mpc``. ``terrain`` (ROADMAP queue 1,
+    item 8) raises ``NotImplementedError``."""
+    _refuse_terrain(terrain)
     q, v = _state_on_device(spec, state0)
     B, dtype, device = q.shape[0], q.dtype, q.device
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
@@ -850,8 +976,10 @@ def rollout_policy(
         vc_goals=empty(n_goal), base=empty(3), com=empty(3), contact_forces=empty(ne, 3),
         contact_pos=empty(ne, 3), in_contact=empty(ne, dt=torch.bool),
     )
+    opts = _LoopOptions(q_noise=_noise(q_noise, "q_noise", B, q),
+                        v_noise=_noise(v_noise, "v_noise", B, v))
     substep = _Substep(_policy_substep, spec, sim_params, cfg, policy_fn, goal_fn,
-                       _push(push_force, B, T, q), b)
+                       _push(push_force, B, T, q), opts, b)
     for _ in range(T):
         substep()
     return RolloutResult(
@@ -881,9 +1009,11 @@ class _PolicyBuffers(NamedTuple):
     in_contact: torch.Tensor
 
 
-def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, push, b: _PolicyBuffers):
+def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, push, opts: _LoopOptions,
+                    b: _PolicyBuffers):
     model, eff = spec.model, spec.eff_frames
-    qm, vm = _measure(b.q, b.v)
+    biased = opts.q_noise is not None or opts.v_noise is not None
+    qm, vm = _measure(b.q, b.v, opts.q_noise, opts.v_noise)
     kin = K.body_velocities(model, qm, vm)
     fk = (kin[2], kin[3])
     feat = state_features(model, eff, qm, vm, fk=fk)
@@ -891,7 +1021,7 @@ def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, push, b: _PolicyB
     action = policy_fn(feat, goal)
     tau = _decode_action(cfg, action, qm, vm)
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
-                              f_ext=_push_at(push, b.k), kin=kin)
+                              f_ext=_push_at(push, b.k), kin=None if biased else kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k)
     records = (feat, action, goal, qm[:, 0:3], K.com_from_fk(model, *fk), cinfo.forces,
                cinfo.positions, cinfo.in_contact)

@@ -6,7 +6,9 @@ kernel is ``csrc/admm.cu`` over the per-problem code of ``csrc/admm_core.cuh``
 (a warp and a slice of the block's shared memory per problem, see their
 headers for the design and what bounds it). ``solve`` takes a batch of any
 size B (no padding) and any horizon whose problem fits a block's shared
-memory (``launch_per_block``; past that it raises).
+memory (``launch_per_block``; past that it raises). It takes an optional
+scaled dual ``P_wm`` (a receding-horizon warm start; zeros otherwise) and
+returns the final dual at the base rho, as the plain version does.
 
 Dispatch: tensors on the CPU go to the plain version (``solvers/biconvex.py``);
 tensors on a CUDA device go to the kernel, or the call raises.
@@ -73,20 +75,22 @@ def plain_config(cfg: CudaAdmmConfig) -> biconvex.BiconvexConfig:
     )
 
 
-def solve_plain(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_reg_ref=None):
+def solve_plain(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_reg_ref=None,
+                P_wm=None):
     """K1's plain version: the batched PyTorch ADMM, same returns as ``solve``."""
     _check_config(cfg)
     res = biconvex.solve(
         plan, m, x_init, biconvex.CostX(W=W, X_ref=X_ref_target), W_F, X_wm, F_wm,
-        torch.zeros_like(X_wm), plain_config(cfg), x_bounds=x_bounds, F_ref=F_reg_ref,
+        torch.zeros_like(X_wm) if P_wm is None else P_wm, plain_config(cfg), x_bounds=x_bounds,
+        F_ref=F_reg_ref,
     )
-    return res.X, res.F, res.viol_norm, res.admm_iters
+    return res.X, res.F, res.viol_norm, res.admm_iters, res.P
 
 
 _I = ctypes.c_int
 _D = ctypes.c_double
 _P = ctypes.c_void_p
-ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 17
+ARGTYPES = [_I] * 9 + [_D] * 11 + [_P] * 19
 
 
 def config_args(H: int, m: float, cfg: CudaAdmmConfig) -> list:
@@ -118,11 +122,12 @@ def launch_per_block(H: int) -> int:
 
 
 def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
-                F_reg_ref=None):
+                F_reg_ref=None, P_wm=None):
     """Checked inputs, freshly allocated outputs, and the C argument list
     (without the launch configuration) of one kernel call. Returns
     ``(args, keep, outputs)``: ``keep`` holds every tensor the call points at,
-    ``outputs`` is ``(X, F, viol, iters, fista_iters)``."""
+    ``outputs`` is ``(X, F, viol, iters, fista_iters, P)``. ``P_wm`` None
+    starts the dual at zero (a null pointer)."""
     _check_config(cfg)
     B, H, ne = plan.cnt.shape
     if ne != NE:
@@ -135,6 +140,8 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
         "X_wm": (X_wm, (B, H + 1, 9)), "F_wm": (F_wm, (B, H, NE, 3)),
         "lb": (x_bounds[0], (B, H + 1, 9)), "ub": (x_bounds[1], (B, H + 1, 9)),
     }
+    if P_wm is not None:
+        shapes["P_wm"] = (P_wm, (B, H + 1, 9))
     for name, (a, shape) in shapes.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {shape}")
@@ -151,23 +158,24 @@ def kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg
     ub = torch.clamp(x_bounds[1], -BIG, BIG)
     X = torch.empty_like(X_wm)
     F = torch.empty_like(F_wm)
+    P = torch.empty_like(X_wm)
     viol = torch.empty((B,), dtype=dtype, device=device)
     iters = torch.empty((B,), dtype=torch.int32, device=device)
     fista = torch.empty((B,), dtype=torch.int32, device=device)
-    ptrs = [plan.cnt, plan.r, plan.dt, x_init, W, ql, W_F, qF, lb, ub, X_wm, F_wm,
-            X, F, viol, iters, fista]
-    args = [B] + config_args(H, m, cfg) + [t.data_ptr() for t in ptrs]
-    return args, ptrs, (X, F, viol, iters, fista)
+    ptrs = [plan.cnt, plan.r, plan.dt, x_init, W, ql, W_F, qF, lb, ub, X_wm, F_wm, P_wm,
+            X, F, P, viol, iters, fista]
+    args = [B] + config_args(H, m, cfg) + [None if t is None else t.data_ptr() for t in ptrs]
+    return args, ptrs, (X, F, viol, iters, fista, P)
 
 
-def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_reg_ref):
+def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_reg_ref, P_wm):
     if x_init.device.type != "cuda":
         raise ValueError(f"the ADMM kernel runs on a CUDA device, got {x_init.device}")
     if x_init.dtype != torch.float32:
         raise ValueError(f"the ADMM kernel takes float32, got {x_init.dtype}")
     per_block = launch_per_block(plan.dt.shape[1])
     args, keep, out = kernel_args(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm,
-                                  x_bounds, cfg, F_reg_ref)
+                                  x_bounds, cfg, F_reg_ref, P_wm)
     with torch.cuda.device(x_init.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch("admm_launch_f32", args + [per_block, stream], ARGTYPES + [_I, _P])
@@ -176,11 +184,11 @@ def _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg, F_
 
 
 def fista_iterations(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
-                     F_reg_ref=None):
+                     F_reg_ref=None, P_wm=None):
     """F-step FISTA iterations the kernel runs per problem on these inputs (B,) —
     the data-dependent part of its arithmetic, for measuring."""
     return _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
-                   F_reg_ref)[4]
+                   F_reg_ref, P_wm)[4]
 
 
 def solve(
@@ -195,10 +203,13 @@ def solve(
     x_bounds,  # (lb, ub): (B, H+1, 9) each
     cfg: CudaAdmmConfig,
     F_reg_ref=None,  # optional (B, H, ne, 3) force regularization point
+    P_wm=None,  # optional (B, H+1, 9) scaled dual at the base rho (None: zeros)
 ):
-    """Batched biconvex ADMM. Returns ``(X, F, viol (B,), iters (B,))``."""
+    """Batched biconvex ADMM. Returns ``(X, F, viol (B,), iters (B,), P)``,
+    ``P`` the final scaled dual at the base rho."""
     if x_init.device.type == "cpu":
         return solve_plain(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
-                           F_reg_ref)
-    return _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm, x_bounds, cfg,
-                   F_reg_ref)[:4]
+                           F_reg_ref, P_wm)
+    X, F, viol, iters, _, P = _launch(plan, m, x_init, W, X_ref_target, W_F, X_wm, F_wm,
+                                      x_bounds, cfg, F_reg_ref, P_wm)
+    return X, F, viol, iters, P

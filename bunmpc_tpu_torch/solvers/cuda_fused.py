@@ -215,7 +215,7 @@ def solve_from_state_plain(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, m
     returns as ``solve_from_state``."""
     a = _assemble(t, v_des_w, w_des, x_init, ee_pos, hip_world, amom, pc, m, H, ne)
     plan = ContactPlan(cnt=a["cnt"], r=a["r"], dt=a["dt"])
-    X, F, viol, iters = cuda_admm.solve_plain(
+    X, F, viol, iters, _ = cuda_admm.solve_plain(
         plan, m, x_init, a["W"], a["X_ref"], a["WF"], a["X0"], a["F0"], (a["lb"], a["ub"]), cfg,
         a["F_reg"],
     )

@@ -2,7 +2,9 @@
 numpy: bench.py's batch of Solo12 trot states (and, per gait, the same batch
 led by the gait's own check), the random IK problems of the JAX package's own
 DDP kernel check (tests/test_pallas_ddp.py), and the closed loop's settled
-standing start and command draw."""
+standing start and command draw; for the Go2 the same recipe on its q0, the
+simulator its walking trot is validated on, its settled start and the JAX
+package's stability-sweep grid (scripts/sweep_stability.py)."""
 
 from __future__ import annotations
 
@@ -11,18 +13,20 @@ import torch
 
 from .mpc import ik as IK
 from .mpc import kino_dyn as KD
+from .mpc.motions import go2_cyclic
 from .mpc.motions.solo12_cyclic import trot_sim
+from .robots.go2 import Go2Config
 from .robots.solo12 import Solo12Config
-from .sim import physics, rollout
+from .sim import controllers, physics, rollout
 
 
-def trot_states(n: int, seed: int = 0):
+def trot_states(n: int, seed: int = 0, q0=None):
     """bench.py's inputs ``(q, v, t, v_des, w_des)`` as float64 numpy arrays:
-    q0 with N(0, 0.05) joint offsets, N(0, 0.05) velocities, a uniform gait
-    clock in [0, 0.5), commands v_des in [-0.3, 0.5] x [-0.2, 0.2] and yaw
-    rates in [-0.3, 0.3]."""
+    q0 (Solo12's unless given) with N(0, 0.05) joint offsets, N(0, 0.05)
+    velocities, a uniform gait clock in [0, 0.5), commands v_des in
+    [-0.3, 0.5] x [-0.2, 0.2] and yaw rates in [-0.3, 0.3]."""
     rng = np.random.default_rng(seed)
-    q = np.tile(Solo12Config.q0(), (n, 1))
+    q = np.tile(Solo12Config.q0() if q0 is None else q0, (n, 1))
     q[:, 7:] += rng.normal(size=(n, 12)) * 0.05
     v = rng.normal(size=(n, 18)) * 0.05
     t = rng.uniform(0, 0.5, size=n)
@@ -119,3 +123,122 @@ def command_draw(n: int, seed: int = 0):
     v_des = np.zeros((n, 3))
     v_des[:, 0] = rng.uniform(0.0, 0.3, n)
     return v_des, np.zeros(n)
+
+
+def go2_states(name: str, n: int, seed: int = 0):
+    """bench.py's recipe (``trot_states``) on the Go2's q0, led by the JAX
+    package's Go2 check (tests/test_go2.py:139-144): problem 0 is q0 at rest
+    at t=0 with v_des = (0.3, 0, 0) and no yaw rate. ``name`` is a key of
+    ``go2_cyclic.GAITS``."""
+    if name not in go2_cyclic.GAITS:
+        raise ValueError(f"unknown Go2 gait {name!r}")
+    q, v, t, v_des, w_des = trot_states(n, seed, q0=Go2Config.q0())
+    q[0], v[0], t[0], w_des[0] = Go2Config.q0(), 0.0, 0.0, 0.0
+    v_des[0] = (0.3, 0.0, 0.0)
+    return q, v, t, v_des, w_des
+
+
+def go2_spec(name: str, device="cuda"):
+    """The Go2 spec of ``go2_cyclic.GAITS[name]`` with the Go2's feet, thighs
+    and foot size (generic offsets, the "vdes" warm start)."""
+    C = Go2Config
+    return KD.make_cyclic_spec(C.load_model(), go2_cyclic.GAITS[name], C.q0(),
+                               eff_frames=tuple(C.eff_names), hip_frames=tuple(C.hip_names),
+                               foot_size=C.foot_size, device=device)
+
+
+def go2_sim_params():
+    """The simulator the Go2's walking trot (``trot_sim``) is validated on
+    (the JAX package's tests/test_gait_quality.py:86-91): contact kn=6e4,
+    dn=3000, kt=3000, mu=1 on a 2 cm foot, a 23.7 N m torque limit."""
+    return physics.SimParams(
+        contact=physics.ContactParams(foot_radius=Go2Config.foot_size, kn=6e4, dn=3000.0,
+                                      kt=3000.0, mu=1.0),
+        torque_limit=23.7)
+
+
+def go2_settled_start(n: int, device="cuda", dtype=torch.float32, sim_params=None, kp=None,
+                      kd=None):
+    """The Go2's closed-loop start: q0 PD-held for 500 ms (``settle_state``)
+    at ``trot_sim``'s gains on ``go2_sim_params()`` (or the given per-episode
+    gains and simulator, (n,) tensors, as the stability sweep settles), as n
+    states on ``device``."""
+    device = KD.resolve_device(device)
+    model = Go2Config.load_model()
+    per_episode = sim_params is not None or kp is not None or kd is not None
+    m = n if per_episode else 1  # one settle, copied, where every episode has the same
+    s0 = physics.SimState(
+        q=torch.as_tensor(np.tile(Go2Config.q0(), (m, 1)), dtype=dtype, device=device),
+        v=torch.zeros((m, model.nv), dtype=dtype, device=device),
+    )
+    sp = go2_sim_params() if sim_params is None else sim_params
+    kp = go2_cyclic.trot_sim.kp if kp is None else kp
+    kd = go2_cyclic.trot_sim.kd if kd is None else kd
+    s = rollout.settle_state(model, tuple(Go2Config.eff_names), sp, s0, kp, kd)
+    return physics.SimState(q=s.q.expand(n, -1).contiguous(), v=s.v.expand(n, -1).contiguous())
+
+
+def go2_sweep_grid():
+    """The JAX package's Go2 stability sweep (scripts/sweep_stability.py:
+    118-127, artifacts/stability_sweep_go2.json): (kp, kd) x (kn, dn, kt) x
+    (swing_blend, force_gate), 40 combinations in the script's order, as a
+    dict of (40,) float64 arrays."""
+    gains = [(25.0, 1.0), (25.0, 2.0), (40.0, 2.0), (60.0, 3.0)]
+    contact = [(6e4, 3000.0, 3000.0), (1.2e5, 5000.0, 5000.0)]
+    blend = [(1.0, 1.0), (0.5, 1.0), (0.5, 0.0), (0.2, 1.0), (0.2, 0.0)]
+    rows = [(kp, kd, kn, dn, kt, sb, fg) for kp, kd in gains for kn, dn, kt in contact
+            for sb, fg in blend]
+    cols = np.asarray(rows, np.float64).T
+    return dict(zip(("kp", "kd", "kn", "dn", "kt", "swing_blend", "force_gate"), cols))
+
+
+def go2_sweep_options(grid: dict, device="cuda", dtype=torch.float32):
+    """A sweep grid as ``rollout_mpc``'s per-episode options: ``(gains,
+    sim_params, swing_blend, force_gate)``, (B,) tensors on ``device`` with
+    the Go2's foot, friction, joint damping and torque limit."""
+    device = KD.resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    B = len(grid["kp"])
+    base = go2_sim_params()
+    sp = physics.SimParams(
+        contact=physics.ContactParams(
+            foot_radius=t(np.full(B, base.contact.foot_radius)), kn=t(grid["kn"]),
+            dn=t(grid["dn"]), kt=t(grid["kt"]), mu=t(np.full(B, base.contact.mu))),
+        joint_damping=t(np.full(B, base.joint_damping)),
+        torque_limit=t(np.full(B, base.torque_limit)))
+    gains = controllers.IdControllerGains(kp=t(grid["kp"]), kd=t(grid["kd"]))
+    return gains, sp, t(grid["swing_blend"]), t(grid["force_gate"])
+
+
+def go2_commands(n: int, seed: int = 0):
+    """Forward commands for the Go2's walking trot: vx ~ U[0.15, 0.3] (the
+    range its sweep walks in), episode 0 the JAX gait gate's exact 0.3 m/s
+    (tests/test_gait_quality.py:75-101); ``(v_des (n, 3), w_des (n,))`` as
+    float64 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    v_des = np.zeros((n, 3))
+    v_des[:, 0] = rng.uniform(0.15, 0.3, n)
+    v_des[0, 0] = 0.3
+    return v_des, np.zeros(n)
+
+
+def go2_window_inputs(n: int, seed: int = 11):
+    """A Go2 window with every per-episode option (chip_smoke.py phase 11b
+    and the CPU test of its gate): episode b takes row ``b % 40`` of
+    ``go2_sweep_grid()`` (its gains and contact, from its own settle), the
+    commands ``go2_commands(n, seed=1)``, and seeded sensor biases (base
+    height 3 mm, quaternion and joints 0.01, velocities 0.02). Returns a dict
+    of float64 numpy arrays: ``rows``, ``q_noise``, ``v_noise``, ``v_des``,
+    ``w_des``."""
+    rows = np.arange(n) % len(go2_sweep_grid()["kp"])
+    rng = np.random.default_rng(seed)
+    q_noise = np.zeros((n, Go2Config.q0().shape[0]))
+    q_noise[:, 2] = rng.normal(size=n) * 0.003
+    q_noise[:, 3:7] = rng.normal(size=(n, 4)) * 0.01
+    q_noise[:, 7:] = rng.normal(size=(n, 12)) * 0.01
+    v_noise = rng.normal(size=(n, 18)) * 0.02
+    v_des, w_des = go2_commands(n, seed=1)
+    return dict(rows=rows, q_noise=q_noise, v_noise=v_noise, v_des=v_des, w_des=w_des)

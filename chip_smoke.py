@@ -13,11 +13,13 @@ trot's horizons (the trot with ``gait_horizon=4.0``: ADMM H=40, IK H=20)
 against their plain versions, and drives two paths of the
 batched Solo12 trot MPC solve of ``bench.py`` (B=512, f32): the main path
 ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` (K1, K2) and the
-fused path with ``fuse_prep=True`` (K3, K2). Then it drives the closed loop
-(``sim.rollout.rollout_mpc``, the walking trot ``trot_sim`` from a settled
-start): one window against the plain path in f64 (phase 7a), and 512
-episodes of 3000 steps, K1 and K2 once per window, gated on survival and
-the survivors' median roll and height (phase 7b). Then the learning loop
+fused path with ``fuse_prep=True`` (K3, K2); phase 3c holds K1 with a
+carried scaled dual against the plain version in f64. Then it drives the
+closed loop (``sim.rollout.rollout_mpc``, the walking trot ``trot_sim`` from
+a settled start, (X, F, P) carried from window to window): two windows
+against the plain path in f64 (phase 7a), and 512 episodes of 3000 steps, K1
+and K2 once per window, gated on survival and the survivors' median roll
+and height, beside the same loop cold (phase 7b). Then the learning loop
 (phase 8): one data-collection iteration (``learning.data_collection``,
 K1 and K2 once per window of each expert rollout), BC at the bc.yaml
 widths on its database (``learning.bc``), and the trained policy with cc
@@ -31,7 +33,14 @@ main and the fused path on every Solo12 gait of ``GAITS`` (K1, K2 and K3 at
 horizons 6..30), and the eval suite (``bunmpc_tpu_torch.eval``: the MPC
 velocity grid, the policy comparison, the cc-replanning ablation, the
 max-force search with its exactness against an unpushed run, the past-goals
-matrix), K1 and K2 once per window of every MPC eval call. It checks every
+matrix), K1 and K2 once per window of every MPC eval call. Then phase 11,
+the Go2: its four gaits on both paths (11a), one window with every
+per-episode option (gains, contact, swing_blend, force_gate, sensor biases)
+against the plain path in f64 (11b), 512 episodes of 3000 steps of its
+walking trot gated on survival, roll, height and speed (11c), and the JAX
+package's 40-row stability sweep as one rollout (11d). Phases 10a and 11a's
+plain references run in worker processes on the host's CPU while the card
+works. It checks every
 path's outputs, counts each kernel's launches in each path's run, times
 them, and prints one ``kernels`` JSON line, the card's name and power limit,
 and last
@@ -40,12 +49,15 @@ on a miss; without CUDA, or without the repository next to it, it exits
 non-zero and prints no result.
 """
 
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -98,6 +110,28 @@ ADAM_MAX_TOL = 9e-4
 GATED_SPREAD = (2.75e-2, 1.63e1)
 GATED_Q_TOL = 2.8e-1
 GATED_V_TOL = 1.7e2
+# Phase 7a: two windows of the closed loop (the second solve takes the first
+# one's carried X, F and dual P) on the card against the plain path in f64,
+# end q and v; TWO_WINDOW_SPREAD is the plain path's f32-vs-f64 spread over
+# the two windows (tests/test_torch_rollout.py measures it on a CPU: 8
+# episodes, max |d|); the gates are 10x it, and that test fails where they
+# fall under 3x.
+TWO_WINDOW_SPREAD = (1.56e-6, 3.96e-5)
+TWO_WINDOW_Q_TOL = 1.6e-5
+TWO_WINDOW_V_TOL = 4e-4
+# Phase 11b: one window of the Go2 loop with every per-episode option on the
+# card against the plain path in f64, end q and v; GO2_WINDOW_SPREAD is the
+# plain path's f32-vs-f64 spread of that window (tests/test_torch_go2_rollout.py
+# measures it on a CPU: 8 episodes of the same configuration); the gates
+# are 10x it, and that test fails where they fall under 3x. Phase 11d holds
+# the sweep's row 31 to the same gates against 11c's episode 0.
+GO2_WINDOW_SPREAD = (3.84e-5, 1.55e-3)
+GO2_WINDOW_Q_TOL = 3.8e-4
+GO2_WINDOW_V_TOL = 1.5e-2
+# Phase 11d: episode steps of the sweep (the JAX package's sweep runs 3000)
+SWEEP_STEPS = 3000
+# Phase 7b: windows of the cold run compared with the carried run's first
+COLD_WINDOWS = 20
 
 
 class PhaseError(RuntimeError):
@@ -801,40 +835,95 @@ def finite_rows(torch, plan):
                         for f in PLAN_FIELDS]).all(0)
 
 
-def every_gait(torch, model, dev, zero_counts, counts, card):
-    """Phase 10a: the main path and the fused path on every Solo12 gait of
-    ``GAITS`` at B=512 on bench.py's draws, problem 0 the gait's own check
-    (``workload.gait_states``). Per gait: H and IK H, problems a block, both
-    paths' solves/s, K1, K2 and K3 ms, converged_frac; gates: launches per
-    path, finite plans, K3's contact plan against its plain prologue (phase
-    5b's plan gates), both paths against the plain path in f64 on 64
-    problems (phase 6's quantile gate, or where f32 alone moves the plan
-    past it, phase 9d's rule against the plain f32 run beside them; K3's
-    ADMM is held to the plain one there), and problem 0's dyn_violation
-    under the JAX package's bound. Where the ADMM
-    diverges (jump from mid-trot draws, in the JAX package too), f32
-    overflows: plans must be finite on every problem that did not diverge,
-    and the problems that diverged on the kernels must be those that diverge
-    on the plain path in f64 (of the 64, within 5%). Returns each gait's
-    launches per path."""
+def gait_case(robot, name, device):
+    """A gait of phase 10a (``robot`` "solo12") or 11a ("go2"): its spec on
+    ``device``, its draws ``states_of(name, n)`` and its rho."""
     from bunmpc_tpu_torch import workload
-    from bunmpc_tpu_torch.mpc import ik as IK
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions import go2_cyclic
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
     from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+
+    if robot == "go2":
+        return (workload.go2_spec(name, device=device), workload.go2_states,
+                go2_cyclic.GAITS[name].rho)
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), GAITS[name], Solo12Config.q0(),
+                               device=device)
+    return spec, workload.gait_states, GAITS[name].rho
+
+
+PARITY_N = 64  # problems of phases 10a and 11a held against the plain path
+
+
+def plain_reference(robot, name, dtype_name, batch):
+    """The plain path ("torch", "torch") of a phase 10a/11a gait on the host
+    CPU in ``dtype_name`` on the first PARITY_N problems of its ``batch``
+    draws (the card's float32 inputs, as ``gait_table`` passes them): ``xs``, ``X_opt``
+    and ``dyn_violation`` as numpy arrays. Run in worker processes while the
+    card works (the plain versions' time is their launches and host
+    dispatch, seconds a gait whatever the batch)."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.solvers import cuda_admm
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+
+    torch.set_num_threads(1)
+    spec, states_of, rho = gait_case(robot, name, "cpu")
+    dtype = getattr(torch, dtype_name)
+    sub = [torch.as_tensor(a, dtype=torch.float32)[:PARITY_N].double().to(dtype)
+           for a in states_of(name, batch)]
+    cfg = cuda_admm.CudaAdmmConfig(rho=rho, x_solver="thomas", fista_max_iters=30)
+    plan = KD.solve_mpc_batch(spec, *sub, admm_cfg=cuda_admm.plain_config(cfg),
+                              ddp_cfg=DdpConfig(), admm_backend="torch", ik_backend="torch")
+    return {f: getattr(plan, f).numpy() for f in ("xs", "X_opt", "dyn_violation")}
+
+
+def submit_references(pool):
+    """Every phase 10a and 11a plain reference (float64 and float32), queued
+    on the worker pool: ``{(robot, name, dtype_name): future}``."""
+    from bunmpc_tpu_torch.mpc.motions import go2_cyclic
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+
+    jobs = [(robot, name, dt) for dt in ("float64", "float32")
+            for robot, names in (("solo12", GAITS), ("go2", go2_cyclic.GAITS)) for name in names]
+    return {job: pool.submit(plain_reference, *job, B) for job in jobs}
+
+
+def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, card):
+    """The main path and the fused path on each gait of ``names`` at B=512
+    (``spec_of(name)``, ``states_of(name, B)``: problem 0 the gait's own
+    check). Per gait: H and IK H, problems a block, both paths' solves/s,
+    K1, K2 and K3 ms, converged_frac (at 1e-3 and, for a heavier robot's
+    mass-scaled residuals, 1e-2); gates: launches per path, finite plans, K3's
+    contact plan against its plain prologue (phase 5b's plan gates), both
+    paths against the plain path in f64 on 64 problems (phase 6's quantile
+    gate, or where f32 alone moves the plan past it, phase 9d's rule against
+    the plain f32 run beside them; K3's ADMM is held to the plain one there;
+    the plain runs come from ``refs``, computed on the host CPU by
+    ``plain_reference``), and ``problem0(name, plan)`` -> (printed values,
+    misses) on problem 0.
+    Where the ADMM diverges (jump from mid-trot draws, in the JAX package
+    too), f32 overflows: plans must be finite on every problem that did not
+    diverge, and the problems that diverged on the kernels must be those that
+    diverge on the plain path in f64 (of the 64, within 5%). Returns each
+    gait's launches per path and the table."""
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
     from bunmpc_tpu_torch.solvers.ddp import DdpConfig
 
-    n, ddp_cfg, m = 64, DdpConfig(), model.total_mass
-    bound0 = {"bound_turn": 1e-3, "air_bound": 1e-3, "walk": 1e-2}  # tests/test_mpc.py:177-221
+    n, ddp_cfg = PARITY_N, DdpConfig()
     launches, table, failures, fallback = {}, [], [], []
-    for name, g in GAITS.items():
+    for name in names:
         t_gait = time.perf_counter()
-        spec = KD.make_cyclic_spec(model, g, Solo12Config.q0(), device=dev)
+        spec, states_of, rho = gait_case(robot, name, "cuda")
+        model, m = spec.model, spec.model.total_mass
         H, Hik = spec.horizon, spec.ik_hor
-        inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
-                       for a in workload.gait_states(name, B))
-        cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, x_solver="thomas", fista_max_iters=30)
+        inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=spec.device)
+                       for a in states_of(name, B))
+        cfg = cuda_admm.CudaAdmmConfig(rho=rho, x_solver="thomas", fista_max_iters=30)
         row = {"gait": name, "H": H, "ik_H": Hik,
                "per_block": {"k1_k3": cuda_admm.launch_per_block(H),
                              "k2": cuda_ddp.launch_per_block(Hik)}}
@@ -857,6 +946,7 @@ def every_gait(torch, model, dev, zero_counts, counts, card):
             row[f"{path}_solves_per_sec"] = round(B / float(np.median(reps)), 1)
             p = plans[path]
             row[f"{path}_converged_frac"] = float((p.dyn_violation < 1e-3).float().mean())
+            row[f"{path}_converged_frac_1e-2"] = float((p.dyn_violation < 1e-2).float().mean())
             row[f"{path}_diverged"] = int(diverged(p).sum())
             row[f"{path}_finite"] = bool((finite_rows(torch, p) | diverged(p)).all())
         # the kernels alone, by CUDA events, on this gait's inputs
@@ -882,18 +972,14 @@ def every_gait(torch, model, dev, zero_counts, counts, card):
         row["k3_plan"] = {"flags_equal": flags, "dr": dr, "ddt": ddt}
         # both paths against the plain path in f64 on n problems: phase 6's
         # quantile gate, or where f32 alone misses it, phase 9d's rule
-        # against the plain f32 run beside them (the plain versions' time is
-        # bound by their launches, ~3-6 s a call at n = 4..16, so n is
-        # phase 6's 64 problems)
-        sub = tuple(a[:n].double() for a in inputs)
-        plain = {}
-
+        # against the plain f32 run beside them
         def plain_path(dtype):
-            if dtype not in plain:
-                plain[dtype] = KD.solve_mpc_batch(
-                    spec, *(a.to(dtype) for a in sub), admm_cfg=cuda_admm.plain_config(cfg),
-                    ddp_cfg=ddp_cfg, admm_backend="torch", ik_backend="torch")
-            return plain[dtype]
+            t0 = time.perf_counter()
+            out = refs[(robot, name, str(dtype).split(".")[-1])].result()
+            row["reference_wait_s"] = row.get("reference_wait_s", 0.0) + round(
+                time.perf_counter() - t0, 3)
+            return types.SimpleNamespace(**{f: torch.as_tensor(a, device=spec.device)
+                                            for f, a in out.items()})
 
         ref = plain_path(torch.float64)
         div_p = diverged(ref).cpu()
@@ -926,22 +1012,21 @@ def every_gait(torch, model, dev, zero_counts, counts, card):
                          (dk[f] > 5e-2).sum() <= (dp[f] > 5e-2).sum() + int(0.05 * n)
                          for f in dk)
             quant &= ok
-        main = plans["main"]
-        v0 = float(main.dyn_violation[0])
-        row["problem0_dyn_violation"] = v0
+        row["problem0"], miss = problem0(name, plans["main"])
         row["wall_s"] = round(time.perf_counter() - t_gait, 2)
-        log(f"[10a] {name}: H {H}, IK H {Hik}; problems a block K1/K3 "
+        log(f"[{tag}] {name}: H {H}, IK H {Hik}; problems a block K1/K3 "
             f"{row['per_block']['k1_k3']}, K2 {row['per_block']['k2']}; solves/s main "
             f"{row['main_solves_per_sec']}, fused {row['fused_solves_per_sec']}; ms {row['ms']}; "
-            f"converged_frac main {row['main_converged_frac']:.4f}, fused "
-            f"{row['fused_converged_frac']:.4f}; diverged {row['main_diverged']}/"
+            f"converged_frac main {row['main_converged_frac']:.4f} (1e-2: "
+            f"{row['main_converged_frac_1e-2']:.4f}), fused {row['fused_converged_frac']:.4f} "
+            f"(1e-2: {row['fused_converged_frac_1e-2']:.4f}); diverged {row['main_diverged']}/"
             f"{row['fused_diverged']}; launches {launches[name]}; finite where not diverged "
             f"{row['main_finite']}/{row['fused_finite']}; K3's plan vs its plain prologue "
-            f"{row['k3_plan']}; parity ({n} problems, {row['parity_gate']}) {row['parity']}; "
-            f"diverged of the {n} {row['parity_diverged']}; problem 0 dyn_violation "
-            f"{v0:.3e} (< {bound0.get(name, 'not gated')}); {row['wall_s']} s")
+            f"{row['k3_plan']}; parity ({n} problems, "
+            f"{row['parity_gate']}) {row['parity']}; diverged of the {n} "
+            f"{row['parity_diverged']}; problem 0 {row['problem0']}; {row['wall_s']} s (waiting "
+            f"for the plain references {row['reference_wait_s']} s)")
         table.append(row)
-        miss = []
         if launches[name] != {"main": {"admm": 1, "ddp": 1, "fused": 0},
                               "fused": {"admm": 0, "ddp": 1, "fused": 1}}:
             miss.append("launches")
@@ -953,14 +1038,57 @@ def every_gait(torch, model, dev, zero_counts, counts, card):
             miss.append("parity")
         if not div_same:
             miss.append("diverged set")
-        if name in bound0 and not v0 < bound0[name]:
-            miss.append("problem 0 dyn_violation")
         if miss:
             failures.append(f"{name}: {', '.join(miss)}")
-    log(json.dumps({"metric": "gaits", "batch": B, "gaits": table,
+    log(json.dumps({"metric": "gaits", "phase": tag, "batch": B, "gaits": table,
                     "parity_against_plain_f32": fallback, "card": card}))
-    check(not failures, f"10a: {failures}")
-    return launches
+    check(not failures, f"{tag}: {failures}")
+    return launches, table
+
+
+def every_gait(torch, refs, zero_counts, counts, card):
+    """Phase 10a: ``gait_table`` on every Solo12 gait of ``GAITS`` on
+    bench.py's draws, problem 0 the gait's own check
+    (``workload.gait_states``), its dyn_violation under the JAX package's
+    bound where the JAX package gates it."""
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
+
+    bound0 = {"bound_turn": 1e-3, "air_bound": 1e-3, "walk": 1e-2}  # tests/test_mpc.py:177-221
+
+    def problem0(name, plan):
+        v0 = float(plan.dyn_violation[0])
+        miss = ["problem 0 dyn_violation"] if name in bound0 and not v0 < bound0[name] else []
+        return {"dyn_violation": v0, "bound": bound0.get(name, "not gated")}, miss
+
+    return gait_table(torch, "10a", "solo12", list(GAITS), refs, problem0, zero_counts, counts,
+                      card)[0]
+
+
+def go2_gaits(torch, refs, zero_counts, counts, card):
+    """Phase 11a: ``gait_table`` on the Go2's four gaits (``go2_cyclic.GAITS``:
+    generic foot offsets, the "vdes" warm start, rho 2e5-4e5, a 15.1 kg
+    robot) on bench.py's recipe on the Go2's q0 (``workload.go2_states``).
+    Problem 0 is the JAX Go2 tests' window (q0 at rest, t=0, v_des (0.3, 0,
+    0)) and must meet their bounds (tests/test_go2.py:156-164): dyn_violation
+    < 1e-2 (residuals scale with the mass) and a mean stance Fz a knot
+    within 40 N of m g."""
+    from bunmpc_tpu_torch.mpc.motions import go2_cyclic
+
+    def problem0(name, plan):
+        v0 = float(plan.dyn_violation[0])
+        cnt, F = plan.cnt_plan[0, :, :, 0], plan.F_opt[0]
+        fz = float((cnt * F[..., 2]).sum(-1).mean())
+        mg = 15.097 * 9.81
+        miss = []
+        if not v0 < 1e-2:
+            miss.append("problem 0 dyn_violation")
+        if not abs(fz - mg) < 40.0:
+            miss.append("problem 0 stance Fz")
+        return {"dyn_violation": v0, "bound": 1e-2, "stance_fz_mean": fz,
+                "mg": round(mg, 3)}, miss
+
+    return gait_table(torch, "11a", "go2", list(go2_cyclic.GAITS), refs, problem0, zero_counts,
+                      counts, card)
 
 
 class Spy:
@@ -1198,6 +1326,307 @@ def eval_suite(torch, spec, sim, start, zero_counts, counts, card, vc_policies, 
     return out
 
 
+def end_diff_at(a, b):
+    """Largest |d| of the end q and v of two rollouts' first episodes (of
+    ``b``'s batch)."""
+    n = b.final_state.q.shape[0]
+    return (float((a.final_state.q[:n].double() - b.final_state.q.double()).abs().max()),
+            float((a.final_state.v[:n].double() - b.final_state.v.double()).abs().max()))
+
+
+def capture_solves(KD, plans):
+    """Replace ``KD.solve_mpc_batch`` by a wrapper that appends every plan to
+    ``plans``; returns the original, which the caller puts back."""
+    solve_batch = KD.solve_mpc_batch
+
+    def fn(*a, **k):
+        plans.append(solve_batch(*a, **k))
+        return plans[-1]
+
+    KD.solve_mpc_batch = fn
+    return solve_batch
+
+
+def plan_rule(name, kernels, plain64, plain32, n):
+    """Per-episode largest |d| of a window's plan (xs_int over the window)
+    against the plain path in f64: phase 6's quantile gate, or where f32 alone
+    misses it, phase 9d's rule against the plain f32 run beside them (a
+    median within 10x its median, no more than 5% more episodes past 5e-2).
+    Prints and returns whether it holds."""
+    ref = plain64.xs_int[:, :50]
+    d = {k: (p.xs_int[:n, :50].double() - ref).abs() for k, p in (("kernels", kernels),
+                                                                  ("plain f32", plain32))}
+    flat = d["kernels"].flatten().cpu().numpy()
+    q, mx = float(np.quantile(flat, 0.999)), float(flat.max())
+    per_ep = {k: v.flatten(1).amax(1).cpu().numpy() for k, v in d.items()}
+    ok = q < 5e-3 and mx < 5e-2
+    rule = "f64 quantile"
+    if not ok:
+        rule = "plain f32"
+        ok = (float(np.median(per_ep["kernels"])) < max(5e-3, 10 * float(np.median(
+            per_ep["plain f32"]))) and int((per_ep["kernels"] > 5e-2).sum())
+            <= int((per_ep["plain f32"] > 5e-2).sum()) + int(0.05 * n))
+    log(f"  {name}: xs_int |d| q0.999 {q:.3e} (< 5e-3), max {mx:.3e} (< 5e-2); per-episode "
+        f"median kernels {np.median(per_ep['kernels']):.3e}, plain f32 "
+        f"{np.median(per_ep['plain f32']):.3e}; episodes past 5e-2 kernels "
+        f"{int((per_ep['kernels'] > 5e-2).sum())}, plain f32 "
+        f"{int((per_ep['plain f32'] > 5e-2).sum())}; gate: {rule} -> {ok}")
+    return ok
+
+
+def tree_map(fn, x):
+    """``fn`` on every tensor inside ``x`` (a tensor, a dataclass such as
+    ``SimParams`` or ``IdControllerGains``, or a NamedTuple such as
+    ``SimState``); everything else as it is."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: tree_map(fn, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, a) for a in x))
+    return fn(x) if hasattr(x, "dim") else x
+
+
+SWEEP_ARTIFACT = os.path.join(REPO, "artifacts", "stability_sweep_go2.json")
+SWEEP_ROW_11C = 31  # kp 60, kd 3, kn 6e4, dn 3000, kt 3000, swing_blend 0.5, force_gate 1
+
+
+def go2_loop(torch, zero_counts, counts, card):
+    """Phase 11b-11d: the Go2's closed loop (``trot_sim``, the JAX package's
+    walking configuration: kp 60 / kd 3, contact kn 6e4 / dn 3000 / kt 3000,
+    swing_blend 0.5, force_gate 1.0, the "vdes" warm start and no carry).
+    The starts are the stability sweep's settle (every row of
+    ``workload.go2_sweep_grid()`` PD-held 500 ms at its own gains on its own
+    contact, one batched ``settle_state``); row 31 is ``trot_sim`` on
+    ``go2_sim_params()``, i.e. ``workload.go2_settled_start``, and 11c starts
+    from it.
+
+    11b one window (50 steps) at B=64, the sweep's rows as per-episode gains
+    and contact, swing_blend 0.5, force_gate 1.0 and seeded sensor biases,
+    against the plain path in f64 (end state within GO2_WINDOW_*_TOL, 10x
+    the CPU test's f32 spread; the plan by phase 6's or 9d's rule); 11c 512
+    episodes x 3000 steps, gated on statistics over the batch (the JAX gait
+    gate's criteria, tests/test_gait_quality.py:75-101); 11d the sweep's 40
+    rows as one ``rollout_mpc`` call of 3000 steps with every option per
+    episode, and row 31 (inside the sweep and alone) against 11c's episode 0
+    over the first window. Returns each call's launches."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.go2_cyclic import trot_sim
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
+
+    f32, f64 = torch.float32, torch.float64
+    spec = workload.go2_spec("trot_sim")
+    grid = workload.go2_sweep_grid()
+    n_rows = len(grid["kp"])
+    gains, sp, sb, fg = workload.go2_sweep_options(grid)
+    t0 = time.time()
+    sweep_start = workload.go2_settled_start(n_rows, sim_params=sp, kp=gains.kp, kd=gains.kd)
+    torch.cuda.synchronize()
+    log(f"[11] the sweep's settle ({n_rows} rows, 500 ms PD hold): {time.time() - t0:.1f} s; "
+        f"row {SWEEP_ROW_11C} base z {float(sweep_start.q[SWEEP_ROW_11C, 2]):.4f} m")
+    launches = {}
+
+    def take(x, idx):
+        return tree_map(lambda t: t[idx].contiguous(), x)
+
+    def to(x, dtype):
+        return tree_map(lambda t: t.to(dtype), x)
+
+    # ---- 11b. one window at B=64 with every option, against the plain path in f64 ----
+    n = 64
+    case = workload.go2_window_inputs(n)
+    idx = torch.as_tensor(case.pop("rows"), device=spec.device)
+    opts = dict(gains=take(gains, idx), sim_params=take(sp, idx), swing_blend=0.5,
+                force_gate=1.0)
+    host = case
+    win_cfg = rollout.RolloutConfig(episode_length=50, kp=trot_sim.kp, kd=trot_sim.kd,
+                                    gait_period=trot_sim.gait_period)
+    start64 = take(sweep_start, idx)
+
+    def window(dtype, **kw):
+        d = {k: torch.as_tensor(a, dtype=dtype, device=spec.device) for k, a in host.items()}
+        o = {k: to(v, dtype) for k, v in opts.items()}
+        return rollout.rollout_mpc(spec, o.pop("sim_params"), win_cfg, to(start64, dtype),
+                                   d["v_des"], d["w_des"], q_noise=d["q_noise"],
+                                   v_noise=d["v_noise"], **o, **kw)
+
+    t0 = time.perf_counter()
+    plans = []
+    solve_batch = capture_solves(KD, plans)
+    try:
+        zero_counts()
+        win = window(f32)
+        torch.cuda.synchronize()
+        launches["11b"] = counts()
+        plain = {dt: window(dt, admm_backend="torch", ik_backend="torch") for dt in (f64, f32)}
+        torch.cuda.synchronize()
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    dq, dv = end_diff_at(win, plain[f64])
+    sq, sv = end_diff_at(plain[f32], plain[f64])
+    log(f"[11b] one Go2 window at B={n} ({time.perf_counter() - t0:.1f} s): launches "
+        f"{launches['11b']}; end q |d| {dq:.3e} (< {GO2_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< "
+        f"{GO2_WINDOW_V_TOL:.1e}) against the plain path in f64; the plain path's own f32 spread "
+        f"here q {sq:.3e}, v {sv:.3e} (CPU test: q {GO2_WINDOW_SPREAD[0]:.3e}, v "
+        f"{GO2_WINDOW_SPREAD[1]:.3e}); the window's plan:")
+    plan_ok = plan_rule("11b plan", plans[0], plans[1], plans[2], n)
+    check(launches["11b"] == {"admm": 1, "ddp": 1, "fused": 0},
+          "11b: one window must launch K1 and K2 once each")
+    check(bool(torch.isfinite(win.states).all()), "11b: window records not finite")
+    check(dq < GO2_WINDOW_Q_TOL and dv < GO2_WINDOW_V_TOL,
+          "11b: end-of-window state disagrees with the plain path in f64")
+    check(plan_ok, "11b: the window's plan disagrees with the plain path in f64")
+
+    # ---- 11c. the Go2 closed loop: 512 episodes x 3000 steps ----
+    loop_cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
+                                     gait_period=trot_sim.gait_period)
+    T, nw = loop_cfg.episode_length, loop_cfg.n_windows
+    start = physics.SimState(sweep_start.q[SWEEP_ROW_11C:SWEEP_ROW_11C + 1].expand(B, -1)
+                             .contiguous(),
+                             sweep_start.v[SWEEP_ROW_11C:SWEEP_ROW_11C + 1].expand(B, -1)
+                             .contiguous())
+    v_np, w_np = workload.go2_commands(B, seed=0)
+    cmd = tuple(torch.as_tensor(a, dtype=f32, device=spec.device) for a in (v_np, w_np))
+    sim = workload.go2_sim_params()
+    windows = []
+
+    def timed_solve(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plan = solve_batch(*a, **k)
+        e1.record()
+        windows.append((e0, e1, plan.dyn_violation, plan.admm_iters))
+        return plan
+
+    KD.solve_mpc_batch = timed_solve
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout.rollout_mpc(spec, sim, loop_cfg, start, *cmd, swing_blend=0.5,
+                                  force_gate=1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["11c"] = counts()
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    nv = spec.model.nv
+    failed, fail_step = res.failed.cpu().numpy(), res.fail_step.cpu().numpy()
+    alive = ~failed
+    finite, frozen = finite_and_frozen(torch, res)
+    rpy = rot_to_rpy(quat_to_rot(res.states[..., nv + 9:nv + 13])).cpu().numpy()
+    z = res.states[..., nv + 8].cpu().numpy()  # q[2]
+    vx = res.states[..., 0].cpu().numpy()
+    roll_max = np.rad2deg(np.abs(rpy[alive, 500:, 0]).max(axis=1))
+    z_dev = np.abs(z[alive, -1000:].mean(axis=1) - trot_sim.nom_ht)
+    vx_ratio = vx[alive, -1000:].mean(axis=1) / v_np[alive, 0]
+    survival = float(alive.mean())
+
+    def med(a):
+        return float(np.median(a)) if alive.any() else float("nan")
+
+    solve_ms = [a.elapsed_time(b) for a, b, _, _ in windows]
+    window_ms = [windows[i][0].elapsed_time(windows[i + 1][0]) for i in range(nw - 1)]
+    sub_ms = [w - s_ for w, s_ in zip(window_ms, solve_ms)]
+    viols = torch.stack([w[2] for w in windows]).cpu().numpy()
+    iters = torch.stack([w[3] for w in windows]).float().cpu().numpy()
+    live = fail_step[None, :] > (np.arange(nw) * loop_cfg.steps_per_plan)[:, None]
+    log(f"[11c] Go2 closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
+        f"{B * T / wall:.1f} env-steps/s; launches {launches['11c']}; window / solve / substeps "
+        f"ms {np.mean(window_ms):.1f} / {np.mean(solve_ms):.1f} / {np.mean(sub_ms):.1f}")
+    log(f"[11c] survival {survival:.4f} (>= 0.5), episode 0 (vx 0.3) failed {bool(failed[0])} "
+        f"at {int(fail_step[0])}; survivors' median roll_max (500-3000 ms) {med(roll_max):.3f} "
+        f"deg (< 15), median |mean z (last 1000 ms) - {trot_sim.nom_ht}| {med(z_dev):.4f} m "
+        f"(< 0.05), median vx_end / vx_cmd {med(vx_ratio):.3f} (> 0.5); live solves: "
+        f"converged_frac {float((viols[live] < 1e-3).mean()):.4f} (1e-2: "
+        f"{float((viols[live] < 1e-2).mean()):.4f}), ADMM iterations mean "
+        f"{float(iters[live].mean()):.2f}; records finite {finite}, failed frozen {frozen}")
+    log(json.dumps({
+        "metric": "go2_closed_loop_env_steps_per_sec", "value": round(B * T / wall, 1),
+        "batch": B, "steps": T, "wall_s": round(wall, 3), "survival": survival,
+        "median_roll_max_deg": med(roll_max), "median_z_dev_m": med(z_dev),
+        "median_vx_ratio": med(vx_ratio),
+        "window_ms_mean": round(float(np.mean(window_ms)), 3),
+        "solve_ms_mean": round(float(np.mean(solve_ms)), 3),
+        "substeps_ms_mean": round(float(np.mean(sub_ms)), 3),
+        "admm_iters_mean": float(iters[live].mean()), "card": card}))
+    check(launches["11c"] == {"admm": nw, "ddp": nw, "fused": 0},
+          f"11c: K1 and K2 must launch once per window ({nw})")
+    check(finite and frozen, "11c: live records not finite, or failed episodes not frozen")
+    check(survival >= 0.5, f"11c: survival {survival:.4f} below 0.5")
+    check(med(roll_max) < 15.0, "11c: survivors' median roll_max not below 15 deg")
+    check(med(z_dev) < 0.05, "11c: survivors' median height error not below 0.05 m")
+    check(med(vx_ratio) > 0.5, "11c: survivors' median vx_end / vx_cmd not above 0.5")
+
+    # ---- 11d. the stability sweep: 40 rows, every option per episode, one call ----
+    sweep_cfg = rollout.RolloutConfig(episode_length=SWEEP_STEPS, kp=trot_sim.kp, kd=trot_sim.kd,
+                                      gait_period=trot_sim.gait_period)
+    snw = sweep_cfg.n_windows
+    vd = torch.zeros((n_rows, 3), dtype=f32, device=spec.device)
+    vd[:, 0] = 0.3
+    wd = torch.zeros(n_rows, dtype=f32, device=spec.device)
+    zero_counts()
+    t0 = time.perf_counter()
+    sweep = rollout.rollout_mpc(spec, sp, sweep_cfg, sweep_start, vd, wd, gains=gains,
+                                swing_blend=sb, force_gate=fg)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    launches["11d"] = counts()
+    r = SWEEP_ROW_11C
+    one = {k: take(v, slice(r, r + 1)) for k, v in (("gains", gains), ("sp", sp), ("sb", sb),
+                                                     ("fg", fg))}
+    alone = rollout.rollout_mpc(spec, one["sp"], win_cfg, take(sweep_start, slice(r, r + 1)),
+                                vd[r:r + 1], wd[r:r + 1], gains=one["gains"],
+                                swing_blend=one["sb"], force_gate=one["fg"])
+    torch.cuda.synchronize()
+    sfinite, sfrozen = finite_and_frozen(torch, sweep)
+
+    def at_step50(rec, b):  # (q[2:], v) of the state before step 50, from the features
+        return rec.states[b, 50, nv + 8:].double(), rec.states[b, 50, :nv].double()
+
+    q11c, v11c = at_step50(res, 0)
+    q_in, v_in = at_step50(sweep, r)
+    uq_in, uv_in = float((q_in - q11c).abs().max()), float((v_in - v11c).abs().max())
+    uq_al = float((alone.final_state.q[0, 2:].double() - q11c).abs().max())
+    uv_al = float((alone.final_state.v[0].double() - v11c).abs().max())
+    with open(SWEEP_ARTIFACT) as fh:
+        art = json.load(fh)["rows"]
+    srpy = rot_to_rpy(quat_to_rot(sweep.states[..., nv + 9:nv + 13])).cpu().numpy()
+    sfail, sstep = sweep.failed.cpu().numpy(), sweep.fail_step.cpu().numpy()
+    log(f"[11d] the Go2 sweep: {n_rows} rows x {SWEEP_STEPS} steps ({snw} windows) in one call, "
+        f"{swall:.2f} s; launches {launches['11d']}; live records finite {sfinite}, failed "
+        f"frozen {sfrozen}; row {r} (11c's settings, vx 0.3) against 11c's episode 0 at step 50:"
+        f" in the sweep q |d| {uq_in:.3e}, v |d| {uv_in:.3e}; alone q |d| {uq_al:.3e}, v |d| "
+        f"{uv_al:.3e} (< {GO2_WINDOW_Q_TOL:.1e}, {GO2_WINDOW_V_TOL:.1e})")
+    log("[11d] per row: kp kd kn sb fg | this run: failed at (ms), roll_max 500+ ms (deg) | the "
+        "JAX package's sweep on a TPU v5e (artifacts/stability_sweep_go2.json): failed at, "
+        "roll_max")
+    check(len(art) == n_rows and all(
+        abs(art[i][k] - grid[k][i]) < 1e-9 for i in range(n_rows)
+        for k in ("kp", "kd", "kn", "dn", "kt", "swing_blend", "force_gate")),
+        "11d: the grid's rows are not the artifact's")
+    for i in range(n_rows):
+        a = art[i]
+        rm = float(np.rad2deg(np.abs(srpy[i, 500:, 0]).max())) if SWEEP_STEPS > 500 else \
+            float("nan")
+        log(f"  {i:2d}: {grid['kp'][i]:g} {grid['kd'][i]:g} {grid['kn'][i]:g} "
+            f"{grid['swing_blend'][i]:g} {grid['force_gate'][i]:g} | "
+            f"{int(sstep[i]) if sfail[i] else 'survived':>8} {rm:7.2f} | "
+            f"{a['fail_step'] if a['failed'] else 'survived':>8} {a['roll_max_deg']:7.2f}")
+    log(json.dumps({"metric": "go2_sweep", "rows": n_rows, "steps": SWEEP_STEPS,
+                    "wall_s": round(swall, 3), "survival": float(1 - sfail.mean()),
+                    "jax_tpu_v5e_survival": float(np.mean([not a["failed"] for a in art])),
+                    "card": card}))
+    check(launches["11d"] == {"admm": snw, "ddp": snw, "fused": 0},
+          f"11d: K1 and K2 must launch once per window ({snw})")
+    check(sfinite and sfrozen, "11d: live records not finite, or failed episodes not frozen")
+    check(uq_in < GO2_WINDOW_Q_TOL and uv_in < GO2_WINDOW_V_TOL and uq_al < GO2_WINDOW_Q_TOL
+          and uv_al < GO2_WINDOW_V_TOL,
+          "11d: row 31 does not run 11c's episode 0 (a per-episode option frozen in the graph?)")
+    return launches
+
+
 def main_path_stage_ms(torch, spec, inputs, admm_cfg):
     """Milliseconds of each stage of ``solve_mpc_batch(admm_backend="cuda",
     ik_backend="cuda")`` on these inputs, by CUDA events around the stages."""
@@ -1210,7 +1639,7 @@ def main_path_stage_ms(torch, spec, inputs, admm_cfg):
     ev[0].record()
     pr = KD._prepare_problem(spec, *inputs)
     ev[1].record()
-    X, F, viol, iters = cuda_admm.solve(
+    X, F, viol, iters, P = cuda_admm.solve(
         pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"], pr["F_wm"],
         pr["x_bounds"], admm_cfg)
     ev[2].record()
@@ -1220,7 +1649,7 @@ def main_path_stage_ms(torch, spec, inputs, admm_cfg):
     ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
                                               tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
     ev[4].record()
-    KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, torch.zeros_like(X))
+    KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, P)
     ev[5].record()
     torch.cuda.synchronize()
     names = ["prep", "k1_admm", "ik_build", "k2_ddp", "interp"]
@@ -1244,18 +1673,9 @@ def main():
         print("chip_smoke: run it from the repository (bunmpc_tpu_torch not found)",
               file=sys.stderr)
         return 1
-    from bunmpc_tpu_torch import _build, workload
-    from bunmpc_tpu_torch.mpc import ik as IK
-    from bunmpc_tpu_torch.mpc import kino_dyn as KD
-    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot, trot_sim
-    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
-    from bunmpc_tpu_torch.sim import physics, rollout
-    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
-    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
-    from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
+    from bunmpc_tpu_torch import _build
 
     t_start = time.time()
-    dev = torch.device("cuda")
 
     # ---- 1. device ----
     card = card_info()
@@ -1271,7 +1691,30 @@ def main():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  {name}: {line.strip()}")
+    # phases 10a and 11a's plain references, on the host CPU while the card works
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(torch, card, t_start, pool)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
 
+
+def run_phases(torch, card, t_start, pool):
+    """Phases 3-11 and the kernels line (``main`` checked the card, built the
+    kernels and started the reference workers)."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot, trot_sim
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+    from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
+
+    dev = torch.device("cuda")
+    refs = submit_references(pool)
     model = Solo12Config.load_model()
     spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0(), device="cuda")
     # the launch shape: a warp and a shared-memory slice per problem
@@ -1294,16 +1737,16 @@ def main():
     # ---- 3. K1 against its plain version, on the card ----
     pinned = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", max_admm_iters=15,
                                       dual_relax=1.0, rho_growth=1.0)
-    Xk, Fk, vk, _ = cuda_admm.solve(*admm_in, pinned)
-    Xp, Fp, vp, _ = cuda_admm.solve_plain(*admm_in, pinned)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*admm_in, pinned)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*admm_in, pinned)
     torch.cuda.synchronize()
     dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
     dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
     log(f"[3] K1 pinned (15 iters): |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), "
         f"viol rel {dv:.3e} (< 1e-3)")
     check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K1 pinned case disagrees with its plain version")
-    Xk, Fk, vk, itk = cuda_admm.solve(*admm_in, bench_cfg)
-    Xp, Fp, vp, itp = cuda_admm.solve_plain(*admm_in, bench_cfg)
+    Xk, Fk, vk, itk, Pk = cuda_admm.solve(*admm_in, bench_cfg)
+    Xp, Fp, vp, itp, Pp = cuda_admm.solve_plain(*admm_in, bench_cfg)
     torch.cuda.synchronize()
     log(f"[3] K1 bench config: iters kernel mean {itk.float().mean():.2f}, plain mean "
         f"{itp.float().mean():.2f}; problems with other iteration counts {(itk != itp).sum()}")
@@ -1329,9 +1772,9 @@ def main():
                                 5e-3)):
         cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
                                        rho_growth=1.0, **kw)
-        Xb, Fb, vb, _ = cuda_admm.solve(*sub, cfg)
-        Xr, Fr, vr, _ = cuda_admm.solve_plain(*sub64, cfg)
-        X3, _, v3, _ = cuda_admm.solve_plain(*sub, cfg)
+        Xb, Fb, vb, _, _ = cuda_admm.solve(*sub, cfg)
+        Xr, Fr, vr, _, _ = cuda_admm.solve_plain(*sub64, cfg)
+        X3, _, v3, _, _ = cuda_admm.solve_plain(*sub, cfg)
         torch.cuda.synchronize()
         dX, dF = float((Xb.double() - Xr).abs().max()), float((Fb.double() - Fr).abs().max())
         dv = float(((vb.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
@@ -1342,6 +1785,30 @@ def main():
         check(dX < 5e-3 and dF < 2e-1 and dv < viol_tol,
               f"K1 {name} disagrees with its plain version")
         check(bool(torch.isfinite(Xb).all() and torch.isfinite(Fb).all()), f"K1 {name} not finite")
+
+    # ---- 3c. K1 with a carried dual, against the plain version in f64 ----
+    # the bench solve's (X, F, P) as the warm start of the same 64 problems,
+    # with the accelerated schedule (rho escalates and backs off, rescaling
+    # the dual) on both precondition branches: the dual is read and given
+    # back at the base rho, as the plain version reads P_wm and returns P
+    sub = rows(admm_in, 64)
+    warm = sub[:6] + (Xk[:64].contiguous(), Fk[:64].contiguous(), sub[8])
+    P0 = Pk[:64].contiguous()
+    log(f"[3c] the carried dual: |P0| max {float(P0.abs().max()):.3e}; K1's P vs the plain "
+        f"version's on the bench solve: |d| max {float((Pk - Pp).abs().max()):.3e}")
+    for prec in (False, True):
+        cfg = dataclasses.replace(bench_cfg, precondition=prec)
+        Xc, Fc, vc, itc, Pc = cuda_admm.solve(*warm, cfg, P_wm=P0)
+        Xr, Fr, vr, itr, Pr = cuda_admm.solve_plain(*as_f64(warm), cfg, P_wm=P0.double())
+        cold = cuda_admm.solve(*warm, cfg)
+        torch.cuda.synchronize()
+        log(f"[3c] K1 precondition={prec} with the carried dual vs plain f64: iters mean "
+            f"kernel {itc.float().mean():.2f}, plain {itr.float().mean():.2f} (a zero dual: "
+            f"{cold[3].float().mean():.2f}); viol max {float(vc.max()):.3e}")
+        quantile_gate(f"K1 X (precondition={prec}, P0)", Xc.double(), Xr)
+        quantile_gate(f"K1 P (precondition={prec}, P0)", Pc.double(), Pr)
+        check(bool(torch.isfinite(Xc).all() and torch.isfinite(Pc).all()),
+              "K1 with a carried dual not finite")
 
     # ---- 4. K2 against its plain version, on the card ----
     # (a) one iteration, one alpha, on the random IK problems of the JAX
@@ -1392,7 +1859,7 @@ def main():
     )
     fcfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", exit_tol=1e-5,
                                     max_admm_iters=500, dual_relax=1.0, rho_growth=1.0)
-    Xf, Ff, vf, itf = cuda_admm.solve(
+    Xf, Ff, vf, itf, _ = cuda_admm.solve(
         fprob["plan"], m, fprob["x_init"], fprob["W"], fprob["X_ref"], fprob["W_F"],
         fprob["X_wm"], fprob["F_wm"], fprob["x_bounds"], fcfg,
     )
@@ -1412,8 +1879,8 @@ def main():
     prob2 = KD._prepare_problem(spec2, *inputs)
     admm2 = (prob2["plan"], m, prob2["x_init"], prob2["W"], prob2["X_ref"], prob2["W_F"],
              prob2["X_wm"], prob2["F_wm"], prob2["x_bounds"])
-    Xk, Fk, vk, _ = cuda_admm.solve(*admm2, pinned)
-    Xp, Fp, vp, _ = cuda_admm.solve_plain(*admm2, pinned)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*admm2, pinned)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*admm2, pinned)
     torch.cuda.synchronize()
     dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
     dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
@@ -1593,43 +2060,50 @@ def main():
     torch.cuda.synchronize()
     log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
         f"{float(start.q[0, 2]):.4f} m")
-    win_cfg = rollout.RolloutConfig(episode_length=50, kp=trot_sim.kp, kd=trot_sim.kd,
+    win_cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
                                     gait_period=trot_sim.gait_period)
-    zero_counts()
-    win = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd)
-    torch.cuda.synchronize()
-    win_launches = counts()
     n = 64
 
     def head(a, dtype=torch.float64):
         return a[:n].to(dtype)
 
-    ref_win = {dtype: rollout.rollout_mpc(
-        loop_spec, sim, win_cfg, physics.SimState(head(start.q, dtype), head(start.v, dtype)),
-        head(cmd[0], dtype), head(cmd[1], dtype), admm_backend="torch", ik_backend="torch")
-        for dtype in (torch.float64, f32)}
+    plans = []  # the card's two solves, then the plain f64 run's, then the plain f32 run's
+    solve_batch = capture_solves(KD, plans)
+    try:
+        zero_counts()
+        win = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd)
+        torch.cuda.synchronize()
+        win_launches = counts()
+        ref_win = {dtype: rollout.rollout_mpc(
+            loop_spec, sim, win_cfg, physics.SimState(head(start.q, dtype), head(start.v, dtype)),
+            head(cmd[0], dtype), head(cmd[1], dtype), admm_backend="torch", ik_backend="torch")
+            for dtype in (torch.float64, f32)}
+        torch.cuda.synchronize()
+    finally:
+        KD.solve_mpc_batch = solve_batch
     t_w = KD.window_clock(0.0, 0, win_cfg.plan_freq, start.q).expand(B)
-    plan_k = KD.solve_mpc_batch(loop_spec, start.q, start.v, t_w, *cmd)
-    plan_p = KD.solve_mpc_batch(loop_spec, head(start.q), head(start.v), head(t_w), head(cmd[0]),
-                                head(cmd[1]), admm_backend="torch", ik_backend="torch")
-    torch.cuda.synchronize()
-
-    def end_diff(res, ref):
-        return (float((res.final_state.q[:n].double() - ref.final_state.q.double()).abs().max()),
-                float((res.final_state.v[:n].double() - ref.final_state.v.double()).abs().max()))
-
-    dq, dv = end_diff(win, ref_win[torch.float64])
-    sq, sv = end_diff(ref_win[f32], ref_win[torch.float64])
-    log(f"[7a] one window launches: {win_launches}; end-of-window q |d| {dq:.3e} (< "
-        f"{WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< {WINDOW_V_TOL:.1e}) against the plain path in "
-        f"f64 ({n} episodes); the plain path's own f32 spread here q {sq:.3e}, v {sv:.3e} "
-        f"(CPU test: q {WINDOW_SPREAD[0]:.3e}, v {WINDOW_SPREAD[1]:.3e})")
-    log(f"[7a] the window's plan against the plain path in f64 ({n} episodes):")
-    quantile_gate("xs_int (the window)", plan_k.xs_int[:n, :50].double(), plan_p.xs_int[:, :50])
-    quantile_gate("f_int (substep 0)", plan_k.f_int[:n, 0].double(), plan_p.f_int[:, 0])
-    check(win_launches == {"admm": 1, "ddp": 1, "fused": 0},
-          "one window must launch K1 and K2 once each")
-    check(dq < WINDOW_Q_TOL and dv < WINDOW_V_TOL, "end-of-window state disagrees")
+    dq, dv = end_diff_at(win, ref_win[torch.float64])
+    sq, sv = end_diff_at(ref_win[f32], ref_win[torch.float64])
+    log(f"[7a] two windows (the second solve takes the first's X, F and dual P) launches: "
+        f"{win_launches}; end q |d| {dq:.3e} (< {TWO_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< "
+        f"{TWO_WINDOW_V_TOL:.1e}) against the plain path in f64 ({n} episodes); the plain path's "
+        f"own f32 spread here q {sq:.3e}, v {sv:.3e} (CPU test: q {TWO_WINDOW_SPREAD[0]:.3e}, v "
+        f"{TWO_WINDOW_SPREAD[1]:.3e}); ADMM iterations mean window 1 "
+        f"{plans[0].admm_iters.float().mean():.2f}, window 2 {plans[1].admm_iters.float().mean():.2f}"
+        f" (plain f64: {plans[2].admm_iters.float().mean():.2f}, "
+        f"{plans[3].admm_iters.float().mean():.2f})")
+    log(f"[7a] the windows' plans and K1's dual after window 1 against the plain path in f64 "
+        f"({n} episodes):")
+    quantile_gate("xs_int (window 1)", plans[0].xs_int[:n, :50].double(), plans[2].xs_int[:, :50])
+    quantile_gate("f_int (window 1, substep 0)", plans[0].f_int[:n, 0].double(),
+                  plans[2].f_int[:, 0])
+    quantile_gate("P_opt (window 1)", plans[0].P_opt[:n].double(), plans[2].P_opt)
+    quantile_gate("xs_int (window 2, carried)", plans[1].xs_int[:n, :50].double(),
+                  plans[3].xs_int[:, :50])
+    check(bool(plans[0].P_opt.abs().max() > 0), "K1 returned a zero dual")
+    check(win_launches == {"admm": 2, "ddp": 2, "fused": 0},
+          "two windows must launch K1 and K2 twice each")
+    check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "end-of-window state disagrees")
     check(bool(torch.isfinite(win.states).all()), "window records not finite")
 
     # ---- 7b. the closed loop at full width: 512 episodes x 3000 steps ----
@@ -1644,7 +2118,7 @@ def main():
         e0.record()
         plan = solve_batch(*a, **k)
         e1.record()
-        windows.append((e0, e1, plan.dyn_violation))
+        windows.append((e0, e1, plan.dyn_violation, plan.admm_iters))
         return plan
 
     KD.solve_mpc_batch = timed_solve
@@ -1656,6 +2130,16 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         loop_launches = counts()
+        # the same loop cold (warm_start_carry=False, PR 8's default on the card) over
+        # its first COLD_WINDOWS windows, against the carried run's first as many
+        carried_windows, windows = windows, []
+        cold_cfg = dataclasses.replace(loop_cfg, episode_length=COLD_WINDOWS * loop_cfg.steps_per_plan)
+        res_cold = rollout.rollout_mpc(loop_spec, sim, cold_cfg, start, *cmd,
+                                       warm_start_carry=False)
+        e_end = torch.cuda.Event(enable_timing=True)
+        e_end.record()
+        torch.cuda.synchronize()
+        cold_windows, windows = windows, carried_windows
     finally:
         KD.solve_mpc_batch = solve_batch
     T = loop_cfg.episode_length
@@ -1665,7 +2149,20 @@ def main():
     viols = torch.stack([w[2] for w in windows]).cpu().numpy()  # (windows, B)
     live = fail_step[None, :] > (np.arange(nw) * spp)[:, None]  # alive at the window's start
     conv_loop = float((viols[live] < 1e-3).mean())
-    solve_ms = [a.elapsed_time(b) for a, b, _ in windows]
+    iters_all = torch.stack([w[3] for w in windows]).float().cpu().numpy()  # (windows, B)
+    iters_loop = float(iters_all[live].mean())
+    nc = COLD_WINDOWS
+    cold_live = res_cold.fail_step.cpu().numpy()[None, :] > (np.arange(nc) * spp)[:, None]
+    iters_cold = float(torch.stack([w[3] for w in cold_windows]).float().cpu().numpy()[
+        cold_live].mean())
+    iters_carried_head = float(iters_all[:nc][live[:nc]].mean())
+    head_ms = {"carried": windows[0][0].elapsed_time(windows[nc][0]),
+               "cold": cold_windows[0][0].elapsed_time(e_end)}
+    head_rate = {k: B * nc * spp / (v / 1e3) for k, v in head_ms.items()}
+    head_survival = {"carried": float((fail_step >= nc * spp).mean()),
+                     "cold": float(1 - res_cold.failed.float().mean())}
+    solve_ms_cold = [a.elapsed_time(b) for a, b, _, _ in cold_windows]
+    solve_ms = [a.elapsed_time(b) for a, b, _, _ in windows]
     window_ms = [windows[i][0].elapsed_time(windows[i + 1][0]) for i in range(nw - 1)]
     sub_ms = [w - s for w, s in zip(window_ms, solve_ms)]
     rpy = rot_to_rpy(quat_to_rot(res.states[..., 27:31])).cpu().numpy()  # q[3:7] of the features
@@ -1678,7 +2175,15 @@ def main():
     stages = main_path_stage_ms(torch, loop_spec, (start.q, start.v, t_w, *cmd),
                                 cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas"))
     log(f"[7b] closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
-        f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}")
+        f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}; (X, F, P) carried: live "
+        f"solves' ADMM iterations mean {iters_loop:.2f}, solve ms mean "
+        f"{np.mean(solve_ms):.2f}")
+    log(f"[7b] the first {nc} windows ({nc * spp} steps), carried against the same loop cold "
+        f"in this run (CUDA events): env-steps/s {head_rate['carried']:.1f} vs "
+        f"{head_rate['cold']:.1f}; survival to step {nc * spp} {head_survival['carried']:.4f} vs "
+        f"{head_survival['cold']:.4f}; live solves' ADMM iterations mean "
+        f"{iters_carried_head:.2f} vs {iters_cold:.2f}; solve ms mean "
+        f"{np.mean(solve_ms[:nc]):.2f} vs {np.mean(solve_ms_cold):.2f}")
     log(f"[7b] survival {survival:.4f} (>= 0.5), mean survival {float(fail_step.mean()):.1f} ms; "
         f"survivors' median roll_max (500-3000 ms) {med_roll:.3f} deg (< 10), median |mean z "
         f"(last 1000 ms) - {trot_sim.nom_ht}| {med_z:.4f} m (< 0.03); converged_frac of the "
@@ -1691,6 +2196,11 @@ def main():
         "solve_ms_mean": round(float(np.mean(solve_ms)), 3),
         "substeps_ms_mean": round(float(np.mean(sub_ms)), 3),
         "first_window_ms": round(window_ms[0], 3), "solve_stage_ms_window0": stages,
+        "admm_iters_mean": iters_loop, "first_windows_carried_vs_cold": {
+            "windows": nc, "env_steps_per_sec": head_rate, "survival": head_survival,
+            "admm_iters_mean": {"carried": iters_carried_head, "cold": iters_cold},
+            "solve_ms_mean": {"carried": float(np.mean(solve_ms[:nc])),
+                              "cold": float(np.mean(solve_ms_cold))}},
         "card": card,
     }))
     check(loop_launches == {"admm": nw, "ddp": nw, "fused": 0},
@@ -1715,12 +2225,20 @@ def main():
 
     # ---- 10. every gait (10a) and the eval suite (10b-10f) ----
     t0 = time.time()
-    gait_launches = every_gait(torch, model, dev, zero_counts, counts, card)
+    gait_launches = every_gait(torch, refs, zero_counts, counts, card)
     log(f"[10a] every gait {time.time() - t0:.1f} s")
     t1 = time.time()
     eval_launches = eval_suite(torch, loop_spec, sim, start, zero_counts, counts, card, vc_policies,
                                cc_policy)
     log(f"[10] eval suite {time.time() - t1:.1f} s; phase 10 {time.time() - t0:.1f} s")
+
+    # ---- 11. the Go2: every gait on both paths (11a), its closed loop (11b-11d) ----
+    t0 = time.time()
+    go2_launches, _ = go2_gaits(torch, refs, zero_counts, counts, card)
+    log(f"[11a] the Go2's gaits {time.time() - t0:.1f} s")
+    t1 = time.time()
+    go2_loop_launches = go2_loop(torch, zero_counts, counts, card)
+    log(f"[11] the Go2's loop {time.time() - t1:.1f} s; phase 11 {time.time() - t0:.1f} s")
 
     # ---- 7. the kernels line ----
     zero_counts()
@@ -1761,12 +2279,16 @@ def main():
                           + Hik + (Hik + 1) * nx + Hik * nv + 1)
     k2_bound, k2_by = bound_ms(k2_bytes, ddp_ops(B, Hik, full))
     def phase10(k):
-        """Kernel ``k``'s launches per gait and path (10a) and per eval call
-        (10b-10f; a list per call where a phase makes several)."""
+        """Kernel ``k``'s launches per gait and path (10a), per eval call
+        (10b-10f; a list per call where a phase makes several), per Go2 gait
+        and path (11a) and per Go2 loop call (11b-11d)."""
         return {"gait_launches": {g: {p: n[k] for p, n in paths.items()}
                                   for g, paths in gait_launches.items()},
                 "eval_launches": {tag: [c[k] for c in v] if isinstance(v, list) else v[k]
-                                  for tag, v in eval_launches.items()}}
+                                  for tag, v in eval_launches.items()},
+                "go2_gait_launches": {g: {p: n[k] for p, n in paths.items()}
+                                      for g, paths in go2_launches.items()},
+                "go2_loop_launches": {tag: c[k] for tag, c in go2_loop_launches.items()}}
 
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",

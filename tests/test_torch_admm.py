@@ -264,3 +264,61 @@ def test_kernel_math_at_gait_horizons(lib, name):
         assert float(out[1].abs()[flight].max()) < 1e-12  # no force on a foot in flight
     if name == "still":
         assert bool((cnt == 1).all())
+
+
+@pytest.fixture(scope="module")
+def carried(problem4):
+    """A previous window's solution with a non-zero dual: 25 iterations of the
+    plain version in f64 (the rho schedule escalates at iterations 10 and
+    20, so the returned dual has been rescaled to the base rho)."""
+    args = admm_args(problem4, torch.float64)
+    X, F, _, _, P = cuda_admm.solve_plain(*args, cuda_admm.CudaAdmmConfig(rho=RHO,
+                                                                          max_admm_iters=25))
+    return X, F, P
+
+
+@pytest.mark.parametrize("precondition", [False, True])
+def test_kernel_math_carries_the_dual(lib, problem4, carried, precondition):
+    """K1 with a carried (X, F, P) on both precondition branches: the g++
+    build in f64 against the plain version with the same ``P_wm``, and the
+    plain version against the JAX package's ``biconvex.solve``, X, F and the
+    returned dual P within 1e-7 (f64), equal iteration counts. The dual is
+    read at the base rho and given back at it."""
+    X0, F0, P0 = carried
+    assert float(P0.abs().max()) > 1e-4
+    args = admm_args(problem4, torch.float64)[:6] + (X0, F0, admm_args(problem4, torch.float64)[8])
+    cfg = cuda_admm.CudaAdmmConfig(rho=RHO, precondition=precondition)
+    kargs, keep, out = cuda_admm.kernel_args(*args, cfg, P_wm=P0)
+    call_host(lib, "admm_host_f64", cuda_admm.ARGTYPES, kargs)
+    ref = cuda_admm.solve_plain(*args, cfg, P_wm=P0)
+    for i, name in ((0, "X"), (1, "F"), (5, "P")):
+        np.testing.assert_allclose(out[i].numpy(), ref[4 if name == "P" else i].numpy(),
+                                   atol=1e-7, rtol=0, err_msg=name)
+    np.testing.assert_array_equal(out[3].numpy(), ref[3].numpy())
+    assert bool((ref[2] < cfg.exit_tol).all())
+    c = {k: jnp.asarray(v, jnp.float64) for k, v in problem4.items()}
+    jres = jbc.solve(
+        jcd.ContactPlan(cnt=c["cnt"], r=c["r"], dt=c["dt"]), M_ADMM, c["x_init"],
+        jbc.CostX(W=c["W"], X_ref=c["X_ref"]), c["W_F"], jnp.asarray(X0.numpy()),
+        jnp.asarray(F0.numpy()), jnp.asarray(P0.numpy()),
+        jbc.BiconvexConfig(rho=RHO, precondition=precondition), x_bounds=(c["lb"], c["ub"]))
+    for a, b, name in ((ref[0], jres.X, "X"), (ref[1], jres.F, "F"), (ref[4], jres.P, "P")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-7, rtol=0, err_msg=name)
+    np.testing.assert_array_equal(ref[3].numpy(), np.asarray(jres.admm_iters))
+    # the carried dual moves the solve: the same warm start with a zero dual differs
+    cold = cuda_admm.solve_plain(*args, cfg)
+    assert float((cold[4] - ref[4]).abs().max()) > 1e-6
+
+
+def test_kernel_math_without_dual_is_the_cold_start(lib, problem4):
+    """No ``P_wm`` (a null pointer) starts the dual at zero: the g++ build
+    equals a launch with an explicit zero dual bit for bit."""
+    args = admm_args(problem4, torch.float64)
+    cfg = cuda_admm.CudaAdmmConfig(rho=RHO)
+    outs = []
+    for P_wm in (None, torch.zeros_like(args[6])):
+        kargs, keep, out = cuda_admm.kernel_args(*args, cfg, P_wm=P_wm)
+        call_host(lib, "admm_host_f64", cuda_admm.ARGTYPES, kargs)
+        outs.append(out)
+    for a, b in zip(outs[0][:4] + outs[0][5:], outs[1][:4] + outs[1][5:]):
+        assert torch.equal(a, b)

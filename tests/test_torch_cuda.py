@@ -19,8 +19,14 @@ the same episodes inside a batch of 64, bit for bit; the policy rollouts
 distance to the JAX package's f64 fixture; the gated rollouts (SafeDAgger,
 DAgger) launch K1 and K2 once a window and keep the gate of the JAX
 package's f64 fixture; every Solo12 gait's K1, K2 and K3 against the plain
-versions at B=16."""
+versions at B=16; K1 with a carried dual on both precondition branches
+against the plain version in f64 (X and P at phase 6's quantile gate); every
+Go2 gait's K1, K2 (with the Go2's model buffer) and K3 at B=16; the Go2 loop
+with every per-episode option gives 17 of the sweep's rows, and the rows in
+reverse order, the records of the same rows inside the 40-row sweep, bit for
+bit."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -61,9 +67,9 @@ def test_admm_kernel_matches_plain(main_path):
     cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
                                    rho_growth=1.0)
     before = cuda_admm.KERNEL.launches
-    Xk, Fk, vk, _ = cuda_admm.solve(*args, cfg)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*args, cfg)
     assert cuda_admm.KERNEL.launches == before + 1
-    Xp, Fp, vp, _ = cuda_admm.solve_plain(*args, cfg)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*args, cfg)
     torch.cuda.synchronize()
     torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(Fk, Fp, atol=1e-3, rtol=0)
@@ -110,8 +116,8 @@ def test_any_batch_size_gives_the_same_rows(main_path):
     part = (type(plan)(cnt=rows(plan.cnt), r=rows(plan.r), dt=rows(plan.dt)),
             spec.model.total_mass, *[rows(a) for a in full[2:8]],
             tuple(rows(a) for a in full[8]))
-    X, F, viol, iters = cuda_admm.solve(*full, cfg)
-    Xp, Fp, violp, itersp = cuda_admm.solve(*part, cfg)
+    X, F, viol, iters, _ = cuda_admm.solve(*full, cfg)
+    Xp, Fp, violp, itersp, _ = cuda_admm.solve(*part, cfg)
     assert torch.equal(X[:5], Xp) and torch.equal(F[:5], Fp) and torch.equal(iters[:5], itersp)
 
     tasks, x0 = KD._build_ik_tasks(spec, prob, X)
@@ -172,8 +178,8 @@ def test_long_horizon_kernels_match_plain(device, main_path):
             prob["W_F"], prob["X_wm"], prob["F_wm"], prob["x_bounds"])
     cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
                                    rho_growth=1.0)
-    Xk, Fk, vk, _ = cuda_admm.solve(*args, cfg)
-    Xp, Fp, vp, _ = cuda_admm.solve_plain(*args, cfg)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*args, cfg)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*args, cfg)
     torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(Fk, Fp, atol=1e-3, rtol=0)
     torch.testing.assert_close(vk, vp, rtol=1e-3, atol=1e-6)
@@ -218,8 +224,8 @@ def test_gait_kernels_match_plain(device, name):
     cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, max_admm_iters=15, dual_relax=1.0, rho_growth=1.0)
     before = {k: mod.KERNEL.launches for k, mod in (("admm", cuda_admm), ("ddp", cuda_ddp),
                                                      ("fused", cuda_fused))}
-    Xk, Fk, vk, _ = cuda_admm.solve(*args, cfg)
-    Xp, Fp, vp, _ = cuda_admm.solve_plain(*args, cfg)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*args, cfg)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*args, cfg)
     torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(Fk, Fp, atol=1e-3, rtol=0)
     torch.testing.assert_close(vk, vp, rtol=1e-3, atol=1e-6)
@@ -385,3 +391,143 @@ def test_gated_rollouts_on_the_card_match_the_jax_fixture(device, variant, monke
                                ref[f"{variant}/final_q"][calm], atol=1.1e-4, rtol=0)
     np.testing.assert_allclose(res.final_state.v[calm].double().cpu().numpy(),
                                ref[f"{variant}/final_v"][calm], atol=4.3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("precondition", [False, True])
+def test_admm_kernel_carries_the_dual(main_path, precondition):
+    """K1 warm-started from a first solve's (X, F, P) with the accelerated
+    schedule (rho escalates and backs off, rescaling the dual): X and the
+    returned P against the plain version in f64 at phase 6's quantile gate
+    (|d| q0.999 < 5e-3, max < 5e-2) on 64 problems."""
+    import dataclasses
+
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.solvers import cuda_admm
+
+    spec, prob = main_path
+    n = 64
+    args = tuple(a[:n].contiguous() if torch.is_tensor(a) else a for a in (
+        prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"], prob["X_wm"], prob["F_wm"]))
+    pl = prob["plan"]
+    plan = type(pl)(cnt=pl.cnt[:n].contiguous(), r=pl.r[:n].contiguous(),
+                    dt=pl.dt[:n].contiguous())
+    box = tuple(a[:n].contiguous() for a in prob["x_bounds"])
+    cfg = dataclasses.replace(cuda_admm.CudaAdmmConfig(rho=trot.rho, fista_max_iters=30),
+                              precondition=precondition)
+    m = spec.model.total_mass
+    X0, F0, _, _, P0 = cuda_admm.solve(plan, m, *args, box, cfg)
+    assert float(P0.abs().max()) > 0
+    warm = (plan, m) + args[:4] + (X0, F0, box)
+    X, F, viol, iters, P = cuda_admm.solve(*warm, cfg, P_wm=P0)
+
+    def f64(a):
+        if isinstance(a, type(pl)):
+            return type(pl)(cnt=a.cnt.double(), r=a.r.double(), dt=a.dt.double())
+        if isinstance(a, tuple):
+            return tuple(x.double() for x in a)
+        return a.double() if torch.is_tensor(a) else a
+
+    Xr, Fr, vr, itr, Pr = cuda_admm.solve_plain(*(f64(a) for a in warm), cfg, P_wm=P0.double())
+    torch.cuda.synchronize()
+    for a, b in ((X, Xr), (P, Pr)):
+        d = (a.double() - b).abs().flatten().cpu().numpy()
+        assert float(np.quantile(d, 0.999)) < 5e-3 and float(d.max()) < 5e-2
+
+
+GO2_GAITS = ("trot", "trot_sim", "trot_extended", "bound")
+
+
+@pytest.mark.parametrize("name", GO2_GAITS)
+def test_go2_gait_kernels_match_plain(device, name):
+    """Every Go2 gait at B=16 on its own problems (``workload.go2_states``:
+    H 20..30, rho 2e5-4e5, the "vdes" warm start, the generic offsets): K1
+    and K3 with the reference schedule and 15 iterations against their plain
+    versions (X 1e-4, F 1e-3 relative to the 6x heavier forces: 6e-3, viol
+    rtol 1e-3; K3's contact plan flags exact, r and dt 1e-5), K2 with the
+    Go2's model buffer one iteration with one alpha on the random IK
+    problems at the gait's IK horizon against the plain version in f64 (xs
+    2e-4, us 2e-3, cost rtol 1e-4)."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.go2_cyclic import GAITS
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    g = GAITS[name]
+    spec = workload.go2_spec(name)
+    m, H = spec.model.total_mass, spec.horizon
+    inputs = [torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in workload.go2_states(name, 16)]
+    prob = KD._prepare_problem(spec, *inputs)
+    args = (prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
+            prob["X_wm"], prob["F_wm"], prob["x_bounds"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, max_admm_iters=15, dual_relax=1.0, rho_growth=1.0)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*args, cfg)
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*args, cfg)
+    torch.testing.assert_close(Xk, Xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(Fk, Fp, atol=6e-3, rtol=0)
+    torch.testing.assert_close(vk, vp, rtol=1e-3, atol=1e-6)
+    _, t, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
+    k3_in = (t, vdw, inputs[4], x_init, ee, hip, amom, m, KD.make_prep_consts(spec), cfg, H,
+             spec.n_eff)
+    K = cuda_fused.solve_from_state(*k3_in)
+    P = cuda_fused.solve_from_state_plain(*k3_in)
+    assert torch.equal(K[4], P[4]) and torch.equal(K[7], P[7])
+    torch.testing.assert_close(K[5], P[5], atol=1e-5, rtol=0)
+    torch.testing.assert_close(K[6], P[6], atol=1e-5, rtol=0)
+    torch.testing.assert_close(K[0], P[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(K[1], P[1], atol=6e-3, rtol=0)
+    ik = workload.random_ik_problems(spec.model, spec.eff_frames, 16, spec.ik_hor, device)
+    ik64 = tuple(a.double() if torch.is_tensor(a) else a for a in ik)
+    one = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
+    xs, us, cost = cuda_ddp.solve_ik_batch(*ik, cfg=one)
+    xs_p, us_p, cost_p = cuda_ddp.solve_ik_batch_plain(*ik64, cfg=one)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+
+
+def test_go2_loop_per_episode_options_any_batch_size(device):
+    """Two windows of the Go2 loop over the 40 rows of the stability sweep
+    (per-episode gains, contact, swing_blend and force_gate, read inside the
+    substep's CUDA graph): K1 and K2 launch once a window, and 17 of the
+    rows, run alone and in reverse order, give the records of the same rows
+    inside the 40-row call, bit for bit."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc.motions.go2_cyclic import trot_sim
+    from bunmpc_tpu_torch.sim import controllers, physics, rollout
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    spec = workload.go2_spec("trot_sim")
+    grid = workload.go2_sweep_grid()
+    gains, sp, sb, fg = workload.go2_sweep_options(grid)
+    start = workload.go2_settled_start(40, sim_params=sp, kp=gains.kp, kd=gains.kd)
+    vd = torch.zeros((40, 3), device=device)
+    vd[:, 0] = 0.3
+    wd = torch.zeros(40, device=device)
+    cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+
+    def run(idx):
+        def take(x):
+            return x[idx].contiguous()
+
+        p = physics.SimParams(contact=physics.ContactParams(
+            foot_radius=take(sp.contact.foot_radius), kn=take(sp.contact.kn),
+            dn=take(sp.contact.dn), mu=take(sp.contact.mu), kt=take(sp.contact.kt)),
+            joint_damping=take(sp.joint_damping), torque_limit=take(sp.torque_limit))
+        return rollout.rollout_mpc(
+            spec, p, cfg, physics.SimState(take(start.q), take(start.v)), take(vd), take(wd),
+            gains=controllers.IdControllerGains(kp=take(gains.kp), kd=take(gains.kd)),
+            swing_blend=take(sb), force_gate=take(fg))
+
+    before = (cuda_admm.KERNEL.launches, cuda_ddp.KERNEL.launches)
+    full = run(torch.arange(40, device=device))
+    assert (cuda_admm.KERNEL.launches, cuda_ddp.KERNEL.launches) == (before[0] + 2,
+                                                                      before[1] + 2)
+    idx = torch.arange(39, 5, -2, device=device)  # 17 rows, reversed
+    part = run(idx)
+    torch.cuda.synchronize()
+    assert torch.isfinite(full.states).all()
+    for name in ("states", "actions", "base", "contact_forces", "in_contact", "failed"):
+        assert torch.equal(getattr(part, name), getattr(full, name)[idx]), name

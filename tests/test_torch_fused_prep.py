@@ -195,12 +195,17 @@ def test_work_layout_matches_kernel(lib, h):
 
 def test_fused_path_matches_unfused_path(tspec):
     """The whole solve with fuse_prep=True (compact inputs, K3's plain
-    version, IK, interpolation) against the unfused solve, on the CPU."""
+    version, IK, interpolation) against the unfused solve, on the CPU; K3
+    keeps no dual (the JAX package's fused path neither), so the fused
+    path's ``P_opt`` is zeros where the unfused path returns K1's."""
     st = [torch.as_tensor(a, dtype=torch.float64) for a in trot_states(4)]
     cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, fista_max_iters=30)
     fused = TKD.solve_mpc_batch(tspec, *st, admm_cfg=cfg, fuse_prep=True)
     plain = TKD.solve_mpc_batch(tspec, *st, admm_cfg=cfg)
+    assert torch.all(fused.P_opt == 0) and torch.any(plain.P_opt != 0)
     for field in TKD.MpcPlan._fields:
+        if field == "P_opt":
+            continue
         a, b = getattr(fused, field), getattr(plain, field)
         assert a.shape == b.shape, field
         if field == "admm_iters":

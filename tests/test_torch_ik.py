@@ -233,7 +233,7 @@ def test_kernel_math_at_gait_horizons(lib, name):
     pr = KD._prepare_problem(spec, *[torch.as_tensor(a, dtype=torch.float64)
                                      for a in gait_states(name, 4)])
     cfg = cuda_admm.CudaAdmmConfig(rho=g.rho, fista_max_iters=30)
-    X, _, viol, _ = cuda_admm.solve_plain(
+    X, _, viol, _, _ = cuda_admm.solve_plain(
         pr["plan"], model.total_mass, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"],
         pr["F_wm"], pr["x_bounds"], cfg)
     ok = viol < cfg.exit_tol  # jump's problem 1 diverges (test_torch_admm.py)

@@ -56,6 +56,8 @@ def test_no_jax_or_jax_package_imports():
     for sub in ("velocity_grid.py", "max_force.py", "cc_replanning.py", "past_goals.py",
                 "multi_database.py", "visualize.py"):  # the eval suite
         assert os.path.join(PKG, "eval", sub) in files
+    for sub in (("robots", "go2.py"), ("mpc", "motions", "go2_cyclic.py")):  # the Go2
+        assert os.path.join(PKG, *sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -92,6 +94,12 @@ def test_plotting_imports_stay_inside_functions():
 def test_robot_asset_is_byte_identical():
     ours = os.path.join(PKG, "robots", "assets", "solo12_model.npz")
     theirs = os.path.join(REPO, "bunmpc_tpu", "robots", "assets", "solo12_model.npz")
+    assert filecmp.cmp(ours, theirs, shallow=False)
+
+
+def test_go2_asset_is_byte_identical():
+    ours = os.path.join(PKG, "robots", "assets", "go2_model.npz")
+    theirs = os.path.join(REPO, "bunmpc_tpu", "robots", "assets", "go2_model.npz")
     assert filecmp.cmp(ours, theirs, shallow=False)
 
 

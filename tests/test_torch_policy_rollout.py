@@ -175,11 +175,7 @@ def test_first_50_steps_f32_spread_is_inside_the_card_gate(spec):
 
 
 def _later_kwargs():
-    return {
-        "terrain": dict(terrain=object()),
-        "q_noise": dict(q_noise=torch.zeros(19, dtype=F64)),
-        "v_noise": dict(v_noise=torch.zeros(18, dtype=F64)),
-    }
+    return {"terrain": dict(terrain=object())}
 
 
 @pytest.mark.parametrize("option", list(_later_kwargs()))

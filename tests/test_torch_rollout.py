@@ -17,7 +17,10 @@ package's ``bunmpc_tpu/sim/rollout.py`` on the same seeded numpy inputs.
 * The float32-against-float64 spread of one window of the plain path, which
   ``chip_smoke.py`` phase 7a's end-of-window gate is built on: the gate
   holds at least 3x the spread.
-* Options left for later raise.
+* The carried dual on ``admm_backend="cuda"`` (K1's plain version on CPU
+  tensors) against the same fixture's carried rollout.
+* Terrain, left for later, raises; per-episode options of the wrong shape
+  raise.
 """
 
 import os
@@ -40,7 +43,7 @@ from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TC
 from bunmpc_tpu_torch.sim import controllers, physics
 from bunmpc_tpu_torch.sim import rollout as TR
-from bunmpc_tpu_torch.solvers import biconvex, ddp
+from bunmpc_tpu_torch.solvers import biconvex, cuda_admm, ddp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (phase 7a's gates)
@@ -202,20 +205,35 @@ def test_one_window_f32_spread_is_inside_the_card_gate(spec):
     assert 0.0 < dv and 3.0 * dv <= chip_smoke.WINDOW_V_TOL
 
 
+def test_two_window_f32_spread_is_inside_the_card_gate(spec):
+    """Two windows (100 steps) of the plain path from the settled start with
+    the reference-envelope commands and (X, F, P) carried into the second
+    solve (the default on "tiled" specs), float32 against float64 on 8
+    episodes: chip_smoke.py phase 7a holds the card's end q and v against
+    the plain path in float64 within TWO_WINDOW_Q_TOL and TWO_WINDOW_V_TOL,
+    which must be at least 3x this spread."""
+    n = 8
+    st = workload.settled_start(1, device="cpu", dtype=F64)
+    v_des, w_des = workload.command_draw(n)
+    cfg = TR.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd)
+    out = {}
+    for dt in (torch.float32, F64):
+        s = physics.SimState(st.q.to(dt).expand(n, -1).contiguous(),
+                             st.v.to(dt).expand(n, -1).contiguous())
+        out[dt] = TR.rollout_mpc(
+            spec, workload.closed_loop_sim_params(), cfg, s, torch.as_tensor(v_des, dtype=dt),
+            torch.as_tensor(w_des, dtype=dt), admm_backend="torch", ik_backend="torch")
+    a, b = out[torch.float32].final_state, out[F64].final_state
+    dq = float((a.q.double() - b.q).abs().max())
+    dv = float((a.v.double() - b.v).abs().max())
+    print(f"two-window f32 vs f64 spread: q {dq:.3e}, v {dv:.3e}; card gates "
+          f"q {chip_smoke.TWO_WINDOW_Q_TOL:.1e}, v {chip_smoke.TWO_WINDOW_V_TOL:.1e}")
+    assert 0.0 < dq and 3.0 * dq <= chip_smoke.TWO_WINDOW_Q_TOL
+    assert 0.0 < dv and 3.0 * dv <= chip_smoke.TWO_WINDOW_V_TOL
+
+
 def _later_kwargs():
-    return {
-        "terrain": dict(terrain=object()),
-        "q_noise": dict(q_noise=torch.zeros(19, dtype=F64)),
-        "v_noise": dict(v_noise=torch.zeros(18, dtype=F64)),
-        "swing_blend": dict(swing_blend=0.5),
-        "force_gate": dict(force_gate=0.5),
-        "per-episode gains": dict(gains=controllers.IdControllerGains(
-            kp=torch.full((2,), 12.0, dtype=F64), kd=0.5)),
-        "per-episode sim_params": dict(sim_params=physics.SimParams(
-            joint_damping=torch.full((2,), 0.02, dtype=F64))),
-        "per-episode contact": dict(sim_params=physics.SimParams(contact=physics.ContactParams(
-            kn=torch.full((2,), 1e4, dtype=F64)))),
-    }
+    return {"terrain": dict(terrain=object())}
 
 
 @pytest.mark.parametrize("option", list(_later_kwargs()))
@@ -230,18 +248,63 @@ def test_options_left_for_later_raise(spec, option):
                        **kwargs)
 
 
-def test_cuda_backend_refuses_the_carried_dual(spec):
+def _bad_option_kwargs():
+    return {
+        "per-episode dt": dict(sim_params=physics.SimParams(dt=torch.full((2,), 1e-3,
+                                                                            dtype=F64))),
+        "gains of another batch": dict(gains=controllers.IdControllerGains(
+            kp=torch.full((3,), 12.0, dtype=F64), kd=0.5)),
+        "contact of another batch": dict(sim_params=physics.SimParams(
+            contact=physics.ContactParams(kn=torch.full((5,), 1e4, dtype=F64)))),
+        "swing_blend of another batch": dict(swing_blend=torch.full((3,), 0.5, dtype=F64)),
+        "q_noise of another width": dict(q_noise=torch.zeros(18, dtype=F64)),
+        "v_noise of another batch": dict(v_noise=torch.zeros(3, 18, dtype=F64)),
+    }
+
+
+@pytest.mark.parametrize("option", list(_bad_option_kwargs()))
+def test_per_episode_options_check_their_shapes(spec, option):
+    """A per-episode option is a float or one value per episode, a sensor
+    bias (n,) or (B, n), and the step ``dt`` one float for the batch."""
+    kwargs = dict(_bad_option_kwargs()[option])
+    sp = kwargs.pop("sim_params", workload.closed_loop_sim_params())
     st = physics.SimState(t64(np.tile(TC.q0(), (2, 1))), torch.zeros(2, 18, dtype=F64))
     cfg = TR.RolloutConfig(episode_length=100)
-    with pytest.raises(ValueError, match="dual"):
-        TR.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg, st,
-                       torch.zeros(2, 3, dtype=F64), torch.zeros(2, dtype=F64),
-                       warm_start_carry=True, admm_backend="cuda", ik_backend="cuda")
-    q = torch.zeros(2, 19, dtype=F64)
-    with pytest.raises(ValueError, match="dual"):
-        KD.solve_mpc_batch(spec, q, torch.zeros(2, 18, dtype=F64), torch.zeros(2, dtype=F64),
-                           torch.zeros(2, 3, dtype=F64), torch.zeros(2, dtype=F64),
-                           warm_start=(None, None, None), admm_backend="cuda")
+    with pytest.raises(ValueError):
+        TR.rollout_mpc(spec, sp, cfg, st, torch.zeros(2, 3, dtype=F64),
+                       torch.zeros(2, dtype=F64), admm_backend="torch", ik_backend="torch",
+                       **kwargs)
+
+
+def test_cuda_backend_carries_the_dual(spec, reference):
+    """``admm_backend="cuda"`` with (X, F, P) carried, on CPU tensors (K1's
+    and K2's plain versions, K1's taking the carried dual in and giving it
+    back), against the JAX package's carried rollout
+    (tests/fixtures/torch_rollout_solo12_trot_sim.npz, "carry"): every record
+    within atol 1e-9, flags and failure steps equal, as the "torch" case.
+    The same call with the default ``warm_start_carry`` (None) carries too:
+    the spec is "tiled"."""
+    ref = reference
+    B = REF.B
+    state0 = physics.SimState(q=t64(ref["q0"]).expand(B, -1).contiguous(),
+                              v=t64(ref["v0"]).expand(B, -1).contiguous())
+    cfg = TR.RolloutConfig(episode_length=REF.T, kp=trot_sim.kp, kd=trot_sim.kd,
+                           gait_period=trot_sim.gait_period)
+    for carry in (True, None):
+        res = TR.rollout_mpc(
+            spec, workload.closed_loop_sim_params(), cfg, state0, t64(ref["v_des"]),
+            t64(ref["w_des"]), admm_cfg=cuda_admm.CudaAdmmConfig(rho=trot_sim.rho,
+                                                                 max_admm_iters=60),
+            ddp_cfg=ddp.DdpConfig(n_iters=4), warm_start_carry=carry, admm_backend="cuda",
+            ik_backend="torch")
+        got = {f: getattr(res, f).numpy() for f in REF.FIELDS}
+        got["final_q"], got["final_v"] = res.final_state.q.numpy(), res.final_state.v.numpy()
+        for f, a in got.items():
+            r = ref[f"carry/{f}"]
+            if a.dtype.kind in "bi":
+                np.testing.assert_array_equal(a, r, err_msg=f)
+            else:
+                np.testing.assert_allclose(a, r, atol=1e-9, rtol=0, err_msg=f)
 
 
 @pytest.mark.slow
