@@ -7,6 +7,10 @@ with a plain C interface under ``build/bunmpc_tpu_torch/`` (listed in
 is newer than it. A build with extra preprocessor defines (the profiling
 build, ``-DBK_PROFILE``) goes into a library of its own name.
 
+A kernel whose source holds several instantiations is built once per
+instantiation, each selected by a define (K2 over the joint count,
+``-DBK_DDP_NJ=<nj>``), so that their nvcc runs go side by side.
+
 ``build_host`` compiles the same sources with ``g++`` for the host (the
 per-problem math is ``__host__ __device__``): a test-only build that lets the
 CPU tests check the kernel math. It is never on the main path.
@@ -65,7 +69,7 @@ def _sources():
 
 
 def lib_path(name: str, defines=()) -> str:
-    tag = "".join(f"_{d.lower()}" for d in defines)
+    tag = "".join(f"_{d.lower().replace('=', '')}" for d in defines)
     return os.path.join(BUILD_DIR, f"lib{name}{tag}.so")
 
 
@@ -81,34 +85,37 @@ def _compile_cmd(name: str, out: str, defines=()):
             os.path.join(CSRC, f"{name}.cu")]
 
 
-def build(names, force: bool = False, defines=()) -> dict:
-    """Compile ``csrc/<name>.cu`` for every stale name, all nvcc processes at
-    once, with ``-D`` for each of ``defines``; returns {name: ptxas report}.
-    Raises with the compiler output if a build fails."""
+def build_kernels(kernels, force: bool = False, extra=()) -> dict:
+    """Compile every stale library of ``kernels`` (``Kernel`` objects: a
+    source and its defines, plus ``extra`` defines), all nvcc processes at
+    once; returns {library file name: ptxas report}. Raises with the
+    compiler output if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in names:
-        out = lib_path(name, defines)
-        if not force and not _stale(out):
+    for k in kernels:
+        defines = tuple(k.defines) + tuple(extra)
+        out = lib_path(k.name, defines)
+        tag = os.path.basename(out)[3:-3]
+        if tag in procs or (not force and not _stale(out)):
             continue
-        tmp = os.path.join(BUILD_DIR, f"lib{name}.{os.getpid()}.tmp.so")
-        procs[name] = (
-            tmp,
+        tmp = os.path.join(BUILD_DIR, f"lib{tag}.{os.getpid()}.tmp.so")
+        procs[tag] = (
+            tmp, out,
             subprocess.Popen(
-                _compile_cmd(name, tmp, defines), stdout=subprocess.PIPE,
+                _compile_cmd(k.name, tmp, defines), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,
             ),
         )
     reports = {}
     failed = []
-    for name, (tmp, proc) in procs.items():
+    for tag, (tmp, out, proc) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
+        reports[tag] = log
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
+            failed.append(f"--- nvcc {tag} (rc {proc.returncode}) ---\n{log}")
         else:
-            os.replace(tmp, lib_path(name, defines))
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -140,7 +147,7 @@ class Kernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            build([self.name], defines=self.defines)
+            build_kernels([self])
             self._lib = ctypes.CDLL(lib_path(self.name, self.defines))
         return self._lib
 

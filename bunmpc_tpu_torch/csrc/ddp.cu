@@ -6,7 +6,7 @@
 // velocities, centroidal momentum; the residual Jacobians from hand-written
 // tangent passes through the same recursions, one per configuration
 // direction, the momentum matrix from the velocity directions, the SE(3)
-// chart blocks in closed form), a Riccati backward sweep with an 18x18
+// chart blocks in closed form), a Riccati backward sweep with an nv x nv
 // Cholesky of Quu (clamp rsqrt(max(d, 1e-20)), Levenberg term reg*I,
 // symmetrized Vxx), then a line search: one cost-only rollout per alpha, the
 // earliest alpha with the strictly lowest cost wins, and one storing rollout
@@ -45,8 +45,14 @@
 //
 // Built by bunmpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-//        -Xcompiler -fPIC
-// (no fast math). Compiled with g++ instead (no __CUDACC__) it exports host
+//        -Xcompiler -fPIC -DBK_DDP_NJ=<nj>
+// (no fast math). One source serves every joint count the port's robots
+// have: the per-problem code is a template over NJ (struct Ddp; 12 joints
+// for Solo12 and the Go2, 8 for Solo8, each a tree of chains off the base
+// with four feet), each entry point takes nj, and the card builds one
+// library a joint count (the two nvcc runs side by side). The shapes
+// named below are the 12-joint ones (nv 18, ndx 36); at 8 joints nv is 14
+// and ndx 28. Compiled with g++ instead (no __CUDACC__) it exports host
 // loops over the same per-problem phases (the lanes of a phase run one after
 // another, the shared-memory slice is a plain array), in float and double,
 // for the CPU tests.
@@ -55,10 +61,7 @@
 
 namespace bk {
 
-constexpr int NJ = 12, NB = 13, NE = 4;
-constexpr int NQ = 19, NV = 18, NX = 37, NDX = 36;
-constexpr int NR = 3 * NE + 9 + NDX;  // 57 stage residual rows
-constexpr int NRT = 9 + NDX;          // 45 terminal rows
+constexpr int NE = 4;  // feet
 constexpr int MAX_ALPHAS = 8;
 static_assert(LANES >= MAX_ALPHAS, "the alphas' rollouts take a lane each");
 // profiling-build phase slots (common.cuh: Prof)
@@ -66,24 +69,6 @@ enum {
   PH_TOTAL, PH_ROLLOUT0, PH_DERIVS, PH_RICCATI, PH_CHOL, PH_ALPHAS, PH_DECISION,
   PH_DERIVS_COPY, PH_DERIVS_TANGENT, PH_DERIVS_GN, PH_RIC_PRODUCTS, PH_RIC_GAINS, PH_RIC_VXX,
   PH_DERIVS_REC
-};
-
-// ---------------------------------------------------------------- model ----
-
-// The buffer solvers/cuda_ddp.pack_model writes.
-template <typename T>
-struct ModelView {
-  const T* b;
-  HD int parent(int j) const { return (int)b[j]; }
-  HD const T* jrot(int j) const { return b + 12 + 9 * j; }
-  HD const T* jpos(int j) const { return b + 120 + 3 * j; }
-  HD const T* axis(int j) const { return b + 156 + 3 * j; }
-  HD T mass(int i) const { return b[192 + i]; }
-  HD const T* com(int i) const { return b + 205 + 3 * i; }
-  HD const T* inertia(int i) const { return b + 244 + 9 * i; }
-  HD int foot_body(int f) const { return (int)b[361 + f]; }
-  HD const T* foot_pos(int f) const { return b + 365 + 3 * f; }
-  HD T total_mass() const { return b[377]; }
 };
 
 // ------------------------------------------------------- small 3D algebra --
@@ -279,9 +264,42 @@ HD void se3_difference(const T* p1, const T* q1, const T* p2, const T* q2, T* dv
   mv3(Vi, dl, dv);
 }
 
+// ------------------------------------------- the DDP over a joint count ----
+
+// Everything below depends on the robot's joint count NJ_ (12: Solo12 and the
+// Go2, 8: Solo8; a tree of chains off the base with four feet), so it lives
+// in a struct templated on it, used as a namespace (its members are not
+// indented). The extern "C" entry points take nj and pick the instantiation.
+template <int NJ_>
+struct Ddp {
+static constexpr int NJ = NJ_, NB = NJ + 1;
+static constexpr int NQ = NJ + 7, NV = NJ + 6, NX = NQ + NV, NDX = 2 * NV;
+static constexpr int NR = 3 * NE + 9 + NDX;  // stage residual rows (57 at 12 joints)
+static constexpr int NRT = 9 + NDX;          // terminal rows (45 at 12 joints)
+
+// ---------------------------------------------------------------- model ----
+
+// The buffer solvers/cuda_ddp.pack_model writes: parent[NJ], joint_rot[NJ][9],
+// joint_pos[NJ][3], axis[NJ][3], mass[NB], com[NB][3], inertia[NB][9],
+// foot_body[NE], foot_pos[NE][3], total_mass.
+template <typename T>
+struct ModelView {
+  const T* b;
+  HD int parent(int j) const { return (int)b[j]; }
+  HD const T* jrot(int j) const { return b + NJ + 9 * j; }
+  HD const T* jpos(int j) const { return b + 10 * NJ + 3 * j; }
+  HD const T* axis(int j) const { return b + 13 * NJ + 3 * j; }
+  HD T mass(int i) const { return b[16 * NJ + i]; }
+  HD const T* com(int i) const { return b + 16 * NJ + NB + 3 * i; }
+  HD const T* inertia(int i) const { return b + 16 * NJ + 4 * NB + 9 * i; }
+  HD int foot_body(int f) const { return (int)b[16 * NJ + 13 * NB + f]; }
+  HD const T* foot_pos(int f) const { return b + 16 * NJ + 13 * NB + NE + 3 * f; }
+  HD T total_mass() const { return b[16 * NJ + 13 * NB + 4 * NE]; }
+};
+
 // x2 (-) x1 in the 2nv tangent
 template <typename T>
-HD void state_diff(const T* x1, const T* x2, T* d) {
+static HD void state_diff(const T* x1, const T* x2, T* d) {
   se3_difference(x1, x1 + 3, x2, x2 + 3, d, d + 3);
   for (int j = 0; j < NJ; ++j) d[6 + j] = x2[7 + j] - x1[7 + j];
   for (int i = 0; i < NV; ++i) d[NV + i] = x2[NQ + i] - x1[NQ + i];
@@ -289,7 +307,7 @@ HD void state_diff(const T* x1, const T* x2, T* d) {
 
 // semi-implicit Euler: v+ = v + u dt, q+ = integrate(q, v+ dt)
 template <typename T>
-HD void step(const T* x, const T* u, T dt, T* xn) {
+static HD void step(const T* x, const T* u, T dt, T* xn) {
   T vn[NV], dv[3], dw[3];
   for (int i = 0; i < NV; ++i) vn[i] = x[NQ + i] + u[i] * dt;
   for (int k = 0; k < 3; ++k) {
@@ -314,7 +332,7 @@ struct Kin {
 };
 
 template <typename T>
-HD void kinematics(const ModelView<T>& mv, const T* x, Kin<T>& k) {
+static HD void kinematics(const ModelView<T>& mv, const T* x, Kin<T>& k) {
   const T* q = x;
   const T* v = x + NQ;
   quat_to_rot(q + 3, k.R[0]);
@@ -377,7 +395,7 @@ HD void kinematics(const ModelView<T>& mv, const T* x, Kin<T>& k) {
 }
 
 template <typename T>
-HD void foot_pos(const ModelView<T>& mv, const Kin<T>& k, int f, T* pf) {
+static HD void foot_pos(const ModelView<T>& mv, const Kin<T>& k, int f, T* pf) {
   const int fb = mv.foot_body(f);
   T a[3];
   mv3(k.R[fb], mv.foot_pos(f), a);
@@ -386,7 +404,7 @@ HD void foot_pos(const ModelView<T>& mv, const Kin<T>& k, int f, T* pf) {
 
 // stage residual [ee(12) | com(3) | h(6) | sdiff(36)]; terminal skips ee
 template <typename T>
-HD void residual(const ModelView<T>& mv, const Kin<T>& k, const T* x, const T* ee_t,
+static HD void residual(const ModelView<T>& mv, const Kin<T>& k, const T* x, const T* ee_t,
                  const T* com_t, const T* mom_t, const T* xr, bool terminal, T* r) {
   int o = 0;
   if (!terminal) {
@@ -412,7 +430,7 @@ HD void residual(const ModelView<T>& mv, const Kin<T>& k, const T* x, const T* e
 // in registers. A configuration direction runs it twice: the momentum rows
 // need the CoM tangent, a sum over every body.
 template <typename T>
-HD void tangent_dir(const ModelView<T>& mv, const Kin<T>& k, const T* x, bool with_ee, int d,
+static HD void tangent_dir(const ModelView<T>& mv, const Kin<T>& k, const T* x, bool with_ee, int d,
                     T* Jq, T* Ag) {
   const T* v = x + NQ;
   const bool config = d < NV;
@@ -567,11 +585,15 @@ struct DdpWork {
   T *xsA, *usA, *rec;
 };
 
-constexpr int KIN_N = (int)(sizeof(Kin<float>) / sizeof(float));
-constexpr int JQ_ROWS = 3 * NE + 3 + 6;  // [ee | com | h]
+static constexpr int KIN_N = 36 * NB + 6 * NJ + 9;  // Kin's floats
+static constexpr int JQ_ROWS = 3 * NE + 3 + 6;      // [ee | com | h]
 // a knot's record: [FK cache | residual | B6 = Jr^-1(sdiff base) | A6 | Jr6]
-constexpr int REC_N = KIN_N + NR + 36 + 72;
-static_assert(KIN_N + NR + 36 + (JQ_ROWS + 6) * NV <= NDX * NDX, "the knot's data fits in U");
+static constexpr int REC_N = KIN_N + NR + 36 + 72;
+// U holds the knot's FK cache and rows, the Riccati step's four 18x18
+// products (4 NV^2 = NDX^2) or its NDX x NDX T1: at 12 joints NDX^2, at 8
+// the knot's data is the larger
+static constexpr int KNOT_N = KIN_N + NR + 36 + (JQ_ROWS + 6) * NV;
+static constexpr int U_N = KNOT_N > NDX * NDX ? KNOT_N : NDX * NDX;
 
 // Element offsets of one problem's shared-memory slice: the work arrays,
 // then the inputs, staged there once.
@@ -580,7 +602,7 @@ struct DdpLayout {
   long x0, ee_t, com_ref, mom_ref, x_reg, w_stage, w_term, wu, dts, n;
 };
 
-HD DdpLayout ddp_layout(int H) {
+static HD DdpLayout ddp_layout(int H) {
   long o = 0;
   auto take = [&](long n) {
     const long at = o;
@@ -593,7 +615,7 @@ HD DdpLayout ddp_layout(int H) {
   L.Lx = take(NDX); L.Qxx = take(NDX * NDX); L.Fb = take(72);
   L.Vx = take(NDX); L.Vxx = take(NDX * NDX); L.Qx = take(NDX); L.Qu = take(NV);
   L.Qux = take(NDX * NV); L.Quu = take(NV * NV); L.Lc = take(NV * NV);
-  L.U = take(NDX * NDX); L.kc = take(MAX_ALPHAS * (H + 1L));
+  L.U = take(U_N); L.kc = take(MAX_ALPHAS * (H + 1L));
   L.x0 = take(NX); L.ee_t = take((long)H * NE * 3); L.com_ref = take((H + 1L) * 3);
   L.mom_ref = take((H + 1L) * 6); L.x_reg = take((H + 1L) * NX); L.w_stage = take((long)H * NR);
   L.w_term = take(NRT); L.wu = take((long)H * NV); L.dts = take(H);
@@ -603,12 +625,12 @@ HD DdpLayout ddp_layout(int H) {
 
 // device-memory elements per problem: the alphas' candidate trajectories,
 // the knots' records
-HD long ddp_global_elems(int H) {
+static HD long ddp_global_elems(int H) {
   return MAX_ALPHAS * ((H + 1L) * NX + (long)H * NV) + (H + 1L) * REC_N;
 }
 
 template <typename T>
-HD T stage_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, const T* u, int k) {
+static HD T stage_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, const T* u, int k) {
   Kin<T> kin;
   kinematics(mv, x, kin);
   T r[NR];
@@ -623,7 +645,7 @@ HD T stage_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, cons
 }
 
 template <typename T>
-HD T term_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, int H) {
+static HD T term_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, int H) {
   Kin<T> kin;
   kinematics(mv, x, kin);
   T r[NRT];
@@ -638,7 +660,7 @@ HD T term_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* x, int H
 // Kfb_k (x (-) xs_k) (or zero controls) into xs_out/us_out; its cost is
 // knot_cost's, knot by knot, summed by total_cost
 template <typename T>
-HD void rollout(const DdpInputs<T>& in, const DdpWork<T>& w, int H, T alpha, bool zero_controls,
+static HD void rollout(const DdpInputs<T>& in, const DdpWork<T>& w, int H, T alpha, bool zero_controls,
                 T* xs_out, T* us_out) {
   T x[NX], xn[NX], u[NV], dx[NDX];
   for (int i = 0; i < NX; ++i) x[i] = in.x0[i];
@@ -663,7 +685,7 @@ HD void rollout(const DdpInputs<T>& in, const DdpWork<T>& w, int H, T alpha, boo
 
 // the cost of knot k of a stored trajectory (k == H: the terminal cost)
 template <typename T>
-HD T knot_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* xs, const T* us, int H,
+static HD T knot_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* xs, const T* us, int H,
                int k) {
   return k < H ? stage_cost(mv, in, xs + k * NX, us + k * NV, k)
                : term_cost(mv, in, xs + H * NX, H);
@@ -671,7 +693,7 @@ HD T knot_cost(const ModelView<T>& mv, const DdpInputs<T>& in, const T* xs, cons
 
 // a trajectory's cost from its knots' costs, summed in knot order
 template <typename T>
-HD T total_cost(const T* kc, int H) {
+static HD T total_cost(const T* kc, int H) {
   T c = T(0);
   for (int k = 0; k < H; ++k) c += kc[k];
   return c + kc[H];
@@ -693,7 +715,7 @@ struct GnRows {
 // (rows with a q-part only skip a zero factor, as it does: by a select, not
 // a branch the lanes would take apart), then scaled.
 template <typename T>
-HD T gn_curv(const GnRows<T>& G, int a, int b) {
+static HD T gn_curv(const GnRows<T>& G, int a, int b) {
   const int off = G.terminal ? 0 : 3 * NE;
   const T* ws = G.wts + off + 9;  // the sdiff rows' weights
   const T* wh = G.wts + off + 3;  // the momentum rows' weights
@@ -729,7 +751,7 @@ HD T gn_curv(const GnRows<T>& G, int a, int b) {
 
 // entry a of the Gauss-Newton gradient, in the same order
 template <typename T>
-HD T gn_grad(const GnRows<T>& G, int a) {
+static HD T gn_grad(const GnRows<T>& G, int a) {
   const int off = G.terminal ? 0 : 3 * NE;
   const T *ws = G.wts + off + 9, *rs = G.r + off + 9;
   const T *wh = G.wts + off + 3, *rh = G.r + off + 3;
@@ -766,7 +788,7 @@ HD T gn_grad(const GnRows<T>& G, int a) {
 // blocks of the step Jacobians [A6 | Jr6]. Knots are independent of each
 // other and of the backward sweep.
 template <typename T>
-HD void knot_record(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+static HD void knot_record(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
                     int k) {
   const bool term = k == H;
   const T* x = w.xs + k * NX;
@@ -798,7 +820,7 @@ HD void knot_record(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWor
 // directions (36: 18 configuration, 18 velocity); every lane takes entries
 // of Hm and g.
 template <typename T, class Exec>
-HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+static HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
                     int k, T* Hm, T* g, const Exec& exec) {
   const bool term = k == H;
   const T* x = w.xs + k * NX;
@@ -839,7 +861,7 @@ HD void knot_derivs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWor
 // element (i, j) of blk(M6 f, s)' X, X an 18x18 block with row stride ld;
 // M6 f is the 6x6 block scaled element by element
 template <typename T>
-HD T blkT_el(const T* M6, T f, T s, const T* X, int ld, int i, int j) {
+static HD T blkT_el(const T* M6, T f, T s, const T* X, int ld, int i, int j) {
   if (i >= 6) return s * X[i * ld + j];
   T v = T(0);
   for (int k = 0; k < 6; ++k) v += (M6[k * 6 + i] * f) * X[k * ld + j];
@@ -848,7 +870,7 @@ HD T blkT_el(const T* M6, T f, T s, const T* X, int ld, int i, int j) {
 
 // element (i, j) of X blk(M6 f, s)
 template <typename T>
-HD T blk_el(const T* X, int ld, const T* M6, T f, T s, int i, int j) {
+static HD T blk_el(const T* X, int ld, const T* M6, T f, T s, int i, int j) {
   if (j >= 6) return s * X[i * ld + j];
   T v = T(0);
   for (int k = 0; k < 6; ++k) v += X[i * ld + k] * (M6[k * 6 + j] * f);
@@ -863,7 +885,7 @@ HD T blk_el(const T* X, int ld, const T* M6, T f, T s, int i, int j) {
 // = -Quu^-1 [Qu | Qux], a column per lane; Vx and Qxx + Kfb'Qux; the
 // symmetrized Vxx.
 template <typename T, class Exec>
-HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
+static HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
                      const Exec& exec) {
   const T dt = in.dts[k], dt2 = dt * dt;
   const T* wu = in.wu + k * NV;
@@ -1011,7 +1033,7 @@ HD void riccati_knot(const DdpInputs<T>& in, const DdpWork<T>& w, int k, T reg,
 // The costs of n stored trajectories (candidate a at xs + a nxs, us + a nus),
 // knot by knot over the lanes, into w.kc[a (H+1) + k].
 template <typename T, class Exec>
-HD void rollout_costs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w,
+static HD void rollout_costs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w,
                       int H, int n, const T* xs, const T* us, const Exec& exec) {
   const int nk = H + 1;
   exec([&](int lane) {
@@ -1033,7 +1055,7 @@ HD void rollout_costs(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpW
 // every lane sees the same (the costs, the line-search decision), so the
 // lanes always agree.
 template <typename T, class Exec>
-HD void ddp_problem(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
+static HD void ddp_problem(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWork<T>& w, int H,
                     int n_iters, int n_alpha, const T* alphas, T reg, T* cost_out,
                     const Exec& exec) {
   const long nxs = (H + 1L) * NX, nus = (long)H * NV;
@@ -1110,7 +1132,7 @@ HD void ddp_problem(const ModelView<T>& mv, const DdpInputs<T>& in, const DdpWor
 // write its trajectory. scratch: the batch's device-memory work arrays,
 // problem-major (ddp_global_elems each).
 template <typename T, class Exec>
-HD void ddp_one(int b, int H, int n_iters, int n_alpha, T reg, const T* model, const T* alphas,
+static HD void ddp_one(int b, int H, int n_iters, int n_alpha, T reg, const T* model, const T* alphas,
                 const T* x0, const T* ee_t, const T* com_ref, const T* mom_ref, const T* x_reg,
                 const T* w_stage, const T* w_term, const T* wu, const T* dts, T* xs_out,
                 T* us_out, T* cost, T* sh, T* scratch, const Exec& exec) {
@@ -1147,68 +1169,108 @@ HD void ddp_one(int b, int H, int n_iters, int n_alpha, T reg, const T* model, c
   });
 }
 
+};  // struct Ddp
+
+static_assert(sizeof(Ddp<12>::Kin<float>) == Ddp<12>::KIN_N * sizeof(float), "Kin's size");
+static_assert(sizeof(Ddp<8>::Kin<double>) == Ddp<8>::KIN_N * sizeof(double), "Kin's size");
+
 }  // namespace bk
 
-// Elements per problem: of shared memory, and of the device-memory scratch.
-extern "C" long ddp_shared_size(int H) { return bk::ddp_layout(H).n; }
-extern "C" long ddp_scratch_size(int H) { return bk::ddp_global_elems(H); }
+// The joint counts a build holds (solvers/cuda_ddp.JOINT_COUNTS): with
+// -DBK_DDP_NJ=n only n (the card's builds, one nvcc a count, run side by
+// side), without it every count (the g++ test build); f(Ddp<nj>) on the one
+// that matches, or `refused` for any other.
+template <class F, class R>
+R with_nj(int nj, R refused, const F& f) {
+  switch (nj) {
+#if !defined(BK_DDP_NJ) || BK_DDP_NJ == 12
+    case 12: return f(bk::Ddp<12>{});
+#endif
+#if !defined(BK_DDP_NJ) || BK_DDP_NJ == 8
+    case 8: return f(bk::Ddp<8>{});
+#endif
+    default: return refused;
+  }
+}
+
+// Elements per problem: of shared memory, and of the device-memory scratch
+// (-1 for a joint count that is not built).
+extern "C" long ddp_shared_size(int nj, int H) {
+  return with_nj(nj, -1L, [&](auto d) { return decltype(d)::ddp_layout(H).n; });
+}
+extern "C" long ddp_scratch_size(int nj, int H) {
+  return with_nj(nj, -1L, [&](auto d) { return decltype(d)::ddp_global_elems(H); });
+}
 
 #define DDP_ARGS(T)                                                                        \
   int B, int H, int n_iters, int n_alpha, double reg, const T *model, const T *alphas,    \
       const T *x0, const T *ee_t, const T *com_ref, const T *mom_ref, const T *x_reg,      \
       const T *w_stage, const T *w_term, const T *wu, const T *dts, T *xs, T *us, T *cost, \
       T *scratch
-#define DDP_CALL(T, b, sh, exec)                                                            \
-  bk::ddp_one<T>(b, H, n_iters, n_alpha, T(reg), model, alphas, x0, ee_t, com_ref, mom_ref, \
-                 x_reg, w_stage, w_term, wu, dts, xs, us, cost, sh, scratch, exec)
+#define DDP_PASS                                                                            \
+  B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref, x_reg, w_stage,   \
+      w_term, wu, dts, xs, us, cost, scratch
+#define DDP_CALL(D, T, b, sh, exec)                                                        \
+  D::template ddp_one<T>(b, H, n_iters, n_alpha, T(reg), model, alphas, x0, ee_t, com_ref, \
+                         mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, sh, scratch,  \
+                         exec)
+
+// a joint count the build does not hold
+constexpr int NJ_REFUSED = -2;
 
 #ifdef __CUDACC__
 
+template <int NJ>
 __global__ void ddp_kernel(DDP_ARGS(float)) {
+  using D = bk::Ddp<NJ>;
   extern __shared__ float smem[];
   const int p = threadIdx.x / bk::LANES, lane = threadIdx.x % bk::LANES;
   const int b = blockIdx.x * (blockDim.x / bk::LANES) + p;
   if (b >= B) return;  // the whole warp: no barrier is left waiting
-  float* sh = smem + (long)p * bk::ddp_layout(H).n;
-  DDP_CALL(float, b, sh, (bk::DeviceExec{lane, bk::make_prof(b, lane == 0)}));
+  float* sh = smem + (long)p * D::ddp_layout(H).n;
+  DDP_CALL(D, float, b, sh, (bk::DeviceExec{lane, bk::make_prof(b, lane == 0)}));
 }
 
 BK_SET_PROFILE(ddp)
 
-// Launch on the caller's stream with `problems` problems (a warp and a
-// shared-memory slice each) per block; returns cudaGetLastError() or the
-// refusal of the block's shared memory (0 = launched).
-extern "C" int ddp_launch_f32(DDP_ARGS(float), int problems, void* stream) {
+template <int NJ>
+int ddp_launch(DDP_ARGS(float), int problems, void* stream) {
   const int blocks = (B + problems - 1) / problems;
-  const size_t bytes = (size_t)problems * bk::ddp_layout(H).n * sizeof(float);
-  const cudaError_t e =
-      cudaFuncSetAttribute(ddp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const size_t bytes = (size_t)problems * bk::Ddp<NJ>::ddp_layout(H).n * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ddp_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  ddp_kernel<<<blocks, problems * bk::LANES, bytes, (cudaStream_t)stream>>>(
-      B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref, x_reg, w_stage,
-      w_term, wu, dts, xs, us, cost, scratch);
+  ddp_kernel<NJ><<<blocks, problems * bk::LANES, bytes, (cudaStream_t)stream>>>(DDP_PASS);
   return (int)cudaGetLastError();
+}
+
+// Launch the nj-joint kernel on the caller's stream with `problems` problems
+// (a warp and a shared-memory slice each) per block; returns
+// cudaGetLastError(), the refusal of the block's shared memory, or
+// NJ_REFUSED (0 = launched).
+extern "C" int ddp_launch_f32(int nj, DDP_ARGS(float), int problems, void* stream) {
+  return with_nj(nj, NJ_REFUSED, [&](auto d) {
+    return ddp_launch<decltype(d)::NJ>(DDP_PASS, problems, stream);
+  });
 }
 
 #else  // host build for the CPU tests: the shared-memory slice is a plain array
 
 #include <vector>
 
-template <typename T>
+template <class D, typename T>
 int ddp_host(DDP_ARGS(T)) {
-  std::vector<T> sh(bk::ddp_layout(H).n);
-  for (int b = 0; b < B; ++b) DDP_CALL(T, b, sh.data(), bk::HostExec{});
+  std::vector<T> sh(D::ddp_layout(H).n);
+  for (int b = 0; b < B; ++b) DDP_CALL(D, T, b, sh.data(), bk::HostExec{});
   return 0;
 }
 
-extern "C" int ddp_host_f32(DDP_ARGS(float)) {
-  return ddp_host<float>(B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref, mom_ref,
-                         x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch);
+extern "C" int ddp_host_f32(int nj, DDP_ARGS(float)) {
+  return with_nj(nj, NJ_REFUSED, [&](auto d) { return ddp_host<decltype(d), float>(DDP_PASS); });
 }
 
-extern "C" int ddp_host_f64(DDP_ARGS(double)) {
-  return ddp_host<double>(B, H, n_iters, n_alpha, reg, model, alphas, x0, ee_t, com_ref,
-                          mom_ref, x_reg, w_stage, w_term, wu, dts, xs, us, cost, scratch);
+extern "C" int ddp_host_f64(int nj, DDP_ARGS(double)) {
+  return with_nj(nj, NJ_REFUSED, [&](auto d) { return ddp_host<decltype(d), double>(DDP_PASS); });
 }
 
 #endif

@@ -1,4 +1,4 @@
-"""Cyclic gait phase machine + vectorized Raibert contact planner (flat ground).
+"""Cyclic gait phase machine + vectorized Raibert contact planner.
 
 Counterpart of ``bunmpc_tpu/mpc/gait.py`` (reference
 src/gait_planner/gait_planner.cpp:31-121 and
@@ -9,7 +9,9 @@ horizon with all feet and batch elements in parallel.
 
 Reference quirks preserved: the first-knot dt shrink rounded to 2 decimals,
 the hip projection by knot index, the 1e-4 stance tolerance and the swing
-via-point flag over the first half of swing.
+via-point flag over the first half of swing. Beyond the reference (as in the
+JAX package): touchdown-location noise and touchdown and swing heights read
+off a terrain heightfield.
 """
 
 from __future__ import annotations
@@ -94,14 +96,18 @@ def create_cnt_plan(
     w_des,  # (...,)
     com,  # (..., 3) current CoM (world)
     ee_pos,  # (..., n_eff, 3) current foot positions (world)
-    noise_xy=None,
-    terrain=None,
+    noise_xy=None,  # optional (..., H, n_eff, 2) touchdown-location noise
+    terrain=None,  # optional sim.physics.Terrain (uneven-ground planning)
+    terrain_offset=None,  # (..., 2) world xy of the plan origin (q is origin-reset)
 ):
-    """Dense contact plan ``(ContactPlan, swing_mask)`` on flat ground.
+    """Dense contact plan ``(ContactPlan, swing_mask)``.
 
-    Touchdown noise and terrain are not part of this port yet and raise."""
-    if noise_xy is not None or terrain is not None:
-        raise NotImplementedError("create_cnt_plan: noise_xy/terrain are not ported")
+    ``noise_xy`` moves each planned touchdown by ``noise_xy`` times its
+    distance from the plan's origin (contact-location fault injection,
+    abstract_cyclic_gen.py:376-384). With ``terrain``, touchdown and
+    early-swing heights are the heightfield's at the planned xy plus the
+    foot size (the reference plans flat ground); the plan is origin-reset,
+    so ``terrain_offset`` maps plan xy back to world xy."""
     dtype = q.dtype
     R = quat_to_rot(yaw_quat(q[..., 3:7]))
     vtrack = v_des[..., 0:2]
@@ -124,13 +130,23 @@ def create_cnt_plan(
     drift = knot_idx[:, None] * gait.gait_dt * vtrack[..., None, :]  # (..., H, 2)
     hip_xy = com[..., None, None, 0:2] + hip_world[..., None, :, 0:2] + drift[..., :, None, :]
     touchdown_xy = hip_xy + raibert[..., None, :, :] + ang_step[..., None, None, :]
+    if noise_xy is not None:  # scaled by the norm of the planned location
+        nrm = torch.linalg.vector_norm(touchdown_xy, dim=-1, keepdim=True)
+        touchdown_xy = touchdown_xy + nrm * noise_xy
     swing_early_xy = hip_xy + ang_step[..., None, None, :]
 
-    z_td = torch.full(touchdown_xy.shape[:-1], planner.foot_size, dtype=dtype, device=q.device)
+    if terrain is None:
+        z_td = torch.full(touchdown_xy.shape[:-1], planner.foot_size, dtype=dtype,
+                          device=q.device)
+        z_sw_early = z_td
+    else:
+        off = 0.0 if terrain_offset is None else terrain_offset[..., None, None, :]
+        z_td = terrain.height_at(touchdown_xy + off) + planner.foot_size
+        z_sw_early = terrain.height_at(swing_early_xy + off) + planner.foot_size
     touchdown = torch.cat([touchdown_xy, z_td[..., None]], dim=-1)  # (..., H, ne, 3)
     swing_loc = torch.where(
         (per_ph < 0.5)[..., None],
-        torch.cat([swing_early_xy, z_td[..., None]], dim=-1),
+        torch.cat([swing_early_xy, z_sw_early[..., None]], dim=-1),
         touchdown,
     )
 

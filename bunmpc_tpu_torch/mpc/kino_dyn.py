@@ -107,13 +107,11 @@ def make_cyclic_spec(
     "solo12_hip" for the Solo family, else "generic". ``warm_start_style``
     None = "tiled" for the Solo family, else "vdes" (``CyclicMpcSpec``).
 
-    The kernels take a tree of 12 joints in four 3-joint legs off the base
-    (``cuda_ddp.pack_model``); another model, such as Solo8, raises."""
+    K2 is built for the joint counts of ``cuda_ddp.JOINT_COUNTS`` (12: Solo12
+    and the Go2; 8: Solo8), each a tree of chains off the base with four
+    feet (``cuda_ddp.check_model``); another model raises ValueError."""
     device = resolve_device(device)
-    if model.n_joints != 12:
-        raise NotImplementedError(
-            f"{model.name!r} has {model.n_joints} joints; the kernels take 12 "
-            "(ROADMAP, queue 1, item 8)")
+    cuda_ddp.check_model(model, eff_frames)
     solo = model.name.startswith("solo")
     if offset_style is None:
         offset_style = "solo12_hip" if solo else "generic"
@@ -225,12 +223,20 @@ def _interp_1khz(spec: CyclicMpcSpec, dts, knots):
     return k0 * (1 - w) + k1 * w
 
 
-def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
+def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des, noise_xy=None, terrain=None):
     """Batched problem assembly: contact plan + dynamics costs + warm starts
     (abstract_cyclic_gen.py create_cnt_plan/create_costs; kino_dyn.cpp:83-99
     for the cold warm start, with the spec's ``warm_start_style``). Forces
     regularize toward zero (``f_reg_style="zero"``, the reference's) or, with
-    ``"weight"``, toward m g shared by a knot's stance feet (``F_ref``)."""
+    ``"weight"``, toward m g shared by a knot's stance feet (``F_ref``).
+
+    ``noise_xy`` (B, H, n_eff, 2) moves the planned touchdowns (scaled by
+    their distance from the plan's origin, ``gait.create_cnt_plan``).
+    ``terrain`` (``sim.physics.Terrain``, world coordinates) sets the
+    touchdown and swing heights and lifts the nominal and terminal CoM
+    heights by the ground under the planned CoM path; the plan is
+    origin-reset, so q's pre-reset xy maps it back onto the heightfield.
+    Flat ground (neither given) is the reference's plan."""
     p = spec.params
     if p.f_reg_style not in ("zero", "weight"):
         raise ValueError(f"unknown f_reg_style {p.f_reg_style!r}")
@@ -242,6 +248,7 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     def vec(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    xy_world = q[:, 0:2].clone()  # the terrain is in world coordinates
     q = q.clone()
     q[:, 0:2] = 0.0  # origin reset (abstract_cyclic_gen.py:632-633)
     t = t.to(dtype)
@@ -252,7 +259,8 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     )
     x_init = torch.cat([com, h_lin / m, h_ang], dim=-1)
     plan, swing_mask = G.create_cnt_plan(
-        spec.gait, spec.planner, H, q, t, v_des_w, w_des, com, ee_pos
+        spec.gait, spec.planner, H, q, t, v_des_w, w_des, com, ee_pos,
+        noise_xy=noise_xy, terrain=terrain, terrain_offset=xy_world,
     )
 
     # dynamics costs (create_costs, abstract_cyclic_gen.py:564-614)
@@ -272,10 +280,13 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
     amom_z_nom = torch.where(w_des == 0.0, amom[:, 2] * oc[2], yaw_mom)
 
     ones = torch.ones((B, H), dtype=dtype, device=device)
+    # the nominal height rides the ground under the planned CoM path
+    z_nom = p.nom_ht * ones if terrain is None else (
+        p.nom_ht + terrain.height_at(xy_nom + xy_world[:, None]))
     X_nom = torch.cat(
         [
             xy_nom,
-            (p.nom_ht * ones)[..., None],
+            z_nom[..., None],
             v_des_w[:, None, :].expand(B, H, 3),
             (amom[:, 0, None] * oc[0] * ones)[..., None],
             (amom[:, 1, None] * oc[1] * ones)[..., None],
@@ -283,10 +294,13 @@ def _prepare_problem(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
         ],
         dim=-1,
     )
+    xy_ter = x_init[:, 0:2] + (p.gait_horizon * p.gait_period * v_des_w)[:, 0:2]
+    z_ter = torch.full((B, 1), p.nom_ht, dtype=dtype, device=device) if terrain is None else (
+        p.nom_ht + terrain.height_at(xy_ter + xy_world)[:, None])
     X_ter = torch.cat(
         [
-            x_init[:, 0:2] + (p.gait_horizon * p.gait_period * v_des_w)[:, 0:2],
-            torch.full((B, 1), p.nom_ht, dtype=dtype, device=device),
+            xy_ter,
+            z_ter,
             v_des_w,
             amom[:, 0:2],
             torch.where(w_des == 0.0, amom[:, 2], yaw_mom)[:, None],
@@ -474,6 +488,8 @@ def solve_mpc_batch(
     ik_backend: str = "cuda",
     fuse_prep: bool = False,
     warm_start=None,  # optional (X_wm (B, H+1, 9), F_wm (B, H, n_eff, 3), P_wm (B, H+1, 9))
+    noise_xy=None,  # optional (B, H, n_eff, 2) touchdown-location noise
+    terrain=None,  # optional sim.physics.Terrain: uneven-ground planning
 ) -> MpcPlan:
     """Batched kino-dynamic MPC. ``"cuda"`` backends run the hand-written
     kernels, ``"torch"`` their plain versions; both return the ADMM's scaled
@@ -483,7 +499,13 @@ def solve_mpc_batch(
 
     ``warm_start`` replaces the ADMM's cold start with a carried solution
     and its scaled dual (the JAX package's ``solve_mpc(warm_start=...)``), on
-    either backend; the fused path starts cold, as the JAX package's does."""
+    either backend; the fused path starts cold, as the JAX package's does.
+
+    ``noise_xy`` and ``terrain`` plan touchdown noise and uneven ground
+    (``_prepare_problem``; the JAX package's ``solve_mpc``, whose batch it
+    takes whole where the JAX package vmaps). K3 builds a flat plan with no
+    noise, as the JAX package's fused path does: with ``fuse_prep=True``
+    either raises ValueError."""
     if admm_backend not in ("cuda", "torch"):
         raise ValueError(f"admm_backend must be 'cuda' or 'torch', got {admm_backend!r}")
     if ik_backend not in ("cuda", "torch"):
@@ -494,9 +516,16 @@ def solve_mpc_batch(
     if warm_start is not None and fuse_prep:
         raise ValueError("the fused path (K3) builds its own cold start: warm_start needs "
                          "fuse_prep=False")
+    if (noise_xy is not None or terrain is not None) and fuse_prep:
+        raise ValueError("the fused path (K3) plans flat ground without touchdown noise: "
+                         "noise_xy and terrain need fuse_prep=False")
     p = spec.params
     m = spec.model.total_mass
     q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
+    if noise_xy is not None:
+        noise_xy = torch.as_tensor(noise_xy, dtype=q.dtype, device=q.device)
+    if terrain is not None:
+        terrain = terrain.to(q)
 
     if fuse_prep:
         if admm_cfg is None:
@@ -510,7 +539,7 @@ def solve_mpc_batch(
                     swing_mask=swing)
         P = torch.zeros_like(X)
     else:
-        prob = _prepare_problem(spec, q, v, t, v_des, w_des)
+        prob = _prepare_problem(spec, q, v, t, v_des, w_des, noise_xy=noise_xy, terrain=terrain)
         X_wm, F_wm, P_wm = (prob["X_wm"], prob["F_wm"], None) if warm_start is None \
             else warm_start
         if admm_backend == "cuda":

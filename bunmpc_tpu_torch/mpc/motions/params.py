@@ -1,8 +1,9 @@
 """Motion/gait parameter containers.
 
-Copy of ``bunmpc_tpu/mpc/motions/params.py`` (the cyclic container only):
-frozen dataclasses of numpy constants, the twins of the reference's data-only
-parameter classes (reference examples/motions/weight_abstract.py:7-84).
+Copy of ``bunmpc_tpu/mpc/motions/params.py`` (the cyclic and the acyclic
+containers): frozen dataclasses of numpy constants, the twins of the
+reference's data-only parameter classes (reference
+examples/motions/weight_abstract.py:7-84).
 """
 
 from __future__ import annotations
@@ -69,3 +70,34 @@ class BiconvexMotionParams:
     def ik_horizon(self, ratio: float = 0.5) -> int:
         """IK knots (abstract_cyclic_gen.py:128)."""
         return int(np.round(ratio * self.gait_horizon * self.gait_period / self.gait_dt, 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class ACyclicMotionParams:
+    """Acyclic motions (jumps, cartwheels, rearing): time-stamped contact plan
+    and windowed costs (reference weight_abstract.py:45-84)."""
+
+    robot_name: str
+    motion_name: str
+    n_col: int
+    dt_arr: np.ndarray  # (n_col,)
+    plan_freq: float
+    cnt_plan: np.ndarray  # segments [[c, x, y, z, t_start, t_end] x n_eff]
+    W_X: np.ndarray
+    W_X_ter: np.ndarray
+    W_F: np.ndarray
+    X_nom: np.ndarray  # [[9 values, t_start, t_end], ...]
+    X_ter: np.ndarray
+    rho: float
+    bounds: np.ndarray  # [[bx, by, bz, t_start, t_end], ...]
+    swing_wt: list  # [[wt, x, y, z, t_start, t_end], ...] via points
+    cent_wt: tuple
+    state_wt: np.ndarray
+    state_reg: np.ndarray
+    state_scale: np.ndarray
+    ctrl_wt: np.ndarray
+    ctrl_reg: np.ndarray
+    ctrl_scale: np.ndarray
+    kp: object  # scalar or windowed [[kp, t_start, t_end], ...]
+    kd: object
+    cnt_wt: float = 5e4  # IK contact-tracking weight (plan_jump.py:72)

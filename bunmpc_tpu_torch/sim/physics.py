@@ -1,6 +1,6 @@
 """Batched rigid-body simulator with implicit soft ground contacts.
 
-Counterpart of ``bunmpc_tpu/sim/physics.py`` (flat ground). One 1 ms step
+Counterpart of ``bunmpc_tpu/sim/physics.py``. One 1 ms step
 (semi-implicit Euler) of a batch of robots: free dynamics from the mass
 matrix and the nonlinear effects, then a velocity-implicit spring-damper
 contact solve over the 3*n_eff contact rows,
@@ -8,7 +8,9 @@ contact solve over the 3*n_eff contact rows,
     (I + dt * D * G) f = k_n * pen - D * u_free,   G = J M^{-1} J^T,
 
 clamped to the unilateral normal and the friction cone. One Cholesky
-factorisation of M serves both M^{-1}(tau - bias) and M^{-1} J^T.
+factorisation of M serves both M^{-1}(tau - bias) and M^{-1} J^T. The ground
+is flat at z = 0, or a ``Terrain`` heightfield (contact normals stay
+vertical: valid for gentle slopes).
 
 State convention is Pinocchio's (q: base position + quaternion (xyzw) +
 joints; v: local-frame base twist + joint rates). Every step is batched
@@ -38,6 +40,60 @@ class ContactParams:
     dn: float = 300.0  # normal damping [N s/m] (implicit)
     mu: float = 1.0  # Coulomb friction
     kt: float = 300.0  # tangential damping [N s/m] (implicit)
+
+
+@dataclasses.dataclass(frozen=True)
+class Terrain:
+    """Uneven ground: a regular grid of heights sampled bilinearly (the JAX
+    package's working replacement for the reference's broken Perlin
+    generator, pybullet_env.py:154-201). ``heights`` (N, M) is a tensor on
+    the device and in the dtype of the states it meets; ``origin`` (the
+    world xy of ``heights[0, 0]``) and ``cell`` (the grid spacing, m) are
+    floats, so a CUDA graph that reads the ground reads the heights' buffer
+    and nothing from the host."""
+
+    heights: torch.Tensor  # (N, M) ground heights
+    origin: tuple = (0.0, 0.0)
+    cell: float = 0.05
+
+    def to(self, like: torch.Tensor) -> "Terrain":
+        """The same ground with its heights in ``like``'s dtype and device."""
+        return dataclasses.replace(self, heights=torch.as_tensor(
+            self.heights, dtype=like.dtype, device=like.device).contiguous())
+
+    def height_at(self, xy):
+        """Bilinear ground height at world xy (..., 2); beyond the grid the
+        edge cells extend it (indices clamped, weights clamped to [0, 1])."""
+        h = self.heights
+        n, m = h.shape
+        gx = (xy[..., 0] - float(self.origin[0])) / float(self.cell)
+        gy = (xy[..., 1] - float(self.origin[1])) / float(self.cell)
+        i0 = torch.clamp(torch.floor(gx).to(torch.int64), 0, n - 2)
+        j0 = torch.clamp(torch.floor(gy).to(torch.int64), 0, m - 2)
+        fx = torch.clamp(gx - i0, 0.0, 1.0)
+        fy = torch.clamp(gy - j0, 0.0, 1.0)
+        flat = h.reshape(-1)
+        at = i0 * m + j0
+        h00, h10, h01, h11 = flat[at], flat[at + m], flat[at + 1], flat[at + m + 1]
+        return (h00 * (1 - fx) * (1 - fy) + h10 * fx * (1 - fy) + h01 * (1 - fx) * fy
+                + h11 * fx * fy)
+
+
+def random_terrain(generator: torch.Generator, extent: float = 4.0, cell: float = 0.05,
+                   amplitude: float = 0.02, smooth: int = 3, dtype=torch.float32) -> Terrain:
+    """A random smooth heightfield centred on the origin (terrain fault
+    injection; the JAX package's ``random_terrain``, reference
+    generate_terrain, pybullet_env.py:154): ``amplitude`` times normal draws
+    on a (2 extent / cell)^2 grid, box-blurred ``smooth`` times. The draws
+    come from ``generator`` (on its device), where the JAX function takes a
+    key: the two packages' heights differ, their recipe does not."""
+    n = int(2 * extent / cell)
+    h = amplitude * torch.randn((n, n), generator=generator, dtype=dtype,
+                                device=generator.device)
+    for _ in range(smooth):  # box blur -> gentle slopes
+        h = (h + torch.roll(h, 1, 0) + torch.roll(h, -1, 0) + torch.roll(h, 1, 1)
+             + torch.roll(h, -1, 1)) / 5.0
+    return Terrain(heights=h, origin=(-extent, -extent), cell=cell)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,13 +144,11 @@ def step(
     tau_joints,  # (..., n_joints) commanded joint torques
     f_ext=None,  # optional (..., 3) external world-frame force at the base origin
     m_ext=None,  # optional (..., 3) external world-frame moment on the base
-    terrain=None,
+    terrain: Terrain | None = None,  # optional uneven ground
     kin=None,  # optional K.body_velocities(model, state.q, state.v), to share its FK
 ):
-    """One physics step of a batch: ``(SimState, ContactInfo)``."""
-    if terrain is not None:
-        raise NotImplementedError(
-            "terrain: uneven ground waits for a later slice (ROADMAP, queue 1, item 8)")
+    """One physics step of a batch: ``(SimState, ContactInfo)``. With
+    ``terrain`` a foot's penetration is measured from the ground under it."""
     q, v = state
     cp = params.contact
     ne = len(eff_frames)
@@ -106,7 +160,8 @@ def step(
     kn, dn, kt, mu = (per_robot(x) for x in (cp.kn, cp.dn, cp.kt, cp.mu))
 
     pos, _, J = _foot_kinematics(model, eff_frames, q, v, kin)
-    pen = per_robot(cp.foot_radius) - pos[..., 2]  # (..., ne) penetration depth
+    height = pos[..., 2] if terrain is None else pos[..., 2] - terrain.height_at(pos[..., 0:2])
+    pen = per_robot(cp.foot_radius) - height  # (..., ne) penetration depth
     active = (pen > 0).to(q.dtype)
 
     # free dynamics

@@ -214,12 +214,6 @@ def _extract_action(cfg: RolloutConfig, tau, q, v, tau_ff=None, q_des=None, v_de
     raise ValueError(f"unsupported action_type {cfg.action_type!r}")
 
 
-def _refuse_terrain(terrain):
-    if terrain is not None:
-        raise NotImplementedError(
-            "terrain waits for a later slice (ROADMAP, queue 1, item 8)")
-
-
 def _carried_warm_start(spec: KD.CyclicMpcSpec, qm0, vm0, t, v_des, prev, n_shift: int):
     """The previous window's (X, F, dual P) shifted one window and moved
     into the new plan frame, where it is finite and sane; elsewhere the
@@ -367,10 +361,11 @@ def rollout_mpc(
     CUDA graph reads. ``push_force`` pushes the base: a (T, 3) world-frame
     force per episode step for the whole batch, or (B, T, 3) per episode (the
     JAX package's ``vmap`` over a (T, 3) push); each substep adds its step's
-    row to the physics step as ``f_ext``. ``terrain`` (ROADMAP queue 1,
-    item 8) waits for a later slice and raises ``NotImplementedError``.
+    row to the physics step as ``f_ext``. ``terrain`` (``physics.Terrain``)
+    is the ground of the physics and of every window's plan (touchdown,
+    swing and CoM heights, ``solve_mpc_batch(terrain=)``); its heights go to
+    the state's device before the substep's CUDA graph is captured.
     """
-    _refuse_terrain(terrain)
     if warm_start_carry is None:
         warm_start_carry = spec.warm_start_style == "tiled"
     _check_window(spec, cfg)
@@ -387,6 +382,7 @@ def rollout_mpc(
     sim_params = _sim_params_on(sim_params, B, q)
     opts = _LoopOptions(
         q_noise=_noise(q_noise, "q_noise", B, q), v_noise=_noise(v_noise, "v_noise", B, v),
+        terrain=None if terrain is None else terrain.to(q),
         swing_blend=_per_episode(swing_blend, "swing_blend", B, q),
         force_gate=None if force_gate is None else torch.as_tensor(
             _per_episode(force_gate, "force_gate", B, q), dtype=dtype, device=device).expand(B),
@@ -410,6 +406,7 @@ class _LoopOptions(NamedTuple):
     swing_blend: torch.Tensor | float | None = None  # (B,) or a float
     force_gate: torch.Tensor | None = None  # (B,)
     leg_mask: torch.Tensor | None = None  # (n_eff, nj), with swing_blend
+    terrain: physics.Terrain | None = None  # heights on the state's device
 
 
 def _per_episode(x, name: str, B: int, like: torch.Tensor):
@@ -541,7 +538,7 @@ def _windows(spec, cfg, b: _Buffers, substep, start_time, v_des, w_des, warm_sta
         warm = (_carried_warm_start(spec, qm0, vm0, t, v_des, prev, n_shift)
                 if warm_start_carry else None)
         plan = KD.solve_mpc_batch(spec, qm0, vm0, t, v_des, w_des, warm_start=warm,
-                                  ddp_cfg=ddp_cfg, **solve_kw)
+                                  ddp_cfg=ddp_cfg, terrain=opts.terrain, **solve_kw)
         if warm_start_carry:  # qm0 is the state buffer the substeps overwrite: copy its xy
             prev = (plan.X_opt, plan.F_opt, plan.P_opt, qm0[:, 0:2].clone())
         b.xs_int.copy_(plan.xs_int)
@@ -648,7 +645,8 @@ def _substep(spec, sim_params, cfg, gains, v_des, w_des, step0, push, opts: _Loo
     tau, tau_ff, q_des, v_des_traj = _plan_torques(spec, sim_params, cfg, gains, b, qm, vm, opts)
     # the physics steps the true state: the measured state's kinematics only without a bias
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
-                              f_ext=_push_at(push, b.k), kin=None if biased else kin)
+                              f_ext=_push_at(push, b.k), terrain=opts.terrain,
+                              kin=None if biased else kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k) | b.mpc_bad
     records = (
         state_features(model, eff, qm, vm, fk=fk),
@@ -946,9 +944,8 @@ def rollout_policy(
     each substep, the policy's forward pass included, is one CUDA-graph
     replay. ``vc_goals`` records the goal the policy saw (vc or cc).
     ``push_force`` pushes the base and ``q_noise``/``v_noise`` bias the
-    measured state as in ``rollout_mpc``. ``terrain`` (ROADMAP queue 1,
-    item 8) raises ``NotImplementedError``."""
-    _refuse_terrain(terrain)
+    measured state as in ``rollout_mpc``; ``terrain`` is the physics' ground,
+    as there."""
     q, v = _state_on_device(spec, state0)
     B, dtype, device = q.shape[0], q.dtype, q.device
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device)
@@ -977,7 +974,8 @@ def rollout_policy(
         contact_pos=empty(ne, 3), in_contact=empty(ne, dt=torch.bool),
     )
     opts = _LoopOptions(q_noise=_noise(q_noise, "q_noise", B, q),
-                        v_noise=_noise(v_noise, "v_noise", B, v))
+                        v_noise=_noise(v_noise, "v_noise", B, v),
+                        terrain=None if terrain is None else terrain.to(q))
     substep = _Substep(_policy_substep, spec, sim_params, cfg, policy_fn, goal_fn,
                        _push(push_force, B, T, q), opts, b)
     for _ in range(T):
@@ -1021,7 +1019,8 @@ def _policy_substep(spec, sim_params, cfg, policy_fn, goal_fn, push, opts: _Loop
     action = policy_fn(feat, goal)
     tau = _decode_action(cfg, action, qm, vm)
     new, cinfo = physics.step(model, eff, sim_params, physics.SimState(b.q, b.v), tau,
-                              f_ext=_push_at(push, b.k), kin=None if biased else kin)
+                              f_ext=_push_at(push, b.k), terrain=opts.terrain,
+                              kin=None if biased else kin)
     now_failed = b.failed | failed_state(cfg, qm, b.k)
     records = (feat, action, goal, qm[:, 0:3], K.com_from_fk(model, *fk), cinfo.forces,
                cinfo.positions, cinfo.in_contact)

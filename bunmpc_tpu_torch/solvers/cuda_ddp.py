@@ -10,7 +10,10 @@ design and what bounds it). ``solve_ik_batch`` takes a batch of any size B
 
 The robot constants (joint frames, axes, masses, CoMs, inertias, foot frames)
 reach the kernel as one small argument buffer packed from the port's
-``RobotModel`` by ``pack_model``.
+``RobotModel`` by ``pack_model``. The kernel is built for each joint count
+of ``JOINT_COUNTS`` (12: Solo12 and the Go2; 8: Solo8) from one source, a
+library each (``KERNELS``, which count their launches), and the wrapper
+picks the build from ``model.n_joints``; any other count raises.
 
 Dispatch: tensors on the CPU go to the plain version (``mpc/ik.py`` +
 ``solvers/ddp.py``); tensors on a CUDA device go to the kernel, or the call
@@ -30,8 +33,10 @@ from ..mpc import ik
 from ..robots.model import RobotModel
 from . import ddp
 
-KERNEL = Kernel("ddp")
-NJ, NE = 12, 4  # joints and feet the kernel is built for
+JOINT_COUNTS = (12, 8)  # the joint counts csrc/ddp.cu is built for
+KERNELS = {nj: Kernel("ddp", defines=(f"BK_DDP_NJ={nj}",)) for nj in JOINT_COUNTS}
+KERNEL = KERNELS[12]  # Solo12's and the Go2's
+NE = 4  # feet
 PER_BLOCK = 4  # problems per thread block, where their shared memory fits
 MAX_ALPHAS = 8
 
@@ -45,16 +50,26 @@ class CudaDdpConfig:
     reg: float = 1e-9
 
 
+def check_model(model: RobotModel, eff_frames) -> None:
+    """Raise ValueError unless the kernel is built for this robot: a joint
+    count of ``JOINT_COUNTS``, four feet, and a tree of chains off the base
+    (joint j's parent body is the base, 0, or body j: the previous joint's)."""
+    if model.n_joints not in JOINT_COUNTS or len(eff_frames) != NE:
+        raise ValueError(
+            f"the DDP kernel is built for {' or '.join(map(str, JOINT_COUNTS))} joints and {NE} "
+            f"feet; {model.name!r} has {model.n_joints} joints and {len(eff_frames)} feet")
+    if len(model.parent) != model.n_joints or any(
+            int(p) not in (0, j) for j, p in enumerate(model.parent)):
+        raise ValueError("the DDP kernel is built for chains off the base: joint j's parent "
+                         "body must be the base (0) or body j")
+
+
 def pack_model(model: RobotModel, eff_frames) -> np.ndarray:
     """The kernel's model buffer (float64; the wrapper casts it): parent[nj],
     joint_rot[nj,3,3], joint_pos[nj,3], axis[nj,3], mass[nb], com[nb,3],
     inertia[nb,3,3], foot_body[ne], foot_pos[ne,3], total_mass — the layout
     ``ModelView`` in csrc/ddp.cu reads."""
-    if model.n_joints != NJ or len(eff_frames) != NE:
-        raise ValueError(f"the DDP kernel is built for {NJ} joints and {NE} feet")
-    if any(int(p) not in (0, j) for j, p in enumerate(model.parent)):
-        raise ValueError("the DDP kernel is built for chains off the base: joint j's parent "
-                         "body must be the base (0) or body j")
+    check_model(model, eff_frames)
     feet = [model.frames[n] for n in eff_frames]
     parts = [
         np.asarray(model.parent, np.float64),
@@ -82,16 +97,29 @@ def solve_ik_batch_plain(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_
 _I = ctypes.c_int
 _D = ctypes.c_double
 _P = ctypes.c_void_p
-ARGTYPES = [_I, _I, _I, _I, _D] + [_P] * 15
+ARGTYPES = [_I, _I, _I, _I, _I, _D] + [_P] * 15  # nj first
+
+
+def _kin_n(nv: int) -> int:
+    """Floats of the kernel's FK cache (csrc/ddp.cu: Kin, KIN_N)."""
+    nj = nv - 6
+    return 36 * (nj + 1) + 6 * nj + 9
 
 
 def scratch_size(H: int, nq: int, nv: int) -> int:
     """Device-memory scratch elements per problem (csrc/ddp.cu:
     ddp_scratch_size): the alphas' candidate trajectories, and per knot a
     record of its FK cache, residual, B6 and step blocks."""
-    nb, ndx = NJ + 1, 2 * nv
-    kin = 36 * nb + 6 * NJ + 9  # csrc/ddp.cu: Kin
-    return MAX_ALPHAS * ((H + 1) * (nq + nv) + H * nv) + (H + 1) * (kin + 3 * NE + 9 + ndx + 108)
+    ndx = 2 * nv
+    return (MAX_ALPHAS * ((H + 1) * (nq + nv) + H * nv)
+            + (H + 1) * (_kin_n(nv) + 3 * NE + 9 + ndx + 108))
+
+
+def _u_size(nv: int) -> int:
+    """Floats of the work array U (csrc/ddp.cu: U_N): the larger of a knot's
+    FK cache and Gauss-Newton rows and the Riccati step's ndx x ndx."""
+    ndx = 2 * nv
+    return max(ndx * ndx, _kin_n(nv) + 3 * NE + 9 + ndx + 36 + (3 * NE + 9 + 6) * nv)
 
 
 def shared_size(H: int, nq: int, nv: int) -> int:
@@ -104,7 +132,7 @@ def shared_size(H: int, nq: int, nv: int) -> int:
     work = ((H + 1) * nx + 2 * H * nv + H * nv * ndx  # xs, us, kff, Kfb
             + ndx + ndx * ndx + 72  # Lx, Qxx, Fb
             + 2 * ndx + ndx * ndx + nv + ndx * nv + 2 * nv * nv  # Vx, Vxx, Qx, Qu, Qux, Quu, Lc
-            + ndx * ndx + MAX_ALPHAS * (H + 1))  # U, kc
+            + _u_size(nv) + MAX_ALPHAS * (H + 1))  # U, kc
     inputs = nx + H * NE * 3 + (H + 1) * (3 + 6 + nx) + H * nr + nrt + H * nv + H
     return work + inputs
 
@@ -148,7 +176,8 @@ def kernel_args(model, eff_frames, x0, ee_targets, com_ref, mom_ref, x_reg, w_st
     scratch = torch.empty((B, scratch_size(H, nq, nv)), dtype=dtype, device=device)
     ptrs = [mbuf, alphas, x0, ee_targets, com_ref, mom_ref, x_reg, w_stage, w_term,
             ctrl_weight, dts, xs, us, cost, scratch]
-    args = [B, H, cfg.n_iters, len(cfg.alphas), cfg.reg] + [t.data_ptr() for t in ptrs]
+    args = ([model.n_joints, B, H, cfg.n_iters, len(cfg.alphas), cfg.reg]
+            + [t.data_ptr() for t in ptrs])
     return args, ptrs, (xs, us, cost)
 
 
@@ -180,6 +209,7 @@ def solve_ik_batch(
                                   w_stage, w_term, ctrl_weight, dts, cfg)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch("ddp_launch_f32", args + [per_block, stream], ARGTYPES + [_I, _P])
+        KERNELS[model.n_joints].launch("ddp_launch_f32", args + [per_block, stream],
+                                       ARGTYPES + [_I, _P])
     del keep
     return out

@@ -4,18 +4,24 @@ led by the gait's own check), the random IK problems of the JAX package's own
 DDP kernel check (tests/test_pallas_ddp.py), and the closed loop's settled
 standing start and command draw; for the Go2 the same recipe on its q0, the
 simulator its walking trot is validated on, its settled start and the JAX
-package's stability-sweep grid (scripts/sweep_stability.py)."""
+package's stability-sweep grid (scripts/sweep_stability.py); for the Solo8
+the same recipe on its standing q0; for the Solo12 acyclic motions states
+drawn about their start at times across the motion; and the heightfields of
+the terrain runs."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .mpc import acyclic as AC
 from .mpc import ik as IK
 from .mpc import kino_dyn as KD
-from .mpc.motions import go2_cyclic
+from .mpc.motions import go2_cyclic, solo8_cyclic
+from .mpc.motions.solo12_acyclic import MOTIONS
 from .mpc.motions.solo12_cyclic import trot_sim
 from .robots.go2 import Go2Config
+from .robots.solo8 import Solo8Config
 from .robots.solo12 import Solo12Config
 from .sim import controllers, physics, rollout
 
@@ -56,11 +62,12 @@ def gait_states(name: str, n: int, seed: int = 0):
     return q, v, t, v_des, w_des
 
 
-def random_ik_problems(model, eff_frames, n: int, H: int, device):
+def random_ik_problems(model, eff_frames, n: int, H: int, device, q0=None):
     """The random IK problems of tests/test_pallas_ddp.py's full-size check
     (rng seed 3; distinct start states, shared random targets and weights) at
     batch n in float32, as the argument tuple of
-    ``solvers/cuda_ddp.solve_ik_batch``."""
+    ``solvers/cuda_ddp.solve_ik_batch``; about Solo12's q0, or ``q0`` for a
+    robot of another joint count."""
     rng = np.random.default_rng(3)
     dtype = torch.float32
     nv = model.nv
@@ -73,7 +80,8 @@ def random_ik_problems(model, eff_frames, n: int, H: int, device):
     def vec(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    x_reg = np.concatenate([Solo12Config.q0(), np.zeros(nv)])
+    q0 = Solo12Config.q0() if q0 is None else np.asarray(q0)
+    x_reg = np.concatenate([q0, np.zeros(nv)])
     tasks = IK.IkTasks(
         ee_targets=rep(rng.normal(size=(H, 4, 3)) * 0.1),
         ee_wts=rep(rng.uniform(0.5, 2.0, size=(H, 4))),
@@ -86,9 +94,9 @@ def random_ik_problems(model, eff_frames, n: int, H: int, device):
         ctrl_wt=vec(rng.uniform(0.1, 1.0, size=nv)),
         dts=rep(np.full(H, 0.05)),
     )
-    q0 = np.tile(Solo12Config.q0(), (n, 1))
-    q0[:, 7:] += rng.normal(size=(n, 12)) * 0.03
-    x0 = vec(np.concatenate([q0, rng.normal(size=(n, nv)) * 0.05], 1))
+    qs = np.tile(q0, (n, 1))
+    qs[:, 7:] += rng.normal(size=(n, model.n_joints)) * 0.03
+    x0 = vec(np.concatenate([qs, rng.normal(size=(n, nv)) * 0.05], 1))
     w_stage, w_term, ctrl_w, xr = IK.dense_weights(model, eff_frames, tasks)
     return (model, eff_frames, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, xr, w_stage,
             w_term, ctrl_w, tasks.dts)
@@ -242,3 +250,100 @@ def go2_window_inputs(n: int, seed: int = 11):
     v_noise = rng.normal(size=(n, 18)) * 0.02
     v_des, w_des = go2_commands(n, seed=1)
     return dict(rows=rows, q_noise=q_noise, v_noise=v_noise, v_des=v_des, w_des=w_des)
+
+
+def solo8_q0():
+    """The Solo8 standing on the ground (tests/test_solo8.py:23-29): its q0
+    at x = 0 with the base at 0.241 m (the reference's 0.4 m is a drop
+    pose)."""
+    q = Solo8Config.q0()
+    q[0] = 0.0
+    q[2] = 0.241
+    return q
+
+
+def solo8_spec(name: str = "trot", device="cuda"):
+    """The Solo8 spec of ``solo8_cyclic.GAITS[name]`` at ``solo8_q0()`` with
+    the Solo8's feet, HFE hip frames and foot size (the JAX package's
+    defaults for a ``solo*`` robot: "solo12_hip" offsets, "tiled" start)."""
+    C = Solo8Config
+    return KD.make_cyclic_spec(C.load_model(), solo8_cyclic.GAITS[name], solo8_q0(),
+                               eff_frames=tuple(C.eff_names), hip_frames=tuple(C.hip_names),
+                               foot_size=C.foot_size, device=device)
+
+
+def solo8_states(n: int, seed: int = 0):
+    """bench.py's recipe (``trot_states``) about the Solo8's standing q0 with
+    its 8 joints and 14 velocities, led by the JAX Solo8 test's window
+    (tests/test_solo8.py:72-102): problem 0 is ``solo8_q0()`` at rest at
+    t=0 with v_des = (0.2, 0, 0) and no yaw rate."""
+    rng = np.random.default_rng(seed)
+    q = np.tile(solo8_q0(), (n, 1))
+    q[:, 7:] += rng.normal(size=(n, 8)) * 0.05
+    v = rng.normal(size=(n, 14)) * 0.05
+    t = rng.uniform(0, 0.5, size=n)
+    v_des = np.stack([rng.uniform(-0.3, 0.5, n), rng.uniform(-0.2, 0.2, n), np.zeros(n)], -1)
+    w_des = rng.uniform(-0.3, 0.3, size=n)
+    q[0], v[0], t[0], w_des[0] = solo8_q0(), 0.0, 0.0, 0.0
+    v_des[0] = (0.2, 0.0, 0.0)
+    return q, v, t, v_des, w_des
+
+
+def acyclic_q0():
+    """The acyclic motions' start (tests/test_acyclic.py:14-18): Solo12's q0
+    at x = 0.2, the frame the motions are authored in."""
+    q = Solo12Config.q0()
+    q[0] = 0.2
+    return q
+
+
+def acyclic_spec(name: str, device="cuda", plan_freq=None):
+    """The Solo12 spec of ``MOTIONS[name]`` (IK horizon ratio 1.0)."""
+    return AC.make_acyclic_spec(Solo12Config.load_model(), MOTIONS[name], plan_freq=plan_freq,
+                                device=device)
+
+
+def acyclic_states(name: str, n: int, seed: int = 0):
+    """``(q, v, t)`` of n acyclic solves of ``MOTIONS[name]`` as float64
+    numpy arrays. Problem 0 is the JAX tests' start: ``acyclic_q0()`` at
+    rest at t=0. The others draw about it: base position N(0, 0.01) m, a
+    small base rotation (N(0, 0.02) rad about each axis), joints N(0, 0.05)
+    rad, velocities N(0, 0.05), and a time into the motion uniform over
+    its segments, on a 10 ms grid plus 3 ms, so that no knot time sits on a
+    segment boundary (knot times keep the 3 ms) and the batch holds every
+    segment: stance, flight, rear."""
+    rng = np.random.default_rng(seed)
+    T = float(np.asarray(MOTIONS[name].cnt_plan, float)[-1, 0, 5])
+    q = np.tile(acyclic_q0(), (n, 1))
+    q[:, 0:3] += rng.normal(size=(n, 3)) * 0.01
+    half = rng.normal(size=(n, 3)) * 0.01  # half the rotation angle
+    dq = np.concatenate([half, np.ones((n, 1))], 1)
+    q[:, 3:7] = dq / np.linalg.norm(dq, axis=1, keepdims=True)  # q0's base is level
+    q[:, 7:] += rng.normal(size=(n, 12)) * 0.05
+    v = rng.normal(size=(n, 18)) * 0.05
+    t = np.floor(rng.uniform(0.0, T - 0.01, size=n) * 100.0) / 100.0 + 0.003
+    q[0], v[0], t[0] = acyclic_q0(), 0.0, 0.0
+    return q, v, t
+
+
+def terrain_draw(seed: int = 0, device="cuda", dtype=torch.float32):
+    """The heightfield of chip_smoke.py's phase 13c: ``physics.random_terrain``
+    over 8 m x 8 m (extent 4 m, cell 0.05 m), amplitude 0.02 m, 3 blurs,
+    from a ``torch.Generator`` seeded ``seed`` on ``device``."""
+    device = KD.resolve_device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return physics.random_terrain(g, extent=4.0, cell=0.05, amplitude=0.02, smooth=3,
+                                  dtype=dtype)
+
+
+def slope_terrain(grade: float = 0.1, extent: float = 4.0, cell: float = 0.1,
+                  device="cuda", dtype=torch.float32):
+    """A plane rising along x, height = grade * x (tests/test_terrain.py's
+    slope), over [-extent, extent)^2."""
+    device = KD.resolve_device(device)
+    n = int(2 * extent / cell)
+    x = -extent + np.arange(n) * cell
+    h = np.tile((grade * x)[:, None], (1, n))
+    return physics.Terrain(heights=torch.as_tensor(h, dtype=dtype, device=device),
+                           origin=(-extent, -extent), cell=cell)

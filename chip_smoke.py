@@ -38,9 +38,14 @@ the Go2: its four gaits on both paths (11a), one window with every
 per-episode option (gains, contact, swing_blend, force_gate, sensor biases)
 against the plain path in f64 (11b), 512 episodes of 3000 steps of its
 walking trot gated on survival, roll, height and speed (11c), and the JAX
-package's 40-row stability sweep as one rollout (11d). Phases 10a and 11a's
-plain references run in worker processes on the host's CPU while the card
-works. It checks every
+package's 40-row stability sweep as one rollout (11d). Then phase 12, the
+Solo8 (8 joints: K2's 8-joint build) on the main and the fused path. Then
+phase 13, terrain: two windows on a zero heightfield equal to flat ground
+bit for bit (13a), two windows on a 10% slope against the plain path in f64
+(13b), and 512 episodes of 3000 steps on a random heightfield (13c). Then
+phase 14, the six Solo12 acyclic motions through K1 and K2. The plain
+references of phases 10a, 11a, 12, 13b and 14 run in worker processes on
+the host's CPU while the card works. It checks every
 path's outputs, counts each kernel's launches in each path's run, times
 them, and prints one ``kernels`` JSON line, the card's name and power limit,
 and last
@@ -191,17 +196,38 @@ def admm_ops(iters, fista_iters, H, cfg):
     return float(iters.double().sum()) * per_admm + float(fista_iters.double().sum()) * per_fista
 
 
-def ddp_ops(n_problems, H, cfg):
+def ddp_ops(n_problems, H, cfg, nj=12):
     """Arithmetic the DDP kernel performs (fixed work, no data dependence),
-    counted from csrc/ddp.cu per problem and iteration: per knot of the
-    backward sweep the kinematics (~3.5k ops), the 36-direction tangent pass
-    (~60k), the Gauss-Newton products (~27k) and the block-structured Riccati
-    step (~100k, most of it the 18x37 solve and the Kfb'Qux update); per knot
-    of each alpha's rollout ~7k ops."""
-    backward = (H + 1) * (3.5e3 + 60e3 + 27e3) + H * 100e3
-    rollouts = len(cfg.alphas) * H * 7e3
-    first = H * 7e3
+    counted from csrc/ddp.cu per problem and iteration, at 12 joints (nb 13
+    bodies, nv 18, ndx 36): per knot of the backward sweep the kinematics
+    (~3.5k ops), the 36-direction tangent pass (~60k), the Gauss-Newton
+    products (~27k) and the block-structured Riccati step (~100k, most of it
+    the 18x37 solve and the Kfb'Qux update); per knot of each alpha's rollout
+    ~7k ops. At another joint count each term scales with what it loops
+    over: the kinematics with nb, the tangent pass with ndx directions of nb
+    bodies, the products with ndx^2 entries, the Riccati step with nv ndx^2,
+    a rollout knot with its nv x ndx feedback."""
+    nb, nv = nj + 1, nj + 6
+    ndx = 2 * nv
+    kin, tan, gn = 3.5e3 * nb / 13, 60e3 * (ndx / 36) * (nb / 13), 27e3 * (ndx / 36) ** 2
+    ric = 100e3 * (nv / 18) * (ndx / 36) ** 2
+    knot = 7e3 * (nv * ndx) / (18 * 36)
+    backward = (H + 1) * (kin + tan + gn) + H * ric
+    rollouts = len(cfg.alphas) * H * knot
+    first = H * knot
     return n_problems * (first + cfg.n_iters * (backward + rollouts))
+
+
+def ddp_bytes(n_problems, H, nj=12):
+    """Bytes K2 must move: each input read once (x0, the feet targets, the
+    CoM and momentum references, the reference states, the stage and
+    terminal weights, the control weights, the knot durations) and each
+    output written once (xs, us, cost), f32."""
+    nv = nj + 6
+    nx, ndx = nv + nj + 7, 2 * nv
+    nr, nrt = 12 + 9 + ndx, 9 + ndx
+    return 4.0 * n_problems * (nx + H * 12 + (H + 1) * (3 + 6 + nx) + H * nr + nrt + H * nv
+                               + H + (H + 1) * nx + H * nv + 1)
 
 
 def prep_ops(n_problems, H):
@@ -829,6 +855,13 @@ def diverged(plan):
     return ~(plan.dyn_violation <= 1e3)
 
 
+def iteration_stats(iters):
+    """The ADMM iterations of a batch: the slowest problem's, which sets
+    K1's time, and the mean."""
+    it = iters.float()
+    return {"max": int(it.max()), "mean": round(float(it.mean()), 2)}
+
+
 def finite_rows(torch, plan):
     """Per problem, whether every plan field is finite."""
     return torch.stack([torch.isfinite(getattr(plan, f)).flatten(1).all(1)
@@ -836,27 +869,31 @@ def finite_rows(torch, plan):
 
 
 def gait_case(robot, name, device):
-    """A gait of phase 10a (``robot`` "solo12") or 11a ("go2"): its spec on
-    ``device``, its draws ``states_of(name, n)`` and its rho."""
+    """A gait of phase 10a (``robot`` "solo12"), 11a ("go2") or 12
+    ("solo8"): its spec on ``device``, its draws ``states_of(name, n)`` and
+    its rho."""
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
-    from bunmpc_tpu_torch.mpc.motions import go2_cyclic
+    from bunmpc_tpu_torch.mpc.motions import go2_cyclic, solo8_cyclic
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
     from bunmpc_tpu_torch.robots.solo12 import Solo12Config
 
     if robot == "go2":
         return (workload.go2_spec(name, device=device), workload.go2_states,
                 go2_cyclic.GAITS[name].rho)
+    if robot == "solo8":
+        return (workload.solo8_spec(name, device=device),
+                lambda name, n: workload.solo8_states(n), solo8_cyclic.GAITS[name].rho)
     spec = KD.make_cyclic_spec(Solo12Config.load_model(), GAITS[name], Solo12Config.q0(),
                                device=device)
     return spec, workload.gait_states, GAITS[name].rho
 
 
-PARITY_N = 64  # problems of phases 10a and 11a held against the plain path
+PARITY_N = 64  # problems of phases 10a, 11a, 12 and 14 held against the plain path
 
 
 def plain_reference(robot, name, dtype_name, batch):
-    """The plain path ("torch", "torch") of a phase 10a/11a gait on the host
+    """The plain path ("torch", "torch") of a phase 10a/11a/12 gait on the host
     CPU in ``dtype_name`` on the first PARITY_N problems of its ``batch``
     draws (the card's float32 inputs, as ``gait_table`` passes them): ``xs``, ``X_opt``
     and ``dyn_violation`` as numpy arrays. Run in worker processes while the
@@ -880,15 +917,40 @@ def plain_reference(robot, name, dtype_name, batch):
     return {f: getattr(plan, f).numpy() for f in ("xs", "X_opt", "dyn_violation")}
 
 
+def acyclic_reference(name, dtype_name, batch):
+    """The plain path of a phase 14 motion on the host CPU in ``dtype_name``
+    on the first PARITY_N problems of its ``batch`` draws (the card's float32
+    inputs): ``xs``, ``X_opt`` and ``dyn_violation`` as numpy arrays."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import acyclic as AC
+
+    torch.set_num_threads(1)
+    spec = workload.acyclic_spec(name, device="cpu")
+    dtype = getattr(torch, dtype_name)
+    sub = [torch.as_tensor(a, dtype=torch.float32)[:PARITY_N].double().to(dtype)
+           for a in workload.acyclic_states(name, batch)]
+    plan = AC.solve_acyclic_mpc_batch(spec, *sub, admm_backend="torch", ik_backend="torch")
+    return {f: getattr(plan, f).numpy() for f in ("xs", "X_opt", "dyn_violation")}
+
+
 def submit_references(pool):
-    """Every phase 10a and 11a plain reference (float64 and float32), queued
-    on the worker pool: ``{(robot, name, dtype_name): future}``."""
-    from bunmpc_tpu_torch.mpc.motions import go2_cyclic
+    """Every phase 10a, 11a, 12 and 14 plain reference (float64 and
+    float32), queued on the worker pool: ``{(robot, name, dtype_name):
+    future}`` (robot "acyclic" for phase 14's motions)."""
+    from bunmpc_tpu_torch.mpc.motions import go2_cyclic, solo8_cyclic
+    from bunmpc_tpu_torch.mpc.motions.solo12_acyclic import MOTIONS
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import GAITS
 
     jobs = [(robot, name, dt) for dt in ("float64", "float32")
-            for robot, names in (("solo12", GAITS), ("go2", go2_cyclic.GAITS)) for name in names]
-    return {job: pool.submit(plain_reference, *job, B) for job in jobs}
+            for robot, names in (("solo12", GAITS), ("go2", go2_cyclic.GAITS),
+                                 ("solo8", solo8_cyclic.GAITS)) for name in names]
+    refs = {job: pool.submit(plain_reference, *job, B) for job in jobs}
+    refs.update({("acyclic", name, dt): pool.submit(acyclic_reference, name, dt, B)
+                 for dt in ("float64", "float32") for name in MOTIONS})
+    return refs
 
 
 def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, card):
@@ -924,10 +986,10 @@ def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, ca
         inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=spec.device)
                        for a in states_of(name, B))
         cfg = cuda_admm.CudaAdmmConfig(rho=rho, x_solver="thomas", fista_max_iters=30)
-        row = {"gait": name, "H": H, "ik_H": Hik,
+        row = {"gait": name, "H": H, "ik_H": Hik, "joints": model.n_joints,
                "per_block": {"k1_k3": cuda_admm.launch_per_block(H),
-                             "k2": cuda_ddp.launch_per_block(Hik)}}
-        plans, launches[name] = {}, {}
+                             "k2": cuda_ddp.launch_per_block(Hik, model.nq, model.nv)}}
+        plans, launches[name], row["k2_launches_at_joints"] = {}, {}, {}
         for path, fuse in (("main", False), ("fused", True)):
             def solve():
                 return KD.solve_mpc_batch(spec, *inputs, admm_cfg=cfg, ddp_cfg=ddp_cfg,
@@ -937,6 +999,7 @@ def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, ca
             plans[path] = solve()
             torch.cuda.synchronize()
             launches[name][path] = counts()
+            row["k2_launches_at_joints"][path] = cuda_ddp.KERNELS[model.n_joints].launches
             reps = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -949,6 +1012,7 @@ def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, ca
             row[f"{path}_converged_frac_1e-2"] = float((p.dyn_violation < 1e-2).float().mean())
             row[f"{path}_diverged"] = int(diverged(p).sum())
             row[f"{path}_finite"] = bool((finite_rows(torch, p) | diverged(p)).all())
+            row[f"{path}_admm_iters"] = iteration_stats(p.admm_iters)
         # the kernels alone, by CUDA events, on this gait's inputs
         prob = KD._prepare_problem(spec, *inputs)
         admm_in = (prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
@@ -1017,6 +1081,7 @@ def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, ca
         log(f"[{tag}] {name}: H {H}, IK H {Hik}; problems a block K1/K3 "
             f"{row['per_block']['k1_k3']}, K2 {row['per_block']['k2']}; solves/s main "
             f"{row['main_solves_per_sec']}, fused {row['fused_solves_per_sec']}; ms {row['ms']}; "
+            f"ADMM iterations main {row['main_admm_iters']}, fused {row['fused_admm_iters']}; "
             f"converged_frac main {row['main_converged_frac']:.4f} (1e-2: "
             f"{row['main_converged_frac_1e-2']:.4f}), fused {row['fused_converged_frac']:.4f} "
             f"(1e-2: {row['fused_converged_frac_1e-2']:.4f}); diverged {row['main_diverged']}/"
@@ -1030,6 +1095,8 @@ def gait_table(torch, tag, robot, names, refs, problem0, zero_counts, counts, ca
         if launches[name] != {"main": {"admm": 1, "ddp": 1, "fused": 0},
                               "fused": {"admm": 0, "ddp": 1, "fused": 1}}:
             miss.append("launches")
+        if row["k2_launches_at_joints"] != {"main": 1, "fused": 1}:
+            miss.append(f"K2 at {model.n_joints} joints")
         if not (row["main_finite"] and row["fused_finite"]):
             miss.append("finite")
         if not (flags and dr < 1e-5 and ddt < 1e-5):
@@ -1627,6 +1694,389 @@ def go2_loop(torch, zero_counts, counts, card):
     return launches
 
 
+SOLO8_MG = 2.1154 * 9.81  # tests/test_solo8.py:101
+
+
+def solo8_phase(torch, refs, zero_counts, counts, card):
+    """Phase 12: ``gait_table`` on the Solo8's trot (8 joints: K2's 8-joint
+    build) on bench.py's recipe about its standing q0 (``workload.solo8_states``),
+    problem 0 the JAX Solo8 test's window under its bounds
+    (tests/test_solo8.py:83-102: violation < 1e-3, mean stance Fz within 6 N
+    of m g). Then K2 at 8 joints alone on the main path's IK problems: the
+    kernel against its plain version in f64 on 64 problems (phase 4(b)'s
+    quantile gate) and both timed, for the kernels line. Returns the gait's
+    launches per path and the 8-joint K2's numbers."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo8_cyclic import trot
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    def problem0(name, plan):
+        v0 = float(plan.dyn_violation[0])
+        cnt, F = plan.cnt_plan[0, :, :, 0], plan.F_opt[0]
+        fz = float((cnt * F[..., 2]).sum(-1).mean())
+        miss = []
+        if not v0 < 1e-3:
+            miss.append("problem 0 dyn_violation")
+        if not abs(fz - SOLO8_MG) < 6.0:
+            miss.append("problem 0 stance Fz")
+        return {"dyn_violation": v0, "bound": 1e-3, "stance_fz_mean": fz,
+                "mg": round(SOLO8_MG, 3)}, miss
+
+    launches, _ = gait_table(torch, "12", "solo8", ["trot"], refs, problem0, zero_counts, counts,
+                             card)
+    spec = workload.solo8_spec("trot")
+    model = spec.model
+    inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=spec.device)
+                   for a in workload.solo8_states(B))
+    prob = KD._prepare_problem(spec, *inputs)
+    cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", fista_max_iters=30)
+    X = cuda_admm.solve(prob["plan"], model.total_mass, prob["x_init"], prob["W"], prob["X_ref"],
+                        prob["W_F"], prob["X_wm"], prob["F_wm"], prob["x_bounds"], cfg)[0]
+    tasks, x0 = KD._build_ik_tasks(spec, prob, X)
+    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tasks)
+    ddp_in = (model, spec.eff_frames, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, xr, ws,
+              wt, cw, tasks.dts)
+    full = cuda_ddp.CudaDdpConfig()
+    xs_k = cuda_ddp.solve_ik_batch(*ddp_in, cfg=full)[0]
+    xs_p = cuda_ddp.solve_ik_batch_plain(*[a[:PARITY_N].double() if torch.is_tensor(a) else a
+                                           for a in ddp_in], cfg=full)[0]
+    torch.cuda.synchronize()
+    log(f"[12] K2 at 8 joints (kernel f32 vs plain f64, {PARITY_N} problems of the main path):")
+    err = quantile_gate("K2 xs (8 joints)", xs_k[:PARITY_N].double(), xs_p)
+    check(bool(torch.isfinite(xs_k).all()), "K2 at 8 joints not finite")
+    Hik = spec.ik_hor
+    ms = cuda_ms(torch, lambda: cuda_ddp.solve_ik_batch(*ddp_in, cfg=full), 3)
+    plain_ms = cuda_ms(torch, lambda: cuda_ddp.solve_ik_batch_plain(*ddp_in, cfg=full), 1)
+    bound, by = bound_ms(ddp_bytes(B, Hik, nj=8), ddp_ops(B, Hik, full, nj=8))
+    k2 = {"max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+          "bound_ms": round(bound, 6), "bound_by": by,
+          "per_block": cuda_ddp.launch_per_block(Hik, model.nq, model.nv)}
+    log(f"[12] K2 at 8 joints, IK H {Hik}: {k2}")
+    return launches, k2
+
+
+def window_reference(q, v, v_des, w_des, dtype_name, grade=None):
+    """The plain path ("torch", "torch") of two windows of the ``trot_sim``
+    loop on the host CPU in ``dtype_name``, from the given start and
+    commands (numpy, the card's float32 values), on flat ground or, with
+    ``grade``, on ``workload.slope_terrain(grade)`` (phases 7a and 13b): the
+    end state, and per window the plan's first 50 ms of ``xs_int``,
+    ``f_int`` at substep 0, ``P_opt`` and ``admm_iters``, as numpy arrays.
+    Run in worker processes while the card works."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.sim import physics, rollout
+
+    torch.set_num_threads(1)
+    dtype = getattr(torch, dtype_name)
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0(),
+                               device="cpu")
+    cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(dtype)
+
+    terrain = None if grade is None else workload.slope_terrain(grade, device="cpu",
+                                                                 dtype=dtype)
+    plans = []
+    solve_batch = capture_solves(KD, plans)
+    try:
+        res = rollout.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg,
+                                  physics.SimState(t(q), t(v)), t(v_des), t(w_des),
+                                  terrain=terrain, admm_backend="torch", ik_backend="torch")
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    return {"final_q": res.final_state.q.numpy(), "final_v": res.final_state.v.numpy(),
+            "plans": [{"xs_int": p.xs_int[:, :50].numpy(), "f_int": p.f_int[:, 0].numpy(),
+                       "P_opt": p.P_opt.numpy(), "admm_iters": p.admm_iters.numpy()}
+                      for p in plans]}
+
+
+def reference_rollout(torch, future, device):
+    """A ``window_reference`` result as a rollout's end state and plans on
+    ``device``: ``(namespace with final_state, [namespace per window])``."""
+    from bunmpc_tpu_torch.sim import physics
+
+    out = future.result()
+    res = types.SimpleNamespace(final_state=physics.SimState(
+        torch.as_tensor(out["final_q"], device=device),
+        torch.as_tensor(out["final_v"], device=device)))
+    plans = [types.SimpleNamespace(**{k: torch.as_tensor(a, device=device) for k, a in p.items()})
+             for p in out["plans"]]
+    return res, plans
+
+
+WINDOW_N = 64  # episodes of phase 7a held against the plain path
+SLOPE_N = 64  # episodes of phase 13b
+
+
+def terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts, counts, card):
+    """Phase 13: the closed loop on uneven ground (``rollout_mpc(terrain=)``:
+    the physics' ground, the plan's touchdown, swing and CoM heights; the
+    heights in a device buffer read inside the substep's CUDA graph). 13a
+    two windows at B=512 on a zero heightfield equal the loop without
+    terrain in every record, bit for bit; 13b two windows at B=64 on a 10%
+    slope against the plain path in f64 (``slope_ref``, computed on the host
+    CPU; phase 7a's end-state tolerances); 13c 512 episodes x 3000 steps on
+    ``workload.terrain_draw(0)`` (a random 8 m x 8 m heightfield, 2 cm
+    amplitude, 3 blurs) from the flat settle, gated on K1 and K2 once a
+    window, finite records and frozen failed episodes; survival, the
+    survivors' median roll_max and their height above the local ground are
+    printed, not gated (no earlier run says whether the expert walks on such
+    ground). Returns each part's launches."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
+
+    dev = start.q.device
+    fields = ("states", "actions", "vc_goals", "base", "com", "contact_forces", "contact_pos",
+              "in_contact", "failed", "fail_step")
+    win_cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
+                                    gait_period=trot_sim.gait_period)
+    out = {}
+    # 13a: a zero heightfield is flat ground
+    zero = physics.Terrain(heights=torch.zeros((160, 160), device=dev), origin=(-4.0, -4.0),
+                           cell=0.05)
+    zero_counts()
+    flat = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd)
+    on_zero = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd, terrain=zero)
+    torch.cuda.synchronize()
+    out["13a"] = counts()
+    equal = {f: torch.equal(getattr(flat, f), getattr(on_zero, f)) for f in fields}
+    log(f"[13a] two windows at B={B} on a zero heightfield against no terrain: launches "
+        f"{out['13a']}; records equal bit for bit {equal}")
+    check(all(equal.values()), "13a: the zero heightfield moved the loop")
+    check(out["13a"] == {"admm": 4, "ddp": 4, "fused": 0}, "13a: K1 and K2 once a window")
+
+    # 13b: a 10% slope against the plain path in f64
+    n = SLOPE_N
+    slope = workload.slope_terrain(0.1)
+    zero_counts()
+    win = rollout.rollout_mpc(loop_spec, sim, win_cfg, physics.SimState(
+        start.q[:n].contiguous(), start.v[:n].contiguous()), cmd[0][:n], cmd[1][:n],
+        terrain=slope)
+    torch.cuda.synchronize()
+    out["13b"] = counts()
+    t0 = time.perf_counter()
+    ref, _ = reference_rollout(torch, slope_ref, dev)
+    wait = time.perf_counter() - t0
+    dq, dv = end_diff_at(win, ref)
+    log(f"[13b] two windows at B={n} on a 10% slope: launches {out['13b']}; end q |d| {dq:.3e} "
+        f"(< {TWO_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< {TWO_WINDOW_V_TOL:.1e}) against the "
+        f"plain path in f64 (host CPU; waited {wait:.2f} s); failed {int(win.failed.sum())}")
+    check(out["13b"] == {"admm": 2, "ddp": 2, "fused": 0}, "13b: K1 and K2 once a window")
+    check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "13b: the slope's end state disagrees")
+    check(bool(torch.isfinite(win.states).all()), "13b: records not finite")
+
+    # 13c: 512 x 3000 on a random heightfield
+    ter = workload.terrain_draw(0)
+    cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
+                                gait_period=trot_sim.gait_period)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rollout.rollout_mpc(loop_spec, sim, cfg, start, *cmd, terrain=ter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["13c"] = counts()
+    T = cfg.episode_length
+    finite, frozen = finite_and_frozen(torch, res)
+    alive = ~res.failed.cpu().numpy()
+    rpy = rot_to_rpy(quat_to_rot(res.states[..., 27:31])).cpu().numpy()
+    roll_max = np.rad2deg(np.abs(rpy[alive, 500:, 0]).max(axis=1))
+    base = res.base[:, -1000:]
+    above = (base[..., 2] - ter.height_at(base[..., 0:2])).cpu().numpy()  # base over its ground
+    z_dev = np.abs(above[alive].mean(axis=1) - trot_sim.nom_ht)
+    survival = float(alive.mean())
+    med_roll = float(np.median(roll_max)) if alive.any() else float("nan")
+    med_z = float(np.median(z_dev)) if alive.any() else float("nan")
+    amp = float(ter.heights.abs().max())
+    log(f"[13c] {B} episodes x {T} steps on a random heightfield (|h| max {amp:.4f} m): "
+        f"{wall:.2f} s, {B * T / wall:.1f} env-steps/s; launches {out['13c']}; survival "
+        f"{survival:.4f}; survivors' median roll_max (500-3000 ms) {med_roll:.3f} deg, median "
+        f"|mean height over the local ground (last 1000 ms) - {trot_sim.nom_ht}| {med_z:.4f} m "
+        f"(printed, not gated); records of live episodes finite {finite}, failed episodes "
+        f"frozen {frozen}")
+    log(json.dumps({"metric": "terrain_env_steps_per_sec", "value": round(B * T / wall, 1),
+                    "batch": B, "steps": T, "wall_s": round(wall, 3), "survival": survival,
+                    "median_roll_max_deg": med_roll, "median_height_error_m": med_z,
+                    "card": card}))
+    check(out["13c"] == {"admm": T // 50, "ddp": T // 50, "fused": 0},
+          f"13c: K1 and K2 once a window ({T // 50})")
+    check(finite, "13c: records of live episodes not finite")
+    check(frozen, "13c: failed episodes were not frozen")
+    return out
+
+
+ACYCLIC_PROBLEM0 = {  # tests/test_acyclic.py:33-73
+    "stand": "violation < 2e-3, CoM z within 0.03 of 0.22, mean total Fz within 3 N of 2.5 g",
+    "jump_fwd": "no contact in [0.4, 0.7) s, contact elsewhere, violation < 5e-3",
+}
+
+
+def acyclic_problem0(name, plan, dt):
+    """tests/test_acyclic.py's assertions on problem 0 (stand, jump_fwd):
+    (printed values, misses)."""
+    v0 = float(plan.dyn_violation[0])
+    if name == "stand":
+        z = plan.X_opt[0, :, 2]
+        fz = float(plan.F_opt[0, ..., 2].sum(-1).mean())
+        dz = float((z - 0.22).abs().max())
+        miss = [] if v0 < 2e-3 and dz < 0.03 and abs(fz - 2.5 * 9.81) < 3.0 else ["problem 0"]
+        return {"dyn_violation": v0, "com_z_dev": dz, "fz_mean": fz}, miss
+    cnt = plan.cnt_plan[0, :, :, 0].cpu().numpy()
+    knot_t = np.arange(cnt.shape[0]) * dt
+    flight = (knot_t >= 0.4) & (knot_t < 0.7)
+    ok = cnt[flight].sum() == 0 and cnt[~flight].sum() > 0 and v0 < 5e-3
+    return {"dyn_violation": v0, "flight_contacts": float(cnt[flight].sum())}, (
+        [] if ok else ["problem 0"])
+
+
+def acyclic_table(torch, refs, zero_counts, counts, card):
+    """Phase 14: the six Solo12 acyclic motions, each a batched solve at B=512
+    in f32 through K1 then K2 (``acyclic.solve_acyclic_mpc_batch``) on
+    ``workload.acyclic_states`` (problem 0 the JAX tests' start at t=0; the
+    others about it at times across the motion). Per motion: H and IK H,
+    problems a block, K1 and K2 ms, solves/s, ADMM iterations (the slowest
+    problem's and the mean), converged_frac; gates: K1 and K2 once a solve,
+    finite plans where the ADMM did not diverge; against the plain path in
+    f64 on 64 problems (computed on the host CPU): the converged set
+    (violation < 1e-3) within 5%, the diverged set (violation above 1e3 or
+    NaN) within 5% where the other side converged, the values of the
+    problems that converge in f64 by phase 6's quantile gate or, where f32
+    alone misses it, phase 9d's rule against the plain f32 run; problem 0 of
+    stand and jump_fwd under tests/test_acyclic.py's assertions. Returns
+    each motion's launches."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import acyclic as AC
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc.motions.solo12_acyclic import MOTIONS
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    n = PARITY_N
+    launches, table, failures = {}, [], []
+    for name in MOTIONS:
+        t_motion = time.perf_counter()
+        spec = workload.acyclic_spec(name)
+        model, m, H, Hik = spec.model, spec.model.total_mass, spec.horizon, spec.ik_hor
+        inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device=spec.device)
+                       for a in workload.acyclic_states(name, B))
+
+        def solve():
+            return AC.solve_acyclic_mpc_batch(spec, *inputs)
+
+        zero_counts()
+        plan = solve()
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        div = diverged(plan)
+        row = {"motion": name, "H": H, "ik_H": Hik,
+               "per_block": {"k1": cuda_admm.launch_per_block(H),
+                             "k2": cuda_ddp.launch_per_block(Hik)},
+               "solves_per_sec": round(B / float(np.median(reps)), 1),
+               "converged_frac": float((plan.dyn_violation < 1e-3).float().mean()),
+               "diverged": int(div.sum()), "admm_iters": iteration_stats(plan.admm_iters),
+               "finite": bool((finite_rows(torch, plan) | div).all())}
+        # the kernels alone, by CUDA events, on this motion's inputs
+        pr = AC._prepare(spec, *inputs)
+        admm_in = (pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"],
+                   pr["F_wm"], pr["x_bounds"], cuda_admm.CudaAdmmConfig(rho=MOTIONS[name].rho,
+                                                                        x_solver="thomas"))
+        X = cuda_admm.solve(*admm_in)[0]
+        tasks = AC._ik_tasks(spec, pr, X)
+        ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tasks)
+        ddp_in = (model, spec.eff_frames, torch.cat(inputs[:2], -1), tasks.ee_targets,
+                  tasks.com_ref, tasks.mom_ref, xr, ws, wt, cw, tasks.dts)
+        row["ms"] = {"k1": round(cuda_ms(torch, lambda: cuda_admm.solve(*admm_in), 3), 4),
+                     "k2": round(cuda_ms(torch, lambda: cuda_ddp.solve_ik_batch(*ddp_in), 3), 4)}
+        # against the plain path in f64 on n problems
+        t0 = time.perf_counter()
+        ref = types.SimpleNamespace(**{f: torch.as_tensor(a, device=spec.device) for f, a in
+                                       refs[("acyclic", name, "float64")].result().items()})
+        row["reference_wait_s"] = round(time.perf_counter() - t0, 3)
+        # the converged sets, and the diverged sets where the other side
+        # converged: a problem capped at the ADMM's iteration limit ends at a
+        # chaotic violation, which crosses 1e3 in f32 and not in f64 or the
+        # other way (cartwheel on an H100: 6 of 64, none of them converged
+        # on either side)
+        div_p, div_k = diverged(ref).cpu(), div[:n].cpu()
+        conv_p, conv_k = (ref.dyn_violation < 1e-3).cpu(), (plan.dyn_violation[:n] < 1e-3).cpu()
+        cross = int(((div_k & conv_p) | (div_p & conv_k)).sum())
+        div_same = (int((conv_k ^ conv_p).sum()) <= int(0.05 * n)
+                    and cross <= int(0.05 * n))
+        conv = (conv_p & ~div_k).numpy()
+        row["parity_diverged"] = {"plain_f64": div_p.nonzero().flatten().tolist(),
+                                  "kernels": div_k.nonzero().flatten().tolist()}
+        row["parity_sets"] = {"converged_mismatch": int((conv_k ^ conv_p).sum()),
+                              "diverged_mismatch": int((div_k ^ div_p).sum()),
+                              "diverged_where_the_other_converged": cross}
+        row["parity_converged_problems"] = int(conv.sum())
+        dk = {f: per_problem_max(getattr(plan, f)[:n], getattr(ref, f))[conv]
+              for f in ("xs", "X_opt")}
+        allk = {f: np.nan_to_num((getattr(plan, f)[:n].double() - getattr(ref, f)).abs()
+                                 .cpu().numpy()[conv].flatten(), nan=np.inf) for f in dk}
+        ok = all(d.size == 0 or (float(np.quantile(d, 0.999)) < 5e-3 and float(d.max()) < 5e-2)
+                 for d in allk.values())
+        row["parity"] = {f: {"q999": float(np.quantile(d, 0.999)) if d.size else None,
+                             "max": float(d.max()) if d.size else None} for f, d in allk.items()}
+        row["parity_gate"] = "f64 quantile" if ok else "plain f32"
+        if not ok:
+            r32 = refs[("acyclic", name, "float32")].result()
+            ref32 = types.SimpleNamespace(**{f: torch.as_tensor(a, device=spec.device)
+                                             for f, a in r32.items()})
+            dp = {f: per_problem_max(getattr(ref32, f), getattr(ref, f))[conv] for f in dk}
+            row["parity"]["plain_f32_rule"] = {
+                f: {"median_kernels": float(np.median(dk[f])),
+                    "median_plain_f32": float(np.median(dp[f])),
+                    "far_kernels": int((dk[f] > 5e-2).sum()),
+                    "far_plain_f32": int((dp[f] > 5e-2).sum())} for f in dk}
+            ok = all(np.median(dk[f]) < max(5e-3, 10 * float(np.median(dp[f]))) and
+                     (dk[f] > 5e-2).sum() <= (dp[f] > 5e-2).sum() + int(0.05 * n) for f in dk)
+        miss = []
+        if name in ACYCLIC_PROBLEM0:
+            row["problem0"], miss = acyclic_problem0(name, plan, float(spec.dt_arr[0]))
+        row["wall_s"] = round(time.perf_counter() - t_motion, 2)
+        log(f"[14] {name}: H {H}, IK H {Hik}; problems a block K1 {row['per_block']['k1']}, K2 "
+            f"{row['per_block']['k2']}; solves/s {row['solves_per_sec']}; ms {row['ms']}; ADMM "
+            f"iterations {row['admm_iters']}; converged_frac {row['converged_frac']:.4f}; "
+            f"diverged {row['diverged']}; launches {launches[name]}; finite where not diverged "
+            f"{row['finite']}; parity ({n} problems, {row['parity_converged_problems']} converged "
+            f"in f64, {row['parity_gate']}) {row['parity']}; diverged of the {n} "
+            f"{row['parity_diverged']}, sets {row['parity_sets']}; problem 0 "
+            f"{row.get('problem0', 'not gated')}; "
+            f"{row['wall_s']} s (waiting for the plain reference {row['reference_wait_s']} s)")
+        table.append(row)
+        if launches[name] != {"admm": 1, "ddp": 1, "fused": 0}:
+            miss.append("launches")
+        if not row["finite"]:
+            miss.append("finite")
+        if not ok:
+            miss.append("parity")
+        if not div_same:
+            miss.append("converged or diverged set")
+        if miss:
+            failures.append(f"{name}: {', '.join(miss)}")
+    log(json.dumps({"metric": "acyclic", "phase": "14", "batch": B, "motions": table,
+                    "card": card}))
+    check(not failures, f"14: {failures}")
+    return launches
+
+
 def main_path_stage_ms(torch, spec, inputs, admm_cfg):
     """Milliseconds of each stage of ``solve_mpc_batch(admm_backend="cuda",
     ik_backend="cuda")`` on these inputs, by CUDA events around the stages."""
@@ -1674,6 +2124,7 @@ def main():
               file=sys.stderr)
         return 1
     from bunmpc_tpu_torch import _build
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
 
     t_start = time.time()
 
@@ -1684,16 +2135,18 @@ def main():
 
     # ---- 2. build (every kernel, nvcc in parallel) ----
     t0 = time.time()
-    reports = _build.build(["admm", "ddp", "fused"], force=True)
+    reports = _build.build_kernels(
+        [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL], force=True)
     build_s = time.time() - t0
     log(f"[2] build: {build_s:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  {name}: {line.strip()}")
-    # phases 10a and 11a's plain references, on the host CPU while the card works
+    # the plain references of phases 10a, 11a, 12, 13b and 14, on the host CPU while the
+    # card works
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
         return run_phases(torch, card, t_start, pool)
     finally:
@@ -1701,7 +2154,7 @@ def main():
 
 
 def run_phases(torch, card, t_start, pool):
-    """Phases 3-11 and the kernels line (``main`` checked the card, built the
+    """Phases 3-14 and the kernels line (``main`` checked the card, built the
     kernels and started the reference workers)."""
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import ik as IK
@@ -1714,8 +2167,23 @@ def run_phases(torch, card, t_start, pool):
     from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
 
     dev = torch.device("cuda")
-    refs = submit_references(pool)
     model = Solo12Config.load_model()
+    # the closed loop's start first: phases 7a's and 13b's plain references go to
+    # the host CPU's workers ahead of the gaits' (10a, 11a, 12, 14)
+    loop_spec = KD.make_cyclic_spec(model, trot_sim, Solo12Config.q0(), device="cuda")
+    sim = workload.closed_loop_sim_params()
+    t0 = time.time()
+    start = workload.settled_start(B)
+    v_np, w_np = workload.command_draw(B, seed=0)
+    cmd = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (v_np, w_np))
+    torch.cuda.synchronize()
+    log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
+        f"{float(start.q[0, 2]):.4f} m")
+    head = [a[:WINDOW_N].cpu().numpy() for a in (start.q, start.v, *cmd)]
+    window_refs = {dt: pool.submit(window_reference, *head, dt) for dt in ("float64", "float32")}
+    head = [a[:SLOPE_N] for a in head]
+    slope_ref = pool.submit(window_reference, *head, "float64", 0.1)
+    refs = submit_references(pool)
     spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0(), device="cuda")
     # the launch shape: a warp and a shared-memory slice per problem
     admm_shape = (cuda_admm.launch_per_block(spec.horizon), 4 * cuda_admm.shared_size(spec.horizon))
@@ -1935,14 +2403,17 @@ def run_phases(torch, card, t_start, pool):
         return KD.solve_mpc_batch(spec, *inputs, admm_cfg=bench_cfg, ddp_cfg=ddp_cfg,
                                   admm_backend="cuda", ik_backend="cuda")
 
-    kernels_of = {"admm": cuda_admm.KERNEL, "ddp": cuda_ddp.KERNEL, "fused": cuda_fused.KERNEL}
+    # K2 counts its launches at every joint count (a library each)
+    kernels_of = {"admm": [cuda_admm.KERNEL], "ddp": list(cuda_ddp.KERNELS.values()),
+                  "fused": [cuda_fused.KERNEL]}
 
     def zero_counts():
-        for k in kernels_of.values():
-            k.launches = 0
+        for ks in kernels_of.values():
+            for k in ks:
+                k.launches = 0
 
     def counts():
-        return {n: k.launches for n, k in kernels_of.items()}
+        return {n: sum(k.launches for k in ks) for n, ks in kernels_of.items()}
 
     zero_counts()
     plans = solve()
@@ -2051,36 +2522,28 @@ def run_phases(torch, card, t_start, pool):
     # (trot_sim) on its simulator, from the settled standing start, with
     # commands of the reference envelope (vx ~ U[0, 0.3], seed 0); one window
     # is one solve (K1 and K2 once each) and 50 substeps
-    loop_spec = KD.make_cyclic_spec(model, trot_sim, Solo12Config.q0(), device="cuda")
-    sim = workload.closed_loop_sim_params()
-    t0 = time.time()
-    start = workload.settled_start(B)
-    v_np, w_np = workload.command_draw(B, seed=0)
-    cmd = tuple(torch.as_tensor(a, dtype=f32, device=dev) for a in (v_np, w_np))
-    torch.cuda.synchronize()
-    log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
-        f"{float(start.q[0, 2]):.4f} m")
+    log(f"[6] phases 3-6b done {time.time() - t_start:.1f} s after the start")
+    t7a = time.time()
     win_cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
                                     gait_period=trot_sim.gait_period)
-    n = 64
-
-    def head(a, dtype=torch.float64):
-        return a[:n].to(dtype)
-
-    plans = []  # the card's two solves, then the plain f64 run's, then the plain f32 run's
+    n = WINDOW_N
+    plans = []  # the card's two solves
     solve_batch = capture_solves(KD, plans)
     try:
         zero_counts()
         win = rollout.rollout_mpc(loop_spec, sim, win_cfg, start, *cmd)
         torch.cuda.synchronize()
         win_launches = counts()
-        ref_win = {dtype: rollout.rollout_mpc(
-            loop_spec, sim, win_cfg, physics.SimState(head(start.q, dtype), head(start.v, dtype)),
-            head(cmd[0], dtype), head(cmd[1], dtype), admm_backend="torch", ik_backend="torch")
-            for dtype in (torch.float64, f32)}
-        torch.cuda.synchronize()
     finally:
         KD.solve_mpc_batch = solve_batch
+    # the plain path's, in f64 and f32 (the host CPU's workers)
+    t0 = time.perf_counter()
+    ref_win, ref_plans = {}, {}
+    for dtype in (torch.float64, f32):
+        ref_win[dtype], ref_plans[dtype] = reference_rollout(
+            torch, window_refs[str(dtype).split(".")[-1]], dev)
+    plans += ref_plans[torch.float64]
+    log(f"[7a] waited {time.perf_counter() - t0:.2f} s for the plain references")
     t_w = KD.window_clock(0.0, 0, win_cfg.plan_freq, start.q).expand(B)
     dq, dv = end_diff_at(win, ref_win[torch.float64])
     sq, sv = end_diff_at(ref_win[f32], ref_win[torch.float64])
@@ -2094,17 +2557,18 @@ def run_phases(torch, card, t_start, pool):
         f"{plans[3].admm_iters.float().mean():.2f})")
     log(f"[7a] the windows' plans and K1's dual after window 1 against the plain path in f64 "
         f"({n} episodes):")
-    quantile_gate("xs_int (window 1)", plans[0].xs_int[:n, :50].double(), plans[2].xs_int[:, :50])
+    quantile_gate("xs_int (window 1)", plans[0].xs_int[:n, :50].double(), plans[2].xs_int)
     quantile_gate("f_int (window 1, substep 0)", plans[0].f_int[:n, 0].double(),
-                  plans[2].f_int[:, 0])
+                  plans[2].f_int)
     quantile_gate("P_opt (window 1)", plans[0].P_opt[:n].double(), plans[2].P_opt)
     quantile_gate("xs_int (window 2, carried)", plans[1].xs_int[:n, :50].double(),
-                  plans[3].xs_int[:, :50])
+                  plans[3].xs_int)
     check(bool(plans[0].P_opt.abs().max() > 0), "K1 returned a zero dual")
     check(win_launches == {"admm": 2, "ddp": 2, "fused": 0},
           "two windows must launch K1 and K2 twice each")
     check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "end-of-window state disagrees")
     check(bool(torch.isfinite(win.states).all()), "window records not finite")
+    log(f"[7a] {time.time() - t7a:.1f} s")
 
     # ---- 7b. the closed loop at full width: 512 episodes x 3000 steps ----
     loop_cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
@@ -2156,6 +2620,15 @@ def run_phases(torch, card, t_start, pool):
     iters_cold = float(torch.stack([w[3] for w in cold_windows]).float().cpu().numpy()[
         cold_live].mean())
     iters_carried_head = float(iters_all[:nc][live[:nc]].mean())
+    # the slowest live problem of each window sets K1's time in that window
+    win_max = [float(iters_all[w][live[w]].max()) for w in range(nw) if live[w].any()]
+    cold_all = torch.stack([w[3] for w in cold_windows]).float().cpu().numpy()
+    cold_max = [float(cold_all[w][cold_live[w]].max()) for w in range(nc) if cold_live[w].any()]
+    iters_max = {"carried": {"mean_of_window_max": round(float(np.mean(win_max)), 2),
+                             "max": int(max(win_max)),
+                             "head_mean_of_window_max": round(float(np.mean(win_max[:nc])), 2)},
+                 "cold_head": {"mean_of_window_max": round(float(np.mean(cold_max)), 2),
+                               "max": int(max(cold_max))}}
     head_ms = {"carried": windows[0][0].elapsed_time(windows[nc][0]),
                "cold": cold_windows[0][0].elapsed_time(e_end)}
     head_rate = {k: B * nc * spp / (v / 1e3) for k, v in head_ms.items()}
@@ -2176,13 +2649,16 @@ def run_phases(torch, card, t_start, pool):
                                 cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas"))
     log(f"[7b] closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
         f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}; (X, F, P) carried: live "
-        f"solves' ADMM iterations mean {iters_loop:.2f}, solve ms mean "
-        f"{np.mean(solve_ms):.2f}")
+        f"solves' ADMM iterations mean {iters_loop:.2f}, the slowest live problem's a window "
+        f"{iters_max['carried']['mean_of_window_max']:.2f} on average (max "
+        f"{iters_max['carried']['max']}), solve ms mean {np.mean(solve_ms):.2f}")
     log(f"[7b] the first {nc} windows ({nc * spp} steps), carried against the same loop cold "
         f"in this run (CUDA events): env-steps/s {head_rate['carried']:.1f} vs "
         f"{head_rate['cold']:.1f}; survival to step {nc * spp} {head_survival['carried']:.4f} vs "
         f"{head_survival['cold']:.4f}; live solves' ADMM iterations mean "
-        f"{iters_carried_head:.2f} vs {iters_cold:.2f}; solve ms mean "
+        f"{iters_carried_head:.2f} vs {iters_cold:.2f}, the slowest live problem's a window "
+        f"{iters_max['carried']['head_mean_of_window_max']:.2f} vs "
+        f"{iters_max['cold_head']['mean_of_window_max']:.2f}; solve ms mean "
         f"{np.mean(solve_ms[:nc]):.2f} vs {np.mean(solve_ms_cold):.2f}")
     log(f"[7b] survival {survival:.4f} (>= 0.5), mean survival {float(fail_step.mean()):.1f} ms; "
         f"survivors' median roll_max (500-3000 ms) {med_roll:.3f} deg (< 10), median |mean z "
@@ -2196,7 +2672,8 @@ def run_phases(torch, card, t_start, pool):
         "solve_ms_mean": round(float(np.mean(solve_ms)), 3),
         "substeps_ms_mean": round(float(np.mean(sub_ms)), 3),
         "first_window_ms": round(window_ms[0], 3), "solve_stage_ms_window0": stages,
-        "admm_iters_mean": iters_loop, "first_windows_carried_vs_cold": {
+        "admm_iters_mean": iters_loop, "admm_iters_slowest": iters_max,
+        "first_windows_carried_vs_cold": {
             "windows": nc, "env_steps_per_sec": head_rate, "survival": head_survival,
             "admm_iters_mean": {"carried": iters_carried_head, "cold": iters_cold},
             "solve_ms_mean": {"carried": float(np.mean(solve_ms[:nc])),
@@ -2240,6 +2717,22 @@ def run_phases(torch, card, t_start, pool):
     go2_loop_launches = go2_loop(torch, zero_counts, counts, card)
     log(f"[11] the Go2's loop {time.time() - t1:.1f} s; phase 11 {time.time() - t0:.1f} s")
 
+    # ---- 12. the Solo8: K2 at 8 joints on the main and the fused path ----
+    t0 = time.time()
+    solo8_launches, k2_nj8 = solo8_phase(torch, refs, zero_counts, counts, card)
+    log(f"[12] the Solo8 {time.time() - t0:.1f} s")
+
+    # ---- 13. terrain: zero heights, a slope, a random heightfield ----
+    t0 = time.time()
+    terrain_launches = terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts,
+                                     counts, card)
+    log(f"[13] terrain {time.time() - t0:.1f} s")
+
+    # ---- 14. the six Solo12 acyclic motions through K1 and K2 ----
+    t0 = time.time()
+    acyclic_launches = acyclic_table(torch, refs, zero_counts, counts, card)
+    log(f"[14] the acyclic motions {time.time() - t0:.1f} s")
+
     # ---- 7. the kernels line ----
     zero_counts()
     solve()
@@ -2274,10 +2767,7 @@ def run_phases(torch, card, t_start, pool):
     k3_bytes = 4.0 * B * (41 + nXk + nFk + 2 + H * 4 + nFk + H + H * 4)
     k3_bound, k3_by = bound_ms(
         k3_bytes, admm_ops(k3_iters, k3_fista, H, bench_cfg) + prep_ops(B, H))
-    nx, nv = 37, 18
-    k2_bytes = 4.0 * B * (nx + Hik * 12 + (Hik + 1) * (3 + 6 + nx) + Hik * 57 + 45 + Hik * nv
-                          + Hik + (Hik + 1) * nx + Hik * nv + 1)
-    k2_bound, k2_by = bound_ms(k2_bytes, ddp_ops(B, Hik, full))
+    k2_bound, k2_by = bound_ms(ddp_bytes(B, Hik), ddp_ops(B, Hik, full))
     def phase10(k):
         """Kernel ``k``'s launches per gait and path (10a), per eval call
         (10b-10f; a list per call where a phase makes several), per Go2 gait
@@ -2288,7 +2778,11 @@ def run_phases(torch, card, t_start, pool):
                                   for tag, v in eval_launches.items()},
                 "go2_gait_launches": {g: {p: n[k] for p, n in paths.items()}
                                       for g, paths in go2_launches.items()},
-                "go2_loop_launches": {tag: c[k] for tag, c in go2_loop_launches.items()}}
+                "go2_loop_launches": {tag: c[k] for tag, c in go2_loop_launches.items()},
+                "solo8_launches": {g: {p: n[k] for p, n in paths.items()}
+                                   for g, paths in solo8_launches.items()},
+                "terrain_launches": {tag: c[k] for tag, c in terrain_launches.items()},
+                "acyclic_launches": {name: c[k] for name, c in acyclic_launches.items()}}
 
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",
@@ -2314,6 +2808,12 @@ def run_phases(torch, card, t_start, pool):
          "max_abs_err": k3_err, "ms": round(k3_ms, 4),
          "plain_ms": round(k3_plain_ms, 4), "bound_ms": round(k3_bound, 6), "bound_by": k3_by,
          "library_ms": None, **phase10("fused")},
+        {"name": "ddp (8 joints)", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/ddp.cu",
+         "replaces": "bunmpc_tpu/solvers/pallas_ddp.py:1046",
+         "launches": solo8_launches["trot"]["main"]["ddp"],
+         "solo8_launches": {p: n["ddp"] for p, n in solo8_launches["trot"].items()},
+         "max_abs_err": k2_nj8["max_abs_err"], "ms": k2_nj8["ms"], "plain_ms": k2_nj8["plain_ms"],
+         "bound_ms": k2_nj8["bound_ms"], "bound_by": k2_nj8["bound_by"], "library_ms": None},
     ]
     log(f"[7] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,11 @@ against the plain version in f64 (X and P at phase 6's quantile gate); every
 Go2 gait's K1, K2 (with the Go2's model buffer) and K3 at B=16; the Go2 loop
 with every per-episode option gives 17 of the sweep's rows, and the rows in
 reverse order, the records of the same rows inside the 40-row sweep, bit for
-bit."""
+bit; K2 built for 8 joints (the Solo8; its own library and launch count) at
+IK H 10 and 30 and K2 at 12 joints
+at the acyclic motions' IK H 30 against the plain version in f64 with the
+gates above, and with ragged batches and every block size that fits, bit for
+bit; every acyclic motion's K1 at B=16 with the gates above."""
 
 import numpy as np
 import pytest
@@ -531,3 +535,128 @@ def test_go2_loop_per_episode_options_any_batch_size(device):
     assert torch.isfinite(full.states).all()
     for name in ("states", "actions", "base", "contact_forces", "in_contact", "failed"):
         assert torch.equal(getattr(part, name), getattr(full, name)[idx]), name
+
+
+def _k2_rows(args, per_block):
+    """K2 launched directly with ``per_block`` problems a block (the
+    wrapper picks the largest that fits): ``(xs, us, cost)``."""
+    from bunmpc_tpu_torch.solvers import cuda_ddp
+
+    model, eff, *rest = args
+    a, keep, out = cuda_ddp.kernel_args(model, eff, *rest, cuda_ddp.CudaDdpConfig())
+    stream = torch.cuda.current_stream().cuda_stream
+    cuda_ddp.KERNELS[model.n_joints].launch("ddp_launch_f32", a + [per_block, stream],
+                                            cuda_ddp.ARGTYPES + [cuda_ddp._I, cuda_ddp._P])
+    torch.cuda.synchronize()
+    return out
+
+
+def _k2_ragged_and_block_sizes(args):
+    """Rows of the whole batch at the wrapper's block size equal the rows of
+    the first 5 and first 37 problems alone and of every smaller block size,
+    bit for bit."""
+    from bunmpc_tpu_torch.solvers import cuda_ddp
+
+    model = args[0]
+    H = args[-1].shape[1]
+    fit = cuda_ddp.launch_per_block(H, model.nq, model.nv)
+    full = cuda_ddp.solve_ik_batch(*args)
+    for n in (5, 37):
+        part = cuda_ddp.solve_ik_batch(*args[:2], *[a[:n].contiguous() for a in args[2:]])
+        for a, b in zip(full, part):
+            assert torch.equal(a[:n], b)
+    for per_block in range(1, fit):
+        for a, b in zip(full, _k2_rows(args, per_block)):
+            assert torch.equal(a, b)
+    return fit
+
+
+@pytest.mark.parametrize("ik_hor", [10, 30])
+def test_ddp_kernel_at_8_joints(device, ik_hor):
+    """K2 built for 8 joints on the Solo8's random IK problems at B=512:
+    one iteration with one alpha against the plain version in f64 (the
+    gates of ``test_ddp_kernel_matches_plain``), the launch counted under 8
+    joints, ragged batches and block sizes bit for bit."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.robots.solo8 import Solo8Config
+    from bunmpc_tpu_torch.solvers import cuda_ddp
+
+    model = Solo8Config.load_model()
+    args = workload.random_ik_problems(model, tuple(Solo8Config.eff_names), B, ik_hor, device,
+                                       q0=workload.solo8_q0())
+    args64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    one = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
+    before = {nj: k.launches for nj, k in cuda_ddp.KERNELS.items()}
+    xs, us, cost = cuda_ddp.solve_ik_batch(*args, cfg=one)
+    assert {nj: k.launches for nj, k in cuda_ddp.KERNELS.items()} == {12: before[12],
+                                                                     8: before[8] + 1}
+    xs_p, us_p, cost_p = cuda_ddp.solve_ik_batch_plain(*args64, cfg=one)
+    torch.cuda.synchronize()
+    assert xs.shape == (B, ik_hor + 1, 29)
+    torch.testing.assert_close(xs.double(), xs_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(us.double(), us_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(cost.double(), cost_p, rtol=1e-4, atol=0)
+    fit = _k2_ragged_and_block_sizes(args)
+    assert fit >= cuda_ddp.launch_per_block(ik_hor)  # 8 joints fit at least as many
+
+
+def test_ddp_kernel_at_ik_h30(device):
+    """K2 at 12 joints at the acyclic motions' longest IK horizon (stand, IK
+    H 30: one problem a block) on the motion's own IK problems, built from
+    K1's solve, at B=64: the full config against the plain version in f64 at
+    phase 6's quantile gate, and ragged batches bit for bit."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import acyclic as AC
+    from bunmpc_tpu_torch.mpc import ik as IK
+    from bunmpc_tpu_torch.mpc.motions.solo12_acyclic import stand
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    spec = workload.acyclic_spec("stand")
+    q, v, t = (torch.as_tensor(a, dtype=torch.float32, device=device)
+               for a in workload.acyclic_states("stand", 64))
+    pr = AC._prepare(spec, q, v, t)
+    X = cuda_admm.solve(pr["plan"], spec.model.total_mass, pr["x_init"], pr["W"], pr["X_ref"],
+                        pr["W_F"], pr["X_wm"], pr["F_wm"], pr["x_bounds"],
+                        cuda_admm.CudaAdmmConfig(rho=stand.rho))[0]
+    tasks = AC._ik_tasks(spec, pr, X)
+    ws, wt, cw, xr = IK.dense_weights(spec.model, spec.eff_frames, tasks)
+    args = (spec.model, spec.eff_frames, torch.cat([q, v], -1), tasks.ee_targets, tasks.com_ref,
+            tasks.mom_ref, xr, ws, wt, cw, tasks.dts)
+    assert tasks.dts.shape[1] == 30 and cuda_ddp.launch_per_block(30) == 1
+    xs, us, cost = cuda_ddp.solve_ik_batch(*args)
+    xs_p = cuda_ddp.solve_ik_batch_plain(*[a.double() if torch.is_tensor(a) else a
+                                           for a in args])[0]
+    d = (xs.double() - xs_p).abs().flatten()
+    assert float(torch.quantile(d, 0.999)) < 5e-3 and float(d.max()) < 5e-2
+    _k2_ragged_and_block_sizes(args)
+
+
+@pytest.mark.parametrize("name", ("jump_fwd", "cartwheel", "rearing", "stand", "hifive",
+                                  "rearing_jump"))
+def test_acyclic_admm_kernel_matches_plain(device, name):
+    """Every acyclic motion's K1 (H 20-30, per-knot contact plan, box and
+    nominal state, no force reference) at B=16 with the reference schedule
+    and 15 iterations against the plain version in f64 (X 1e-4, viol rtol
+    1e-3; F 3e-3: on these draws the plain version's own f32 run lands up to
+    9.8e-4 N from its f64 run, on hifive)."""
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import acyclic as AC
+    from bunmpc_tpu_torch.mpc.motions.solo12_acyclic import MOTIONS
+    from bunmpc_tpu_torch.solvers import cuda_admm
+
+    spec = workload.acyclic_spec(name)
+    q, v, t = (torch.as_tensor(a, dtype=torch.float32, device=device)
+               for a in workload.acyclic_states(name, 16))
+    pr = AC._prepare(spec, q, v, t)
+    args = (pr["plan"], spec.model.total_mass, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"],
+            pr["X_wm"], pr["F_wm"], pr["x_bounds"])
+    cfg = cuda_admm.CudaAdmmConfig(rho=MOTIONS[name].rho, max_admm_iters=15, dual_relax=1.0,
+                                   rho_growth=1.0)
+    Xk, Fk, vk, _, _ = cuda_admm.solve(*args, cfg)
+    plan = args[0]
+    args64 = (type(plan)(cnt=plan.cnt.double(), r=plan.r.double(), dt=plan.dt.double()),
+              args[1], *[a.double() for a in args[2:8]], tuple(a.double() for a in args[8]))
+    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*args64, cfg)
+    torch.testing.assert_close(Xk.double(), Xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(Fk.double(), Fp, atol=3e-3, rtol=0)
+    torch.testing.assert_close(vk.double(), vp, rtol=1e-3, atol=1e-6)

@@ -8,7 +8,7 @@ against the JAX package's, on the same seeded numpy inputs.
 * The four gait tables and their specs (generic offsets, "vdes"): every
   table field equal; hip offsets and composite inertia within 1e-12, the
   horizon math equal; "solo12_hip" offsets on the Go2 as the JAX package
-  computes them; a model K2 cannot take (8 joints) raises.
+  computes them; a model K2 is not built for (10 joints) raises.
 * Problem assembly in float64 against the eager JAX ``_prepare_problem``
   (``tests/fixtures/torch_go2.npz``): flags exact, every other field within
   atol 1e-9, ``F_ref`` of ``f_reg_style="weight"`` included. K3's plain
@@ -140,9 +140,12 @@ def test_spec_styles_match_jax(kw):
 
 
 def test_model_the_kernels_cannot_take_raises():
-    eight = dataclasses.replace(TC.load_model(), name="solo8", n_joints=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TKD.make_cyclic_spec(eight, tgo2.trot, TC.q0(), device="cpu")
+    """K2 is built for 12 and 8 joints (the Solo8 runs since its port,
+    tests/test_torch_solo8.py): a model of another count raises, naming
+    them; so do unknown styles."""
+    ten = dataclasses.replace(TC.load_model(), name="ten", n_joints=10)
+    with pytest.raises(ValueError, match="12 or 8 joints"):
+        TKD.make_cyclic_spec(ten, tgo2.trot, TC.q0(), device="cpu")
     with pytest.raises(ValueError, match="warm_start_style"):
         torch_spec("trot", warm_start_style="ramp")
     with pytest.raises(ValueError, match="offset_style"):

@@ -182,13 +182,17 @@ def test_kernel_math_single_iteration_f32(lib, data, one_f32):
 def test_scratch_layout_matches_kernel(lib, h):
     """The wrapper's sizes of a problem's shared-memory slice and device
     scratch are the kernel's layout, at every Solo12 gait's IK horizon (3,
-    5, 6, 10, 12, 15), 20 and 40."""
+    5, 6, 10, 12, 15), 20 and 40, for each joint count the kernel is built
+    for (12: nq 19, nv 18; 8: nq 15, nv 14); another joint count has none."""
     for name, size in (("ddp_scratch_size", cuda_ddp.scratch_size),
                        ("ddp_shared_size", cuda_ddp.shared_size)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_long
-        fn.argtypes = [ctypes.c_int]
-        assert fn(h) == size(h, 19, NV)
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        assert cuda_ddp.JOINT_COUNTS == (12, 8)
+        for nj in cuda_ddp.JOINT_COUNTS:
+            assert fn(nj, h) == size(h, nj + 7, nj + 6)
+        assert fn(10, h) == -1
 
 
 def test_horizon_past_shared_memory_raises():

@@ -103,6 +103,12 @@ def test_go2_asset_is_byte_identical():
     assert filecmp.cmp(ours, theirs, shallow=False)
 
 
+def test_solo8_asset_is_byte_identical():
+    ours = os.path.join(PKG, "robots", "assets", "solo8_model.npz")
+    theirs = os.path.join(REPO, "bunmpc_tpu", "robots", "assets", "solo8_model.npz")
+    assert filecmp.cmp(ours, theirs, shallow=False)
+
+
 def test_precision_settings():
     assert bunmpc_tpu_torch is not None
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -15,7 +15,8 @@ seeded inputs.
   rollout of a policy trained at the BC config's widths, which
   ``chip_smoke.py`` phase 8c's gate is built on: the gate holds at least 3x
   the spread.
-* Options left for later raise; a CPU-only host refuses the default device.
+* Terrain on a zero heightfield gives the flat rollout; a CPU-only host
+  refuses the default device.
 """
 
 import os
@@ -175,16 +176,21 @@ def test_first_50_steps_f32_spread_is_inside_the_card_gate(spec):
 
 
 def _later_kwargs():
-    return {"terrain": dict(terrain=object())}
+    zero = physics.Terrain(heights=torch.zeros(10, 10, dtype=F64), origin=(-1.0, -1.0), cell=0.2)
+    return {"terrain": dict(terrain=zero)}
 
 
 @pytest.mark.parametrize("option", list(_later_kwargs()))
 def test_policy_rollout_options_left_for_later_raise(spec, option):
+    """The options once left for later now run: a zero heightfield gives
+    the policy rollout without terrain in every record."""
     st = physics.SimState(t64(np.tile(TC.q0(), (2, 1))), torch.zeros(2, 18, dtype=F64))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TR.rollout_policy(spec, workload.closed_loop_sim_params(), _cfg(10), st,
-                          torch.zeros(2, 3, dtype=F64), torch.zeros(2, dtype=F64),
-                          lambda s, g: s[:, :12], **_later_kwargs()[option])
+    out = [TR.rollout_policy(spec, workload.closed_loop_sim_params(), _cfg(10), st,
+                             torch.zeros(2, 3, dtype=F64), torch.zeros(2, dtype=F64),
+                             lambda s, g: s[:, :12] * 0.0, **kw)
+           for kw in ({}, _later_kwargs()[option])]
+    for f in REF.FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
 
 
 def test_policy_rollout_defaults_to_the_card(spec):

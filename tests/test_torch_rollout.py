@@ -19,8 +19,8 @@ package's ``bunmpc_tpu/sim/rollout.py`` on the same seeded numpy inputs.
   holds at least 3x the spread.
 * The carried dual on ``admm_backend="cuda"`` (K1's plain version on CPU
   tensors) against the same fixture's carried rollout.
-* Terrain, left for later, raises; per-episode options of the wrong shape
-  raise.
+* Terrain on a zero heightfield gives the flat loop; per-episode options
+  of the wrong shape raise.
 """
 
 import os
@@ -233,19 +233,25 @@ def test_two_window_f32_spread_is_inside_the_card_gate(spec):
 
 
 def _later_kwargs():
-    return {"terrain": dict(terrain=object())}
+    zero = physics.Terrain(heights=torch.zeros(10, 10, dtype=F64), origin=(-1.0, -1.0), cell=0.2)
+    return {"terrain": dict(terrain=zero)}
 
 
 @pytest.mark.parametrize("option", list(_later_kwargs()))
 def test_options_left_for_later_raise(spec, option):
+    """The options once left for later now run: one window of the plain
+    loop with a zero heightfield equals the loop without terrain in every
+    record (tests/test_torch_terrain.py holds terrain against the JAX
+    package)."""
     kwargs = dict(_later_kwargs()[option])
-    sp = kwargs.pop("sim_params", workload.closed_loop_sim_params())
     st = physics.SimState(t64(np.tile(TC.q0(), (2, 1))), torch.zeros(2, 18, dtype=F64))
-    cfg = TR.RolloutConfig(episode_length=100)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TR.rollout_mpc(spec, sp, cfg, st, torch.zeros(2, 3, dtype=F64),
-                       torch.zeros(2, dtype=F64), admm_backend="torch", ik_backend="torch",
-                       **kwargs)
+    cfg = TR.RolloutConfig(episode_length=50)
+    out = [TR.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg, st,
+                          torch.zeros(2, 3, dtype=F64), torch.zeros(2, dtype=F64),
+                          admm_backend="torch", ik_backend="torch", **kw)
+           for kw in ({}, kwargs)]
+    for f in REF.FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
 
 
 def _bad_option_kwargs():

@@ -159,9 +159,24 @@ def test_settled_start_stands_where_jax_stands(models):
 
 
 def test_terrain_is_left_for_later(models):
+    """Terrain, once refused, is ported: a zero heightfield steps exactly as
+    flat ground, and a plateau under the feet measures their penetration
+    from it (here every foot is above a ground 2 cm below z = 0)."""
     _, tm = models
-    q = t64(np.tile(JC.q0(), (1, 1)))
-    with pytest.raises(NotImplementedError, match="terrain"):
-        TP.step(tm, EFF, TP.SimParams(), TP.SimState(q=q, v=torch.zeros(1, 18,
-                                                                        dtype=torch.float64)),
-                torch.zeros(1, 12, dtype=torch.float64), terrain=object())
+    q = t64(np.tile(JC.q0(), (2, 1)))
+    q[1, 2] -= 0.02
+    st = TP.SimState(q=q, v=torch.zeros(2, 18, dtype=torch.float64))
+    tau = torch.zeros(2, 12, dtype=torch.float64)
+
+    def ground(h):
+        return TP.Terrain(heights=torch.full((10, 10), h, dtype=torch.float64),
+                          origin=(-1.0, -1.0), cell=0.2)
+
+    flat = TP.step(tm, EFF, TP.SimParams(), st, tau)
+    zero = TP.step(tm, EFF, TP.SimParams(), st, tau, terrain=ground(0.0))
+    for a, b in zip(flat, zero):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert bool(flat[1].in_contact[1].all())
+    low = TP.step(tm, EFF, TP.SimParams(), st, tau, terrain=ground(-0.02))
+    assert not bool(low[1].in_contact.any())
