@@ -85,7 +85,8 @@ def train_from_databases(
 ) -> list[PolicyEntry]:
     """Train one policy per saved database snapshot (reference
     behavioral_cloning_train_multi_database.py: one network per hdf5 file,
-    labeled by database size) on ``device``. Reading a snapshot needs h5py
+    labeled by database size) on ``device``. A snapshot is the port's
+    ``.npz`` or the JAX package's hdf5, which needs h5py
     (``Database.load_saved_database`` raises ``RuntimeError`` without it);
     ``mesh`` raises as ``bc.train_policy`` does (one card trains)."""
     entries = []

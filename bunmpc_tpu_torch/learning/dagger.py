@@ -22,13 +22,18 @@ Algorithm notes against the JAX driver:
   DAgger's coins from the same generator (the JAX driver from a key per
   episode); the commands, goals, candidate picks and training seeds come
   from ``np.random.default_rng(seed)`` in the JAX driver's order.
-* Checkpoint and resume wait for ``utils/checkpoint`` (ROADMAP queue 1,
-  item 9) and raise.
+* A checkpoint holds what the JAX driver's does, with the torch
+  generator's state in place of the JAX key and the database as the port's
+  ``.npz`` snapshot (``database.npz``, not ``database.hdf5``); the policy is
+  in the JAX package's format (``utils/checkpoint``). A run resumed from the
+  checkpoint after iteration k equals the uninterrupted run bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -322,30 +327,89 @@ class _IterativeDriver:
         """The expert-gated rollout call of an iteration (subclasses)."""
         raise NotImplementedError
 
+    # --- checkpoint / resume (the reference has none: a killed loop loses
+    # its progress; here the driver's state is saved after every iteration
+    # and a resumed loop continues exactly) ---
+
+    def _extra_state(self) -> dict:
+        """Subclass hook: extra arrays to persist (the Bayesian posterior)."""
+        return {}
+
+    def _load_extra_state(self, z):
+        pass
+
+    def save_checkpoint(self, ckpt_dir: str, iteration: int, logs: list):
+        """The driver's state in ``ckpt_dir``: ``database.npz``, ``policy/``,
+        ``driver_state.npz`` (the torch generator and the subclass's arrays)
+        and ``state.json`` (mode, next iteration, logs, the numpy generator),
+        the last written through a temporary file and a rename."""
+        from ..utils import checkpoint as CK
+
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.database.save(os.path.join(ckpt_dir, "database.npz"))
+        if self.policy is not None:
+            CK.save_policy(self.policy, os.path.join(ckpt_dir, "policy"))
+        np.savez(os.path.join(ckpt_dir, "driver_state.npz"),
+                 generator=self.generator.get_state().numpy(), **self._extra_state())
+        state = {
+            "mode": self.mode,
+            "next_iteration": iteration,
+            "logs": logs,
+            "rng_state": self.rng.bit_generator.state,
+        }
+        tmp = os.path.join(ckpt_dir, "state.json.tmp")
+        with open(tmp, "w") as fh:
+            json.dump(state, fh)
+        os.replace(tmp, os.path.join(ckpt_dir, "state.json"))
+
+    def load_checkpoint(self, ckpt_dir: str):
+        """Restore the driver's state; returns (next_iteration, logs)."""
+        from ..utils import checkpoint as CK
+
+        with open(os.path.join(ckpt_dir, "state.json")) as fh:
+            state = json.load(fh)
+        if state["mode"] != self.mode:
+            raise ValueError(f"checkpoint mode {state['mode']!r} != driver {self.mode!r}")
+        self.database = Database(self.cfg.database_size, goal_type=self.cfg.goal_type)
+        self.database.load_saved_database(os.path.join(ckpt_dir, "database.npz"))
+        pol_dir = os.path.join(ckpt_dir, "policy")
+        if os.path.exists(os.path.join(pol_dir, "meta.json")):
+            self.policy = CK.load_policy(pol_dir, device=self.device)
+            self._params = self.policy.module.state_dict()
+        with np.load(os.path.join(ckpt_dir, "driver_state.npz"), allow_pickle=False) as z:
+            self.generator.set_state(torch.as_tensor(z["generator"]))
+            self._load_extra_state(z)
+        self.rng.bit_generator.state = state["rng_state"]
+        return state["next_iteration"], state["logs"]
+
     def run(self, q0, v0, checkpoint_dir: str | None = None, resume: bool = False,
             eval_hook=None):
         """The full loop: warmup, then ``n_iterations`` iterations
-        (safedagger_modified.py:464-900). ``eval_hook(driver) -> dict``
-        (optional) is called after warmup and after every iteration's
-        training, the reference's per-iteration eval slot
-        (safedagger_modified.py:491-516); its dict joins that iteration's
-        log entry. ``checkpoint_dir``/``resume`` raise
-        ``NotImplementedError``: driver checkpoints wait for
-        ``utils/checkpoint`` (ROADMAP queue 1, item 9)."""
-        if checkpoint_dir is not None or resume:
-            raise NotImplementedError(
-                "checkpoint_dir/resume: driver checkpoints wait for utils/checkpoint "
-                "(ROADMAP queue 1, item 9)")
-        logs = []
-        self.warmup(q0, v0)
-        if eval_hook is not None:
-            logs.append({"iteration": "warmup", **eval_hook(self)})
+        (safedagger_modified.py:464-900). With ``checkpoint_dir`` the driver's
+        state is saved after the warmup and after every iteration;
+        ``resume=True`` continues from the last one there (and runs from the
+        start where there is none). ``eval_hook(driver) -> dict`` (optional)
+        is called after warmup and after every iteration's training, the
+        reference's per-iteration eval slot (safedagger_modified.py:491-516);
+        its dict joins that iteration's log entry."""
+        start_it, logs = 0, []
+        if resume and checkpoint_dir and os.path.exists(
+                os.path.join(checkpoint_dir, "state.json")):
+            start_it, logs = self.load_checkpoint(checkpoint_dir)
+        else:
+            self.warmup(q0, v0)
+            if eval_hook is not None:
+                logs.append({"iteration": "warmup", **eval_hook(self)})
+            if checkpoint_dir:
+                self.save_checkpoint(checkpoint_dir, 0, logs)
         s0 = self._settle(q0, v0)
-        for it in range(self.cfg.n_iterations):
+        for it in range(start_it, self.cfg.n_iterations):
             entry = self.iteration(it, s0)
             if eval_hook is not None:
                 entry.update(eval_hook(self))
             logs.append(entry)
+            if checkpoint_dir:
+                self.save_checkpoint(checkpoint_dir, it + 1, logs)
         return logs
 
     def iteration(self, it: int, s0: physics.SimState) -> dict:
@@ -474,6 +538,13 @@ class LocoSafeDagger(_IterativeDriver):
             self.cfg.vx_range, self.cfg.vy_range, self.cfg.w_range, n=grid_n)
         self.posterior = self.grid.uniform_prior()
         self.error_scaled_likelihood = error_scaled_likelihood
+
+    def _extra_state(self):
+        return {"posterior": np.asarray(self.posterior)}
+
+    def _load_extra_state(self, z):
+        if "posterior" in z.files:
+            self.posterior = z["posterior"]
 
     def select_rollout(self, res_mpc, res_policy, v_des, w_des):
         """The reference's decision rule (locosafedagger_modified.py:586-605):

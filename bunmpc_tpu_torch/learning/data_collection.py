@@ -189,10 +189,13 @@ class DataCollection:
                 "database_size": len(self.database)}
 
     def run(self, q0, v0, save_path: str | None = None):
+        """``n_iteration`` iterations; with ``save_path``, a snapshot of the
+        database after each, ``save_path/database_<rows>.npz`` (the JAX
+        package writes the same arrays as ``.hdf5``)."""
         logs = []
         for it in range(self.cfg.n_iteration):
             log = self.run_iteration(q0, v0)
             logs.append(log)
             if save_path is not None:
-                self.database.save(f"{save_path}/database_{len(self.database)}.hdf5")
+                self.database.save(f"{save_path}/database_{len(self.database)}.npz")
         return logs

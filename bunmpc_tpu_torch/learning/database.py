@@ -1,22 +1,37 @@
-"""Replay database: ring buffer + hdf5 snapshots.
+"""Replay database: ring buffer + snapshots.
 
 Copy of ``bunmpc_tpu/learning/database.py`` (reference
 examples/iterative_algorithm/database.py:9-230): a fixed-capacity overwrite
 ring over (states, vc_goals, cc_goals, actions) in preallocated numpy, with
-the input normalization recomputed on append. ``save`` and
-``load_saved_database`` need h5py and raise ``RuntimeError`` without it.
+the input normalization recomputed on append.
+
+Snapshots choose their format by the path's suffix. ``.npz`` is the port's
+own (a named deviation from the JAX package, which writes hdf5 alone): the
+arrays and names of the hdf5 snapshot (``states``, ``actions`` and, where
+the database holds them, ``vc_goals`` and ``cc_goals``), no pickled
+objects, numpy only. Any other suffix is the JAX package's hdf5, which
+needs h5py (imported where a snapshot is read or written) and raises
+``RuntimeError`` without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-try:
-    import h5py
+_FIELDS = ("states", "actions", "vc_goals", "cc_goals")
 
-    _HAS_H5PY = True
-except ImportError:  # the card's machine has no h5py
-    _HAS_H5PY = False
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise RuntimeError("h5py unavailable: an hdf5 database snapshot needs it; save and "
+                           "load the port's .npz snapshots instead") from e
+    return h5py
+
+
+def _is_npz(path: str) -> bool:
+    return str(path).endswith(".npz")
 
 
 class Database:
@@ -138,24 +153,24 @@ class Database:
                 yield x[sel], y[sel]
 
     def save(self, path: str):
-        """hdf5 snapshot (data_collection.py:109-113)."""
-        if not _HAS_H5PY:
-            raise RuntimeError("h5py unavailable")
-        with h5py.File(path, "w") as hf:
-            hf.create_dataset("states", data=self.states)
-            hf.create_dataset("actions", data=self.actions)
-            if self._vc_goals is not None:
-                hf.create_dataset("vc_goals", data=self.vc_goals)
-            if self._cc_goals is not None:
-                hf.create_dataset("cc_goals", data=self.cc_goals)
+        """Snapshot of the valid rows in logical order (data_collection.py:
+        109-113): ``.npz``, else hdf5."""
+        arrays = {f: getattr(self, f) for f in _FIELDS if getattr(self, f) is not None}
+        if _is_npz(path):
+            with open(path, "wb") as fh:  # np.savez would append .npz to other names
+                np.savez(fh, **arrays)
+            return
+        with _h5py().File(path, "w") as hf:
+            for name, a in arrays.items():
+                hf.create_dataset(name, data=a)
 
     def load_saved_database(self, filename: str):
-        """Reload a snapshot (database.py:148-185)."""
-        if not _HAS_H5PY:
-            raise RuntimeError("h5py unavailable")
-        with h5py.File(filename, "r") as hf:
-            states = hf["states"][:]
-            actions = hf["actions"][:]
-            vc = hf["vc_goals"][:] if "vc_goals" in hf else None
-            cc = hf["cc_goals"][:] if "cc_goals" in hf else None
-        self.append(states, actions, vc_goals=vc, cc_goals=cc)
+        """Append a snapshot's rows (database.py:148-185)."""
+        if _is_npz(filename):
+            with np.load(filename, allow_pickle=False) as z:
+                arrays = {f: z[f] for f in _FIELDS if f in z.files}
+        else:
+            with _h5py().File(filename, "r") as hf:
+                arrays = {f: hf[f][:] for f in _FIELDS if f in hf}
+        self.append(arrays["states"], arrays["actions"], vc_goals=arrays.get("vc_goals"),
+                    cc_goals=arrays.get("cc_goals"))

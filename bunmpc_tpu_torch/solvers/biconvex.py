@@ -2,19 +2,26 @@
 
 Counterpart of ``bunmpc_tpu/solvers/biconvex.py`` (reference
 src/motion_planner/biconvex.cpp:6-151): alternate a force QP (projected
-FISTA, power-iteration step, exact friction-cone projection) and a state QP
-(``x_solver="thomas"``: the exact block-Thomas solve clipped to the kinematic
-box; ``"fista"``: projected FISTA onto the box), update the scaled dual with
-the over-relaxed dynamics violation, and escalate rho on stalled problems,
-until ``||A_f X - b_f|| < exit_tol``. ``precondition=True`` runs both FISTA
-solves in a Jacobi metric (``centroidal.ax_diag_iso``, ``af_diag``).
+FISTA onto the friction cone, or with ``use_soc=False`` onto the box
+``f_bounds``) and a state QP (``x_solver="thomas"``: the exact block-Thomas
+solve clipped to the kinematic box; ``"fista"``: projected FISTA onto the
+box), update the scaled dual with the over-relaxed dynamics violation, and
+escalate rho on stalled problems, until ``||A_f X - b_f|| < exit_tol``.
+
+The FISTA step is a power-iteration estimate (``step_mode="power"``; with
+``precondition=True`` in a Jacobi metric, ``centroidal.ax_diag_iso``,
+``af_diag``) or the reference's backtracking (``step_mode="linesearch"``,
+fista.cpp:6-27), which carries each subproblem's Lipschitz estimate from
+one ADMM iteration to the next from ``L0_x``/``L0_f``. ``soc_mode`` and
+``momentum`` select the reference's quirks (``solvers/fista.py``), and
+``log_statistics`` records the violation of every ADMM iteration in
+``BiconvexResult.viol_hist`` (zero after a problem converged).
 
 Masks are per problem: a problem that converges is frozen and its result
 depends on nothing but its own data, which is what lets the CUDA kernel
-(``solvers/cuda_admm.py``) let each problem leave its loops on its own.
-
-The other values of ``step_mode``, ``soc_mode``, ``momentum``, ``use_soc``
-and ``log_statistics`` are not ported and raise instead of falling through.
+(``solvers/cuda_admm.py``) let each problem leave its loops on its own. The
+kernel computes the defaults of ``step_mode``, ``soc_mode``, ``momentum``,
+``use_soc`` and ``log_statistics`` only; the other values run here alone.
 """
 
 from __future__ import annotations
@@ -72,23 +79,17 @@ class BiconvexResult(NamedTuple):
     P: torch.Tensor  # (..., H+1, 9) scaled dual
     viol_norm: torch.Tensor  # (...,) final ||A_f X - b_f||
     admm_iters: torch.Tensor  # (...,)
+    viol_hist: torch.Tensor | None = None  # (..., max_admm_iters) if log_statistics
+
+
+_CHOICES = {"x_solver": ("thomas", "fista"), "step_mode": ("power", "linesearch"),
+            "soc_mode": ("exact", "reference"), "momentum": ("reference", "textbook")}
 
 
 def _check_config(cfg: BiconvexConfig):
-    if cfg.x_solver not in ("thomas", "fista"):
-        raise ValueError(f"x_solver must be 'thomas' or 'fista', got {cfg.x_solver!r}")
-    unported = {
-        "step_mode": (cfg.step_mode, "power"),
-        "soc_mode": (cfg.soc_mode, "exact"),
-        "momentum": (cfg.momentum, "reference"),
-        "use_soc": (cfg.use_soc, True),
-        "log_statistics": (cfg.log_statistics, False),
-    }
-    for name, (got, ported) in unported.items():
-        if got != ported:
-            raise NotImplementedError(
-                f"BiconvexConfig.{name}={got!r} is not ported (only {ported!r})"
-            )
+    for name, allowed in _CHOICES.items():
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got {getattr(cfg, name)!r}")
 
 
 def kinematic_box_bounds(plan: cd.ContactPlan, b_lo, b_hi):
@@ -121,18 +122,25 @@ def solve(
     P_wm,  # (..., H+1, 9)
     cfg: BiconvexConfig,
     x_bounds=None,  # optional (lb, ub) from kinematic_box_bounds
+    f_bounds=None,  # (lb, ub) for the forces when use_soc=False
     F_ref=None,  # optional (..., H, n_eff, 3) force regularization point
 ) -> BiconvexResult:
     _check_config(cfg)
     batch_shape = x_init.shape[:-1]
     dtype, device = x_init.dtype, x_init.device
-    proj_f = fista.soc_projector(cfg.mu)
+    if cfg.use_soc:
+        proj_f = fista.soc_projector(cfg.mu, cfg.soc_mode)
+    else:
+        proj_f = fista.box_projector(*f_bounds)
     proj_x = (lambda z: z) if x_bounds is None else fista.box_projector(*x_bounds)
-    fcfg = fista.FistaConfig(max_iters=cfg.fista_max_iters, tol=cfg.fista_tol)
+    fcfg = fista.FistaConfig(max_iters=cfg.fista_max_iters, tol=cfg.fista_tol, beta=cfg.beta,
+                             momentum=cfg.momentum)
+    linesearch = cfg.step_mode == "linesearch"
     q_x = -2.0 * cost_x.W * cost_x.X_ref
 
-    def solve_f(X, F0, P, rho_k):
-        """min F'W_F F + rho ||A_x F - b_x + P||^2 (or F - F_ref)."""
+    def solve_f(X, F0, P, rho_k, L0):
+        """min F'W_F F + rho ||A_x F - b_x + P||^2 (or F - F_ref); returns the
+        solution and the Lipschitz estimate a line search carries."""
         rho = rho_k[..., None, None, None]
         bP = P - cd.bx_vec(plan, X)
 
@@ -145,22 +153,32 @@ def solve(
                 W_F * reg + rho * cd.ax_applyT(plan, m, X, cd.ax_apply(plan, m, X, y) + bP)
             )
 
+        if linesearch:
+            def obj_diff(y1, y0):
+                ctr = (y1 + y0) if F_ref is None else (y1 + y0 - 2.0 * F_ref)
+                quad = torch.sum(ctr * W_F * (y1 - y0), dim=(-3, -2, -1))
+                r1 = cd.ax_apply(plan, m, X, y1) + bP
+                r0 = cd.ax_apply(plan, m, X, y0) + bP
+                pen = torch.sum(r1 * r1, dim=(-2, -1)) - torch.sum(r0 * r0, dim=(-2, -1))
+                return quad + rho_k * pen
+
+            return fista.solve(F0, grad, obj_diff, proj_f, L0, fcfg, n_var_dims=3)
         if cfg.precondition:
             # per-contact isotropic diag of 2(W_F + rho A_x^T A_x)
             wf_iso = torch.mean(W_F, dim=-1, keepdim=True)
             d0 = 2.0 * (wf_iso + rho * cd.ax_diag_iso(plan, m, X)) + 1e-12
-            return _diag_fista(F0, quad_op, grad, proj_f, d0, 3)
+            return _diag_fista(F0, quad_op, grad, proj_f, d0, 3), L0
         L = fista.power_iteration_L(
             quad_op, F0.shape, F0, 3, cfg.power_iters, cfg.power_safety
         )
-        return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3)
+        return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3), L0
 
-    def solve_x(F, X0, P, rho_k):
+    def solve_x(F, X0, P, rho_k, L0):
         if cfg.x_solver == "thomas":
             X = block_thomas.solve_x_exact(
                 plan, m, F, cost_x.W, cost_x.X_ref, P, rho_k, x_init
             )
-            return proj_x(X)
+            return proj_x(X), L0
         # projected FISTA (reference biconvex.cpp:90-96)
         rho = rho_k[..., None, None]
         bP = P - cd.bf_vec(plan, m, F, x_init)
@@ -175,13 +193,24 @@ def solve(
                 cost_x.W * y + rho * cd.af_applyT(plan, m, F, cd.af_apply(plan, m, F, y) + bP)
             ) + q_x
 
+        if linesearch:
+            def obj_diff(y1, y0):
+                d = y1 - y0
+                quad = torch.sum((y1 + y0) * cost_x.W * d, dim=(-2, -1))
+                lin = torch.sum(q_x * d, dim=(-2, -1))
+                r1 = cd.af_apply(plan, m, F, y1) + bP
+                r0 = cd.af_apply(plan, m, F, y0) + bP
+                pen = torch.sum(r1 * r1, dim=(-2, -1)) - torch.sum(r0 * r0, dim=(-2, -1))
+                return quad + lin + rho_k * pen
+
+            return fista.solve(X0, grad, obj_diff, proj_x, L0, fcfg, n_var_dims=2)
         if cfg.precondition:
             d0 = 2.0 * (cost_x.W + rho * cd.af_diag(plan, F)) + 1e-12
-            return _diag_fista(X0, quad_op, grad, proj_x, d0, 2)
+            return _diag_fista(X0, quad_op, grad, proj_x, d0, 2), L0
         L = fista.power_iteration_L(
             quad_op, X0.shape, X0, 2, cfg.power_iters, cfg.power_safety
         )
-        return fista.solve_fixed_step(X0, grad, proj_x, L, fcfg, n_var_dims=2)
+        return fista.solve_fixed_step(X0, grad, proj_x, L, fcfg, n_var_dims=2), L0
 
     def _diag_fista(x0, quad_op, grad, proj, d0, n_var_dims):
         """FISTA in the Jacobi metric D = lam d0, lam the power-iteration
@@ -196,15 +225,19 @@ def solve(
 
     X, F, P = X_wm, F_wm, P_wm
     rho_k = torch.full(batch_shape, cfg.rho, dtype=dtype, device=device)
+    L_x = torch.full(batch_shape, cfg.L0_x, dtype=dtype, device=device)
+    L_f = torch.full(batch_shape, cfg.L0_f, dtype=dtype, device=device)
     viol_n = torch.full(batch_shape, float("inf"), dtype=dtype, device=device)
     viol_chk = viol_n.clone()
     iters = torch.zeros(batch_shape, dtype=torch.int32, device=device)
     done = torch.zeros(batch_shape, dtype=torch.bool, device=device)
+    hist = (torch.zeros(batch_shape + (cfg.max_admm_iters,), dtype=dtype, device=device)
+            if cfg.log_statistics else None)
     for it in range(cfg.max_admm_iters):
         if bool(done.all()):
             break
-        F_new = solve_f(X, F, P, rho_k)
-        X_new = solve_x(F_new, X, P, rho_k)
+        F_new, L_f_new = solve_f(X, F, P, rho_k, L_f)
+        X_new, L_x_new = solve_x(F_new, X, P, rho_k, L_x)
         v = cd.af_apply(plan, m, F_new, X_new) - cd.bf_vec(plan, m, F_new, x_init)
         vn = torch.sqrt(torch.sum(v * v, dim=(-2, -1)))
         P_new = P + cfg.dual_relax * v
@@ -213,8 +246,12 @@ def solve(
         X = torch.where(act[..., None, None], X_new, X)
         F = torch.where(act[..., None, None, None], F_new, F)
         P = torch.where(act[..., None, None], P_new, P)
+        L_x = torch.where(act, L_x_new, L_x)
+        L_f = torch.where(act, L_f_new, L_f)
         viol_n = torch.where(act, vn, viol_n)
         iters = torch.where(act, torch.full_like(iters, it + 1), iters)
+        if hist is not None:
+            hist[..., it] = torch.where(act, vn, torch.zeros_like(vn))
         done = done | (vn < cfg.exit_tol) | torch.isnan(vn)
         if cfg.rho_growth != 1.0:
             at_check = (((it + 1) % cfg.rho_growth_every) == 0) & ~done
@@ -239,4 +276,4 @@ def solve(
     # the base rho a warm-started solve restarts from
     if cfg.rho_growth != 1.0:
         P = P * (rho_k / cfg.rho)[..., None, None]
-    return BiconvexResult(X=X, F=F, P=P, viol_norm=viol_n, admm_iters=iters)
+    return BiconvexResult(X=X, F=F, P=P, viol_norm=viol_n, admm_iters=iters, viol_hist=hist)

@@ -43,9 +43,14 @@ Solo8 (8 joints: K2's 8-joint build) on the main and the fused path. Then
 phase 13, terrain: two windows on a zero heightfield equal to flat ground
 bit for bit (13a), two windows on a 10% slope against the plain path in f64
 (13b), and 512 episodes of 3000 steps on a random heightfield (13c). Then
-phase 14, the six Solo12 acyclic motions through K1 and K2. The plain
-references of phases 10a, 11a, 12, 13b and 14 run in worker processes on
-the host's CPU while the card works. It checks every
+phase 14, the six Solo12 acyclic motions through K1 and K2. Then phase
+15, the experiment drivers: the five CLI drivers' ``main(argv)``
+(``bunmpc_tpu_torch.scripts``) in-process, data collection with its ``.npz``
+snapshot, BC with its checkpoint, the MPC and policy grids, SafeDAgger with
+a checkpoint and a resumed call, and a ``torch.profiler`` trace of one
+main-path solve. The plain references of phases 7a, 9d, 10a, 11a, 12, 13b
+and 14 run in worker processes on the host's CPU while the card works. It
+checks every
 path's outputs, counts each kernel's launches in each path's run, times
 them, and prints one ``kernels`` JSON line, the card's name and power limit,
 and last
@@ -55,10 +60,12 @@ non-zero and prints no result.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -536,7 +543,7 @@ def policy_rows_diff(torch, res, current, other):
                 int(len(s)))
 
 
-def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
+def dagger_family(torch, spec, sim, start, zero_counts, counts, card, pool):
     """Phase 9: the DAgger family on the port's entry points, on the closed
     loop of phases 7b and 8. 9a ``SafeDagger.run`` (the warmup: 8 benchmark
     and 80 perturbed expert episodes and BC; one iteration: 8 benchmark, 16
@@ -545,13 +552,13 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
     driver on 9a's database, 9c one ``LocoSafeDagger`` iteration on 9a's
     database and policy, 9d the first window of ``rollout_safedagger`` at
     B=64 from 9a's perturbed starts, the kernels against the plain path in
-    f64. Every driver starts from ``start``'s first episode, phase 7a's 500
-    ms settled start (``settle_ms=0``: the drivers' own settle is the same
-    PD hold). Returns each call's launch counts (9a-9c) and 9a's policies,
-    ``{"warmup": (policy, rows), "final": (policy, rows)}`` with the rows of
-    the database each was trained on."""
-    import copy
-
+    f64 (run on the host CPU's workers, ``pool``). Every driver starts from
+    ``start``'s first episode, phase 7a's 500 ms settled start
+    (``settle_ms=0``: the drivers' own settle is the same PD hold). Returns
+    each call's launch counts (9a-9c), 9a's policies, ``{"warmup": (policy,
+    rows), "final": (policy, rows)}`` with the rows of the database each was
+    trained on, and ``finish_9d()``, which waits for 9d's plain references
+    and holds the card's window to them."""
     from bunmpc_tpu_torch.learning import bc as BC
     from bunmpc_tpu_torch.learning import dagger as D
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
@@ -733,80 +740,92 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
     log(f"[9c] log {json.dumps(entry, default=float)}")
     log(f"[9] 9a {t9a:.1f} s, 9a-9c {t9c:.1f} s; launches {launches}")
 
-    # ---- 9d. the first gated window at B=64: the kernels against the plain path in f64 ----
+    # ---- 9d. the first gated window at B=64: the kernels on the card, the plain
+    # path in f64 and f32 on the host CPU's workers (gated in finish_9d) ----
     pert = [c for c in calls if c["phase"] == "9a" and c["name"] == "rollout_mpc"][1]
     n = 64
     a, k = pert["args"], pert["kwargs"]
     sub = (a[3].q[:n], a[3].v[:n], a[4][:n], a[5][:n], k["start_time"][:n])
     wcfg = dataclasses.replace(drv.rcfg, episode_length=50)
-
-    def policy_in(dtype):
-        p = drv.policy
-        return type(p)(copy.deepcopy(p.module).to(dtype), *(
-            t.to(dtype) for t in (p.state_mean, p.state_std, p.goal_mean, p.goal_std)))
-
-    plans = []
-
-    def gated_window(dtype, **kw):
-        """One window; its plan (the window's one solve) goes to ``plans``."""
-        q, v, vd, wd, st = (t.to(dtype) for t in sub)
-        KD.solve_mpc_batch = lambda *a, **k: plans.append(solve_batch(*a, **k)) or plans[-1]
-        try:
-            return rollout.rollout_safedagger(spec, sim, wcfg, physics.SimState(q, v), vd, wd,
-                                              policy_in(dtype), num_steps_to_block=150,
-                                              start_time=st, **kw)
-        finally:
-            KD.solve_mpc_batch = solve_batch
-
+    pol = drv.policy
+    pol_np = ({name: t.detach().cpu().numpy() for name, t in pol.module.state_dict().items()},
+              [t.detach().cpu().numpy() for t in (pol.state_mean, pol.state_std, pol.goal_mean,
+                                                  pol.goal_std)])
+    sub_np = [t.cpu().numpy() for t in sub]
+    plain_refs = {dt: pool.submit(gated_window_reference, *sub_np, wcfg, pol_np, dt)
+                  for dt in ("float64", "float32")}
     t0 = time.perf_counter()
-    zero_counts()
-    win = gated_window(torch.float32)
-    torch.cuda.synchronize()
-    win_launches = counts()
-    plain = {dt: gated_window(dt, admm_backend="torch", ik_backend="torch")
-             for dt in (torch.float64, torch.float32)}
-    torch.cuda.synchronize()
-    ref = plain[torch.float64]
-    agree = (win.mpc_usage == ref.mpc_usage).all(1)
-    agree32 = (plain[torch.float32].mpc_usage == ref.mpc_usage).all(1)
+    plans = []
+    solve_batch = capture_solves(KD, plans)
+    try:
+        zero_counts()
+        win = rollout.rollout_safedagger(spec, sim, wcfg, physics.SimState(*sub[:2]), sub[2],
+                                         sub[3], pol, num_steps_to_block=150, start_time=sub[4])
+        torch.cuda.synchronize()
+        win_launches = counts()
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    card_s = time.perf_counter() - t0
 
-    def end_diff(res, mask):
-        if not bool(mask.any()):
-            return 0.0, 0.0
-        return (float((res.final_state.q.double() - ref.final_state.q)[mask].abs().max()),
-                float((res.final_state.v.double() - ref.final_state.v)[mask].abs().max()))
+    def finish_9d():
+        t1 = time.perf_counter()
+        out = {dt: f.result() for dt, f in plain_refs.items()}
+        wait_s = time.perf_counter() - t1
+        dev = win.mpc_usage.device
 
-    dq, dv = end_diff(win, agree)
-    sq, sv = end_diff(plain[torch.float32], agree32)
-    q_tol, v_tol = max(GATED_Q_TOL, 10 * sq), max(GATED_V_TOL, 10 * sv)
-    u = ref.mpc_usage > 0
-    classes = {"MPC": u.all(1), "policy": (~u).all(1), "switching": u.any(1) & (~u).any(1)}
-    by_class = {name: end_diff(win, agree & m) + (int((agree & m).sum()),)
-                for name, m in classes.items()}
-    n_dis = int((~agree).sum())
-    log(f"[9d] one gated window at B={n} ({time.perf_counter() - t0:.1f} s): launches "
-        f"{win_launches}; usage sequences agree with f64 in {int(agree.sum())} episodes, "
-        f"disagree in {n_dis} (<= {int(0.05 * n)}); end-of-window q |d| {dq:.3e} (< {q_tol:.1e}),"
-        f" v |d| {dv:.3e} (< {v_tol:.1e}) against the plain path in f64; by class (q, v, "
-        f"episodes) {by_class}; the plain path's own f32 spread here q {sq:.3e}, v {sv:.3e} "
-        f"(CPU test: q {GATED_SPREAD[0]:.3e}, v {GATED_SPREAD[1]:.3e})")
-    # the window's plan (K1, K2 at the starts) against the plain path in f64,
-    # per episode the largest |d| of xs_int over the window: at these
-    # perturbed starts a third of the problems are so ill-conditioned that
-    # f32 alone moves the plan past phase 7a's max gate, so the kernels are
-    # held to the plain path's own f32 run beside them: a median within 10x
-    # its median, and no more than 5% more episodes past 5e-2
-    ref_xs = plans[1].xs_int[:, :50]
-    per_ep = {name: (p.xs_int[:, :50].double() - ref_xs).abs().flatten(1).amax(1).cpu().numpy()
-              for name, p in (("kernels", plans[0]), ("plain f32", plans[2]))}
-    log("[9d] the window's plan vs the plain path in f64, per-episode max |d xs_int| "
-        "(median / q0.9 / max; episodes over 7a's max gate 5e-2): " + "; ".join(
-            f"{name} {np.median(d):.3e} / {np.quantile(d, 0.9):.3e} / {d.max():.3e}; "
-            f"{int((d > 5e-2).sum())}" for name, d in per_ep.items()))
-    plan_med_tol = max(5e-3, 10 * float(np.median(per_ep["plain f32"])))
-    plan_far = [int((d > 5e-2).sum()) for d in per_ep.values()]
-    log(f"[9d] gates: the kernels' median < {plan_med_tol:.1e}, episodes past 5e-2 <= "
-        f"{plan_far[1]} + {int(0.05 * n)}")
+        def on_card(o):
+            return types.SimpleNamespace(
+                final_state=physics.SimState(*(torch.as_tensor(o[f], device=dev).double()
+                                               for f in ("final_q", "final_v"))),
+                mpc_usage=torch.as_tensor(o["mpc_usage"], device=dev),
+                xs_int=torch.as_tensor(o["xs_int"], device=dev).double())
+
+        ref, ref32 = on_card(out["float64"]), on_card(out["float32"])
+        agree = (win.mpc_usage == ref.mpc_usage).all(1)
+        agree32 = (ref32.mpc_usage == ref.mpc_usage).all(1)
+
+        def end_diff(res, mask):
+            if not bool(mask.any()):
+                return 0.0, 0.0
+            return (float((res.final_state.q.double() - ref.final_state.q)[mask].abs().max()),
+                    float((res.final_state.v.double() - ref.final_state.v)[mask].abs().max()))
+
+        dq, dv = end_diff(win, agree)
+        sq, sv = end_diff(ref32, agree32)
+        q_tol, v_tol = max(GATED_Q_TOL, 10 * sq), max(GATED_V_TOL, 10 * sv)
+        u = ref.mpc_usage > 0
+        classes = {"MPC": u.all(1), "policy": (~u).all(1), "switching": u.any(1) & (~u).any(1)}
+        by_class = {name: end_diff(win, agree & m) + (int((agree & m).sum()),)
+                    for name, m in classes.items()}
+        n_dis = int((~agree).sum())
+        log(f"[9d] one gated window at B={n} (the card {card_s:.1f} s; the plain references on "
+            f"the host CPU's workers, waited {wait_s:.1f} s): launches {win_launches}; usage "
+            f"sequences agree with f64 in {int(agree.sum())} episodes, disagree in {n_dis} (<= "
+            f"{int(0.05 * n)}); end-of-window q |d| {dq:.3e} (< {q_tol:.1e}), v |d| {dv:.3e} (< "
+            f"{v_tol:.1e}) against the plain path in f64; by class (q, v, episodes) {by_class}; "
+            f"the plain path's own f32 spread here q {sq:.3e}, v {sv:.3e} (CPU test: q "
+            f"{GATED_SPREAD[0]:.3e}, v {GATED_SPREAD[1]:.3e})")
+        # the window's plan (K1, K2 at the starts) against the plain path in f64,
+        # per episode the largest |d| of xs_int over the window: at these
+        # perturbed starts a third of the problems are so ill-conditioned that
+        # f32 alone moves the plan past phase 7a's max gate, so the kernels are
+        # held to the plain path's own f32 run beside them: a median within 10x
+        # its median, and no more than 5% more episodes past 5e-2
+        per_ep = {name: (xs[:, :50].double() - ref.xs_int).abs().flatten(1).amax(1).cpu().numpy()
+                  for name, xs in (("kernels", plans[0].xs_int), ("plain f32", ref32.xs_int))}
+        log("[9d] the window's plan vs the plain path in f64, per-episode max |d xs_int| "
+            "(median / q0.9 / max; episodes over 7a's max gate 5e-2): " + "; ".join(
+                f"{name} {np.median(d):.3e} / {np.quantile(d, 0.9):.3e} / {d.max():.3e}; "
+                f"{int((d > 5e-2).sum())}" for name, d in per_ep.items()))
+        plan_med_tol = max(5e-3, 10 * float(np.median(per_ep["plain f32"])))
+        plan_far = [int((d > 5e-2).sum()) for d in per_ep.values()]
+        log(f"[9d] gates: the kernels' median < {plan_med_tol:.1e}, episodes past 5e-2 <= "
+            f"{plan_far[1]} + {int(0.05 * n)}")
+        check(win_launches == {"admm": 1, "ddp": 1, "fused": 0}, "9d: one window, K1 and K2 once")
+        check(n_dis <= 0.05 * n, f"9d: {n_dis} usage sequences disagree with f64")
+        check(dq < q_tol and dv < v_tol, "9d: end-of-window state disagrees with the plain path")
+        check(float(np.median(per_ep["kernels"])) < plan_med_tol and
+              plan_far[0] <= plan_far[1] + 0.05 * n, "9d: the window's plan disagrees")
 
     log(json.dumps({"metric": "dagger_family", "calls": [c["summary"] for c in calls],
                     "phase_9a_s": round(t9a, 3), "phase_9a_to_9c_s": round(t9c, 3),
@@ -830,13 +849,8 @@ def dagger_family(torch, spec, sim, start, zero_counts, counts, card):
     check(entry["aggregated"] == choice and errs == [entry["e_mpc"], entry["e_policy"]],
           "LocoSafeDagger did not aggregate the rollout with the smaller error")
     check(all(np.isfinite(losses)), "phase-9 losses not finite")
-    check(win_launches == {"admm": 1, "ddp": 1, "fused": 0}, "9d: one window, K1 and K2 once")
-    check(n_dis <= 0.05 * n, f"9d: {n_dis} usage sequences disagree with f64")
-    check(dq < q_tol and dv < v_tol, "9d: end-of-window state disagrees with the plain path")
-    check(float(np.median(per_ep["kernels"])) < plan_med_tol and
-          plan_far[0] <= plan_far[1] + 0.05 * n, "9d: the window's plan disagrees")
     return [c["launches"] for c in calls], {"warmup": (warm[0], warm_rows[0]),
-                                            "final": (drv.policy, len(db))}
+                                            "final": (drv.policy, len(db))}, finish_9d
 
 
 def per_problem_max(a, b):
@@ -1457,7 +1471,7 @@ SWEEP_ARTIFACT = os.path.join(REPO, "artifacts", "stability_sweep_go2.json")
 SWEEP_ROW_11C = 31  # kp 60, kd 3, kn 6e4, dn 3000, kt 3000, swing_blend 0.5, force_gate 1
 
 
-def go2_loop(torch, zero_counts, counts, card):
+def go2_loop(torch, zero_counts, counts, card, pool):
     """Phase 11b-11d: the Go2's closed loop (``trot_sim``, the JAX package's
     walking configuration: kp 60 / kd 3, contact kn 6e4 / dn 3000 / kt 3000,
     swing_blend 0.5, force_gate 1.0, the "vdes" warm start and no carry).
@@ -1475,14 +1489,16 @@ def go2_loop(torch, zero_counts, counts, card):
     gate's criteria, tests/test_gait_quality.py:75-101); 11d the sweep's 40
     rows as one ``rollout_mpc`` call of 3000 steps with every option per
     episode, and row 31 (inside the sweep and alone) against 11c's episode 0
-    over the first window. Returns each call's launches."""
+    over the first window. 11b's plain references run on the host CPU's
+    workers (``pool``). Returns each call's launches and ``finish_11b()``,
+    which waits for them and holds the card's window to them."""
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.mpc.motions.go2_cyclic import trot_sim
     from bunmpc_tpu_torch.sim import physics, rollout
     from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
 
-    f32, f64 = torch.float32, torch.float64
+    f32 = torch.float32
     spec = workload.go2_spec("trot_sim")
     grid = workload.go2_sweep_grid()
     n_rows = len(grid["kp"])
@@ -1511,13 +1527,15 @@ def go2_loop(torch, zero_counts, counts, card):
                                     gait_period=trot_sim.gait_period)
     start64 = take(sweep_start, idx)
 
-    def window(dtype, **kw):
+    def window(dtype):
         d = {k: torch.as_tensor(a, dtype=dtype, device=spec.device) for k, a in host.items()}
         o = {k: to(v, dtype) for k, v in opts.items()}
         return rollout.rollout_mpc(spec, o.pop("sim_params"), win_cfg, to(start64, dtype),
                                    d["v_des"], d["w_des"], q_noise=d["q_noise"],
-                                   v_noise=d["v_noise"], **o, **kw)
+                                   v_noise=d["v_noise"], **o)
 
+    plain_refs = {dt: pool.submit(go2_window_reference, *(a.cpu().numpy() for a in start64), dt)
+                  for dt in ("float64", "float32")}
     t0 = time.perf_counter()
     plans = []
     solve_batch = capture_solves(KD, plans)
@@ -1526,24 +1544,30 @@ def go2_loop(torch, zero_counts, counts, card):
         win = window(f32)
         torch.cuda.synchronize()
         launches["11b"] = counts()
-        plain = {dt: window(dt, admm_backend="torch", ik_backend="torch") for dt in (f64, f32)}
-        torch.cuda.synchronize()
     finally:
         KD.solve_mpc_batch = solve_batch
-    dq, dv = end_diff_at(win, plain[f64])
-    sq, sv = end_diff_at(plain[f32], plain[f64])
-    log(f"[11b] one Go2 window at B={n} ({time.perf_counter() - t0:.1f} s): launches "
-        f"{launches['11b']}; end q |d| {dq:.3e} (< {GO2_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< "
-        f"{GO2_WINDOW_V_TOL:.1e}) against the plain path in f64; the plain path's own f32 spread "
-        f"here q {sq:.3e}, v {sv:.3e} (CPU test: q {GO2_WINDOW_SPREAD[0]:.3e}, v "
-        f"{GO2_WINDOW_SPREAD[1]:.3e}); the window's plan:")
-    plan_ok = plan_rule("11b plan", plans[0], plans[1], plans[2], n)
-    check(launches["11b"] == {"admm": 1, "ddp": 1, "fused": 0},
-          "11b: one window must launch K1 and K2 once each")
-    check(bool(torch.isfinite(win.states).all()), "11b: window records not finite")
-    check(dq < GO2_WINDOW_Q_TOL and dv < GO2_WINDOW_V_TOL,
-          "11b: end-of-window state disagrees with the plain path in f64")
-    check(plan_ok, "11b: the window's plan disagrees with the plain path in f64")
+    card_s = time.perf_counter() - t0
+
+    def finish_11b():
+        t1 = time.perf_counter()
+        plain = {dt: reference_rollout(torch, f, spec.device) for dt, f in
+                 (("f64", plain_refs["float64"]), ("f32", plain_refs["float32"]))}
+        wait_s = time.perf_counter() - t1
+        dq, dv = end_diff_at(win, plain["f64"][0])
+        sq, sv = end_diff_at(plain["f32"][0], plain["f64"][0])
+        log(f"[11b] one Go2 window at B={n} (the card {card_s:.1f} s; the plain references on "
+            f"the host CPU's workers, waited {wait_s:.1f} s): launches {launches['11b']}; end q "
+            f"|d| {dq:.3e} (< {GO2_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< {GO2_WINDOW_V_TOL:.1e}) "
+            f"against the plain path in f64; the plain path's own f32 spread here q {sq:.3e}, v "
+            f"{sv:.3e} (CPU test: q {GO2_WINDOW_SPREAD[0]:.3e}, v {GO2_WINDOW_SPREAD[1]:.3e}); "
+            "the window's plan:")
+        plan_ok = plan_rule("11b plan", plans[0], plain["f64"][1][0], plain["f32"][1][0], n)
+        check(launches["11b"] == {"admm": 1, "ddp": 1, "fused": 0},
+              "11b: one window must launch K1 and K2 once each")
+        check(bool(torch.isfinite(win.states).all()), "11b: window records not finite")
+        check(dq < GO2_WINDOW_Q_TOL and dv < GO2_WINDOW_V_TOL,
+              "11b: end-of-window state disagrees with the plain path in f64")
+        check(plan_ok, "11b: the window's plan disagrees with the plain path in f64")
 
     # ---- 11c. the Go2 closed loop: 512 episodes x 3000 steps ----
     loop_cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
@@ -1691,7 +1715,7 @@ def go2_loop(torch, zero_counts, counts, card):
     check(uq_in < GO2_WINDOW_Q_TOL and uv_in < GO2_WINDOW_V_TOL and uq_al < GO2_WINDOW_Q_TOL
           and uv_al < GO2_WINDOW_V_TOL,
           "11d: row 31 does not run 11c's episode 0 (a per-episode option frozen in the graph?)")
-    return launches
+    return launches, finish_11b
 
 
 SOLO8_MG = 2.1154 * 9.81  # tests/test_solo8.py:101
@@ -1757,47 +1781,132 @@ def solo8_phase(torch, refs, zero_counts, counts, card):
     return launches, k2
 
 
+def plain_window(dtype_name, run):
+    """The worker protocol of the plain references, run in worker processes
+    while the card works: one PyTorch thread, and every plan that
+    ``KD.solve_mpc_batch`` returns captured. ``run(torch, dtype, t)`` drives
+    one rollout on the host CPU in ``dtype_name`` with the plain backends;
+    ``t`` turns the card's float32 values (numpy) into ``dtype``. Returns the
+    end state as numpy arrays, the rollout's result and the captured plans."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+
+    torch.set_num_threads(1)
+    dtype = getattr(torch, dtype_name)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(dtype)
+
+    plans = []
+    solve_batch = capture_solves(KD, plans)
+    try:
+        res = run(torch, dtype, t)
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    return ({"final_q": res.final_state.q.numpy(), "final_v": res.final_state.v.numpy()}, res,
+            plans)
+
+
 def window_reference(q, v, v_des, w_des, dtype_name, grade=None):
     """The plain path ("torch", "torch") of two windows of the ``trot_sim``
     loop on the host CPU in ``dtype_name``, from the given start and
     commands (numpy, the card's float32 values), on flat ground or, with
     ``grade``, on ``workload.slope_terrain(grade)`` (phases 7a and 13b): the
     end state, and per window the plan's first 50 ms of ``xs_int``,
-    ``f_int`` at substep 0, ``P_opt`` and ``admm_iters``, as numpy arrays.
-    Run in worker processes while the card works."""
-    sys.path.insert(0, REPO)
-    import torch
+    ``f_int`` at substep 0, ``P_opt`` and ``admm_iters``, as numpy arrays."""
 
-    from bunmpc_tpu_torch import workload
-    from bunmpc_tpu_torch.mpc import kino_dyn as KD
-    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
-    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
-    from bunmpc_tpu_torch.sim import physics, rollout
+    def run(torch, dtype, t):
+        from bunmpc_tpu_torch import workload
+        from bunmpc_tpu_torch.mpc import kino_dyn as KD
+        from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+        from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+        from bunmpc_tpu_torch.sim import physics, rollout
 
-    torch.set_num_threads(1)
-    dtype = getattr(torch, dtype_name)
-    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0(),
-                               device="cpu")
-    cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
-                                gait_period=trot_sim.gait_period)
+        spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0(),
+                                   device="cpu")
+        cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
+                                    gait_period=trot_sim.gait_period)
+        terrain = None if grade is None else workload.slope_terrain(grade, device="cpu",
+                                                                     dtype=dtype)
+        return rollout.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg,
+                                   physics.SimState(t(q), t(v)), t(v_des), t(w_des),
+                                   terrain=terrain, admm_backend="torch", ik_backend="torch")
 
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float32).to(dtype)
+    out, _, plans = plain_window(dtype_name, run)
+    out["plans"] = [{"xs_int": p.xs_int[:, :50].numpy(), "f_int": p.f_int[:, 0].numpy(),
+                     "P_opt": p.P_opt.numpy(), "admm_iters": p.admm_iters.numpy()}
+                    for p in plans]
+    return out
 
-    terrain = None if grade is None else workload.slope_terrain(grade, device="cpu",
-                                                                 dtype=dtype)
-    plans = []
-    solve_batch = capture_solves(KD, plans)
-    try:
-        res = rollout.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg,
-                                  physics.SimState(t(q), t(v)), t(v_des), t(w_des),
-                                  terrain=terrain, admm_backend="torch", ik_backend="torch")
-    finally:
-        KD.solve_mpc_batch = solve_batch
-    return {"final_q": res.final_state.q.numpy(), "final_v": res.final_state.v.numpy(),
-            "plans": [{"xs_int": p.xs_int[:, :50].numpy(), "f_int": p.f_int[:, 0].numpy(),
-                       "P_opt": p.P_opt.numpy(), "admm_iters": p.admm_iters.numpy()}
-                      for p in plans]}
+
+def gated_window_reference(q, v, v_des, w_des, start_time, rcfg, policy, dtype_name):
+    """The plain path of phase 9d's gated window (``rollout_safedagger`` of the
+    ``trot_sim`` loop, 150 blocked steps) on the host CPU in ``dtype_name``,
+    from the card's float32 starts, commands and start times and the policy
+    (``(state_dict, [state_mean, state_std, goal_mean, goal_std])`` as numpy
+    arrays): the end state, the usage and the window's plan's first 50 ms of
+    ``xs_int``, as numpy arrays."""
+
+    def run(torch, dtype, t):
+        from bunmpc_tpu_torch import workload
+        from bunmpc_tpu_torch.learning import networks
+        from bunmpc_tpu_torch.mpc import kino_dyn as KD
+        from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
+        from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+        from bunmpc_tpu_torch.sim import physics, rollout
+
+        spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot_sim, Solo12Config.q0(),
+                                   device="cpu")
+        sd, stats = policy
+        n_dense = sum(1 for name in sd if name.endswith(".weight"))
+        module = networks.GoalConditionedPolicyNet(
+            sd["dense.0.weight"].shape[1], sd[f"dense.{n_dense - 1}.weight"].shape[0],
+            n_dense - 1, sd["dense.0.weight"].shape[0]).to(dtype)
+        module.load_state_dict({name: torch.as_tensor(a) for name, a in sd.items()})
+        bundle = networks.PolicyBundle(module.eval(), *(t(a) for a in stats))
+        return rollout.rollout_safedagger(
+            spec, workload.closed_loop_sim_params(), rcfg, physics.SimState(t(q), t(v)),
+            t(v_des), t(w_des), bundle, num_steps_to_block=150, start_time=t(start_time),
+            admm_backend="torch", ik_backend="torch")
+
+    out, res, plans = plain_window(dtype_name, run)
+    out.update(mpc_usage=res.mpc_usage.numpy(), xs_int=plans[0].xs_int[:, :50].numpy())
+    return out
+
+
+def go2_window_reference(q, v, dtype_name):
+    """The plain path of phase 11b's Go2 window (``trot_sim``, every
+    per-episode option of ``workload.go2_window_inputs``) on the host CPU in
+    ``dtype_name`` from the card's settled starts (numpy, float32): the end
+    state and the window's plan's first 50 ms of ``xs_int``, in
+    ``window_reference``'s layout."""
+
+    def run(torch, dtype, t):
+        from bunmpc_tpu_torch import workload
+        from bunmpc_tpu_torch.mpc.motions.go2_cyclic import trot_sim
+        from bunmpc_tpu_torch.sim import physics, rollout
+
+        spec = workload.go2_spec("trot_sim", device="cpu")
+        gains, sp, _, _ = workload.go2_sweep_options(workload.go2_sweep_grid(), device="cpu")
+        case = workload.go2_window_inputs(len(q))
+        idx = torch.as_tensor(case.pop("rows"))
+        d = {k: torch.as_tensor(a, dtype=dtype) for k, a in case.items()}
+
+        def rows(x):
+            return tree_map(lambda a: a[idx].to(dtype), x)
+
+        cfg = rollout.RolloutConfig(episode_length=50, kp=trot_sim.kp, kd=trot_sim.kd,
+                                    gait_period=trot_sim.gait_period)
+        return rollout.rollout_mpc(
+            spec, rows(sp), cfg, physics.SimState(*(torch.as_tensor(a).to(dtype) for a in (q, v))),
+            d["v_des"], d["w_des"], q_noise=d["q_noise"], v_noise=d["v_noise"], gains=rows(gains),
+            swing_blend=0.5, force_gate=1.0, admm_backend="torch", ik_backend="torch")
+
+    out, _, plans = plain_window(dtype_name, run)
+    out["plans"] = [{"xs_int": p.xs_int[:, :50].numpy()} for p in plans]
+    return out
 
 
 def reference_rollout(torch, future, device):
@@ -2077,33 +2186,287 @@ def acyclic_table(torch, refs, zero_counts, counts, card):
     return launches
 
 
-def main_path_stage_ms(torch, spec, inputs, admm_cfg):
-    """Milliseconds of each stage of ``solve_mpc_batch(admm_backend="cuda",
-    ik_backend="cuda")`` on these inputs, by CUDA events around the stages."""
+def busy_share(trace_path):
+    """The device's busy share of a ``torch.profiler`` Chrome trace (the
+    union of its kernel, memcpy and memset intervals over the traced window,
+    the span of every event, host and device), and each kernel's total
+    milliseconds and calls."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, -float("inf")
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms, n = kernels.get(e["name"], (0.0, 0))
+            kernels[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return busy / max(t1 - t0, 1e-9), (t1 - t0) / 1e3, kernels
+
+
+def experiment_drivers(torch, spec, inputs, admm_cfg, ddp_cfg, zero_counts, counts, card):
+    """Phase 15: the five CLI drivers' ``main(argv)`` in-process on the card, in
+    a temporary directory, on their configs (the JAX scripts' defaults:
+    Solo12 ``trot``, the default simulator, the unsettled q0). 15a
+    ``run_data_collection`` one iteration of 1000 steps (cut from 20 x 3000);
+    15b ``run_bc`` on 15a's ``.npz`` at bc.yaml's widths for 2 of 150 epochs,
+    on vc goals (15c's grid runs them); 15c ``run_eval`` ``mpc_grid`` (4 vx,
+    600 steps) and ``policy_grid`` of 15b's checkpoint; 15d ``run_dagger
+    mode=safedagger`` (safedagger.yaml's 8 rollouts an iteration; 1 of 10
+    iterations, 300 of 5000 steps, 2 of 150 and 50 epochs) with a
+    checkpoint, then ``n_iterations=2 resume=true``; 15e ``torch.profiler``
+    around one main-path solve at B=512 (``utils/profiling.device_trace``)
+    and ``SolveTimer`` over its five stages. Returns each call's launch
+    counts."""
+    import tempfile
+
+    from bunmpc_tpu_torch.eval import velocity_grid
+    from bunmpc_tpu_torch.learning import dagger as D
+    from bunmpc_tpu_torch.learning import database as DBM
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.scripts import run_bc, run_dagger, run_data_collection, run_eval
+    from bunmpc_tpu_torch.utils import checkpoint as CK
+    from bunmpc_tpu_torch.utils import profiling as PROF
+
+    fields = ("states", "actions", "vc_goals", "cc_goals")
+    launches, fails = {}, []
+
+    def call(tag, main, argv, *spies):
+        """``main(argv)`` with the ``Spy``s on; its wall seconds."""
+        for sp in spies:
+            sp.__enter__()
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for sp in spies:
+                sp.__exit__()
+        launches[tag] = counts()
+        log(f"[{tag}] {main.__module__.split('.')[-1]} {' '.join(argv)}: rc {rc}, "
+            f"{wall:.2f} s, launches {launches[tag]}")
+        if rc != 0:
+            fails.append(f"{tag} rc {rc}")
+        return wall
+
+    def gate(ok, msg):
+        if not ok:
+            fails.append(msg)
+
+    def bit_equal(a, b, s, g):
+        with torch.no_grad():
+            return bool(torch.equal(a(s, g), b(s, g)))
+
+    def drivers_in(tmp):
+        summary = {}
+
+        # ---- 15a. run_data_collection: one iteration of 1000 steps ----
+        saves = Spy(torch, DBM.Database, ["save"], counts)
+        nw = 1000 // 50
+        wall = call("15a", run_data_collection.main,
+                    ["n_iteration=1", "episode_length=1000", f"data_save_path={tmp}/data"], saves)
+        saved = [(c["args"][1], {f: getattr(c["args"][0], f) for f in fields}) for c in saves.calls]
+        path, arrays = saved[-1] if saved else (None, {})
+        db = DBM.Database(10_000_000, goal_type="cc")
+        if path:
+            db.load_saved_database(path)
+        same = bool(path) and all(
+            (getattr(db, f) is None and arrays[f] is None) or
+            np.array_equal(getattr(db, f), arrays[f]) for f in fields)
+        finite = bool(path) and all(np.isfinite(a).all() for a in arrays.values() if a is not None)
+        log(f"[15a] snapshot {os.path.basename(path) if path else None}: {len(db)} rows; reloaded "
+            f"arrays equal {same}, finite {finite}; K1 and K2 {2 * nw} each expected (8a's "
+            f"accounting: the benchmark and the perturbed batch, {nw} windows each)")
+        summary["15a"] = dict(wall_s=round(wall, 3), rows=len(db), launches=launches["15a"])
+        gate(len(saved) == 1 and path.endswith(".npz"), "15a: one .npz snapshot")
+        gate(same and finite and len(db) > 0, "15a: the reloaded snapshot differs, is not finite "
+                                              "or is empty")
+        gate(launches["15a"] == {"admm": 2 * nw, "ddp": 2 * nw, "fused": 0}, "15a: launches")
+
+        # ---- 15b. run_bc at bc.yaml's widths, 2 epochs ----
+        pol_dir = f"{tmp}/bc/policy"
+        policies = Spy(torch, CK, ["save_policy"], counts)
+        wall = call("15b", run_bc.main, [f"database={path}", "n_epoch=2", "goal_type=vc",
+                                         f"save_path={pol_dir}"], policies)
+        with open(f"{tmp}/bc/metrics.jsonl") as fh:
+            epochs = [json.loads(line) for line in fh]
+        with np.load(f"{pol_dir}/payload.npz") as z:
+            keys = sorted(z.files)
+        with open(f"{pol_dir}/meta.json") as fh:
+            meta = json.load(fh)
+        want_keys = sorted(["state_mean", "state_std", "goal_mean", "goal_std"] + [
+            f"param::['Dense_{i}']/['{p}']" for i in range(4) for p in ("bias", "kernel")])
+        dev = inputs[0].device
+        loaded = CK.load_policy(pol_dir, device=dev)
+        rows = torch.as_tensor(db.states[:1024], device=dev)
+        goals = torch.as_tensor(db.vc_goals[:1024], device=dev)
+        equal_b = bit_equal(policies.calls[-1]["args"][0], loaded, rows, goals)
+        losses = [(e["Training Loss"], e["Validation Loss"]) for e in epochs]
+        log(f"[15b] losses (train, valid) {losses}; files {sorted(os.listdir(pol_dir))}, meta "
+            f"{meta}, payload keys {keys}; the reloaded policy's actions on {len(rows)} database "
+            f"rows bit-equal to the trained one's {equal_b}")
+        summary["15b"] = dict(wall_s=round(wall, 3), epochs=len(epochs),
+                              train_losses=[e["Training Loss"] for e in epochs])
+        gate(sorted(os.listdir(pol_dir)) == ["meta.json", "payload.npz"] and keys == want_keys and
+             meta == {"output_size": 12, "num_hidden_layer": 3, "hidden_dim": 512,
+                      "batch_norm": False}, "15b: the checkpoint's layout")
+        gate(equal_b and len(rows) == 1024, "15b: the reloaded policy's actions differ")
+        gate(all(np.isfinite(e["Training Loss"]) for e in epochs) and len(epochs) == 2,
+             "15b: losses")
+        gate(launches["15b"] == {"admm": 0, "ddp": 0, "fused": 0}, "15b: launched a kernel")
+
+        # ---- 15c. run_eval: the MPC grid and 15b's policy grid ----
+        grids = Spy(torch, velocity_grid, ["eval_mpc_grid", "eval_policy_grid"], counts)
+        wall_m = call("15c_mpc_grid", run_eval.main,
+                      ["mode=mpc_grid", "vx=0:0.3:4", "episode_length=600", f"out={tmp}/mpc.csv"],
+                      grids)
+        wall_p = call("15c_policy_grid", run_eval.main,
+                      ["mode=policy_grid", f"policy={pol_dir}", "vx=0:0.3:4", "episode_length=600",
+                       f"out={tmp}/policy.csv"], grids)
+        sums = [c["res"].summary() for c in grids.calls]
+        log(f"[15c] summaries: MPC grid {sums[0]}; policy grid {sums[1]}")
+        summary["15c"] = dict(wall_s=[round(wall_m, 3), round(wall_p, 3)], summaries=sums)
+        nw = 600 // 50
+        gate(launches["15c_mpc_grid"] == {"admm": nw, "ddp": nw, "fused": 0},
+             "15c: the MPC grid must launch K1 and K2 once per window")
+        gate(launches["15c_policy_grid"] == {"admm": 0, "ddp": 0, "fused": 0},
+             "15c: the policy grid launched a kernel")
+        gate(np.isfinite(sums[0]["survival_rate"]) and (
+            sums[0]["survival_rate"] == 0 or np.isfinite(sums[0]["vx_mse_mean"])),
+            "15c: the MPC grid's summary is not finite")
+
+        # ---- 15d. run_dagger mode=safedagger with a checkpoint, then resume ----
+        args = ["mode=safedagger", "episode_length=300", "warmup_bc_epochs=2", "bc_epochs=2",
+                f"checkpoint_dir={tmp}/sd/checkpoint", f"save_path={tmp}/sd"]
+        calls = []
+        for tag, extra in (("15d_first", ["n_iterations=1"]),
+                           ("15d_resume", ["n_iterations=2", "resume=true"])):
+            drivers = Spy(torch, D._IterativeDriver, ["warmup", "iteration", "run"], counts)
+            walls = call(tag, run_dagger.main, args + extra, drivers, policies)
+            calls.append((walls, drivers.calls))
+        (wall_1, first), (wall_2, second) = calls
+        kinds = [[c["name"] for c in ev] for ev in (first, second)]
+        logs1, logs2 = ([c["res"] for c in ev if c["name"] == "run"][0] for ev in (first, second))
+        it1 = [c["launches"] for c in first if c["name"] == "iteration"]
+        with open(f"{tmp}/sd/checkpoint/state.json") as fh:
+            state = json.load(fh)
+        final = CK.load_policy(f"{tmp}/sd/policy", device=dev)
+        equal_d = bit_equal(policies.calls[-1]["args"][0], final, rows, goals)
+        log(f"[15d] first call {kinds[0]}, per call launches: warmup "
+            f"{[c['launches'] for c in first if c['name'] == 'warmup']}, iteration {it1}; the "
+            f"resumed call {kinds[1]}, launches {launches['15d_resume']}; logs "
+            f"{json.dumps(logs2, default=float)}; "
+            f"the iteration-0 entry restored {logs2[:1] == logs1}; state.json next_iteration "
+            f"{state['next_iteration']}; the final policy reloaded bit-equal {equal_d}")
+        summary["15d"] = dict(wall_s=[round(wall_1, 3), round(wall_2, 3)],
+                              launches=[launches["15d_first"], launches["15d_resume"]],
+                              logs=logs2)
+        gate(kinds[0] == ["warmup", "iteration", "run"] and kinds[1] == ["iteration", "run"],
+             "15d: the first call must warm up and iterate once, the resumed one iterate once")
+        gate(len(logs1) == 1 and len(logs2) == 2 and logs2[0] == logs1[0],
+             "15d: the resumed call's iteration-0 entry is not the restored one")
+        gate(launches["15d_resume"] == it1[0] and it1[0]["admm"] > 0 and it1[0]["fused"] == 0,
+             "15d: the resumed call's launches are not one iteration's")
+        gate(state["next_iteration"] == 2 and equal_d, "15d: the checkpoint or the final policy")
+
+        # ---- 15e. a device trace of one main-path solve, and its stages ----
+        def solve():
+            return KD.solve_mpc_batch(spec, *inputs, admm_cfg=admm_cfg, ddp_cfg=ddp_cfg,
+                                      admm_backend="cuda", ik_backend="cuda")
+
+        solve()
+        torch.cuda.synchronize()
+        zero_counts()
+        with PROF.device_trace(f"{tmp}/trace") as prof:
+            plan = solve()
+        launches["15e"] = counts()
+        share, window_ms, kernels = busy_share(f"{tmp}/trace/trace.json")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+        names = " ".join(kernels)
+        timer = PROF.SolveTimer()
+        for _ in range(3):
+            main_path_stages(spec, inputs, admm_cfg, timer.phase)
+        stages = {k: {f: round(v, 6) for f, v in s_.items()} for k, s_ in timer.summary().items()}
+        log(f"[15e] trace of one main-path solve at B={B}: window {window_ms:.3f} ms, device busy "
+            f"{100 * share:.2f}%, {sum(n for _, n in kernels.values())} kernel launches of "
+            f"{len(kernels)} kernels; launches counted {launches['15e']}; top 10 by device time "
+            "(ms, calls): " + "; ".join(f"{k[:60]} {ms:.4f} {n}" for k, (ms, n) in top))
+        log("[15e] SolveTimer (s, 3 solves):\n" + timer.report())
+        summary["15e"] = dict(busy_share=share, window_ms=window_ms, stages_s=stages,
+                              top_kernels=[[k, ms, n] for k, (ms, n) in top],
+                              profiler_rows=len(prof.key_averages()))
+        gate(bool(torch.isfinite(plan.xs).all()), "15e: the traced solve is not finite")
+        gate(launches["15e"] == {"admm": 1, "ddp": 1, "fused": 0}, "15e: launches")
+        gate("admm_kernel" in names and "ddp_kernel" in names,
+             "15e: K1's or K2's __global__ name is not in the trace (CUPTI did not see a launch of "
+             "a ctypes-loaded library)")
+
+        log(json.dumps({"metric": "experiment_drivers", **summary, "card": card}, default=float))
+        check(not fails, f"phase-15 gates missed: {fails}")
+        return launches
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    try:
+        return drivers_in(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main_path_stages(spec, inputs, admm_cfg, stage):
+    """One ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` on these
+    inputs, stage by stage, each inside ``with stage(name, out):``, where the
+    stage appends its outputs to the list ``out``; returns the plan."""
     from bunmpc_tpu_torch.mpc import ik as IK
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
 
     model, m = spec.model, spec.model.total_mass
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    pr = KD._prepare_problem(spec, *inputs)
-    ev[1].record()
-    X, F, viol, iters, P = cuda_admm.solve(
-        pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"], pr["X_wm"], pr["F_wm"],
-        pr["x_bounds"], admm_cfg)
-    ev[2].record()
-    tk, x0s = KD._build_ik_tasks(spec, pr, X)
-    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
-    ev[3].record()
-    ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
-                                              tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
-    ev[4].record()
-    KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, P)
-    ev[5].record()
+    out = []
+    with stage("prep", out):
+        out.append(KD._prepare_problem(spec, *inputs))
+    pr = out.pop()
+    with stage("k1_admm", out):
+        out.append(cuda_admm.solve(pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"],
+                                   pr["X_wm"], pr["F_wm"], pr["x_bounds"], admm_cfg))
+    X, F, viol, iters, P = out.pop()
+    with stage("ik_build", out):
+        tk, x0s = KD._build_ik_tasks(spec, pr, X)
+        out.append(IK.dense_weights(model, spec.eff_frames, tk))
+    ws, wt, cw, xr = out.pop()
+    with stage("k2_ddp", out):
+        out.append(cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
+                                           tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts))
+    ixs, ius, icost = out.pop()
+    with stage("interp", out):
+        out.append(KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, P))
+    return out.pop()
+
+
+def main_path_stage_ms(torch, spec, inputs, admm_cfg):
+    """Milliseconds of each stage of the main path on these inputs, by CUDA
+    events around the stages."""
+    events = []
+
+    @contextlib.contextmanager
+    def stage(name, out):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        yield
+        ev[1].record()
+        events.append((name, ev))
+
+    main_path_stages(spec, inputs, admm_cfg, stage)
     torch.cuda.synchronize()
-    names = ["prep", "k1_admm", "ik_build", "k2_ddp", "interp"]
-    return {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(names)}
+    return {name: round(e0.elapsed_time(e1), 3) for name, (e0, e1) in events}
 
 
 def main():
@@ -2143,8 +2506,8 @@ def main():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  {name}: {line.strip()}")
-    # the plain references of phases 10a, 11a, 12, 13b and 14, on the host CPU while the
-    # card works
+    # the plain references of phases 7a, 9d, 10a, 11a, 12, 13b and 14, on the host CPU
+    # while the card works
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -2154,7 +2517,7 @@ def main():
 
 
 def run_phases(torch, card, t_start, pool):
-    """Phases 3-14 and the kernels line (``main`` checked the card, built the
+    """Phases 3-15 and the kernels line (``main`` checked the card, built the
     kernels and started the reference workers)."""
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import ik as IK
@@ -2696,8 +3059,8 @@ def run_phases(torch, card, t_start, pool):
 
     # ---- 9. the DAgger family: SafeDagger, rollout_dagger, LocoSafeDagger ----
     t0 = time.time()
-    dagger_launches, vc_policies = dagger_family(torch, loop_spec, sim, start, zero_counts,
-                                                 counts, card)
+    dagger_launches, vc_policies, finish_9d = dagger_family(torch, loop_spec, sim, start,
+                                                            zero_counts, counts, card, pool)
     log(f"[9] DAgger family {time.time() - t0:.1f} s")
 
     # ---- 10. every gait (10a) and the eval suite (10b-10f) ----
@@ -2714,7 +3077,7 @@ def run_phases(torch, card, t_start, pool):
     go2_launches, _ = go2_gaits(torch, refs, zero_counts, counts, card)
     log(f"[11a] the Go2's gaits {time.time() - t0:.1f} s")
     t1 = time.time()
-    go2_loop_launches = go2_loop(torch, zero_counts, counts, card)
+    go2_loop_launches, finish_11b = go2_loop(torch, zero_counts, counts, card, pool)
     log(f"[11] the Go2's loop {time.time() - t1:.1f} s; phase 11 {time.time() - t0:.1f} s")
 
     # ---- 12. the Solo8: K2 at 8 joints on the main and the fused path ----
@@ -2732,6 +3095,16 @@ def run_phases(torch, card, t_start, pool):
     t0 = time.time()
     acyclic_launches = acyclic_table(torch, refs, zero_counts, counts, card)
     log(f"[14] the acyclic motions {time.time() - t0:.1f} s")
+
+    # ---- 15. the experiment drivers: the CLI's main() in-process, and a trace ----
+    t0 = time.time()
+    driver_launches = experiment_drivers(torch, spec, inputs, bench_cfg, ddp_cfg, zero_counts,
+                                         counts, card)
+    log(f"[15] the experiment drivers {time.time() - t0:.1f} s")
+
+    # ---- 9d's and 11b's gates: their plain references ran on the host CPU's workers ----
+    finish_9d()
+    finish_11b()
 
     # ---- 7. the kernels line ----
     zero_counts()
@@ -2771,7 +3144,8 @@ def run_phases(torch, card, t_start, pool):
     def phase10(k):
         """Kernel ``k``'s launches per gait and path (10a), per eval call
         (10b-10f; a list per call where a phase makes several), per Go2 gait
-        and path (11a) and per Go2 loop call (11b-11d)."""
+        and path (11a), per Go2 loop call (11b-11d), per Solo8 path (12), per
+        terrain call (13), per acyclic motion (14) and per driver call (15)."""
         return {"gait_launches": {g: {p: n[k] for p, n in paths.items()}
                                   for g, paths in gait_launches.items()},
                 "eval_launches": {tag: [c[k] for c in v] if isinstance(v, list) else v[k]
@@ -2782,7 +3156,8 @@ def run_phases(torch, card, t_start, pool):
                 "solo8_launches": {g: {p: n[k] for p, n in paths.items()}
                                    for g, paths in solo8_launches.items()},
                 "terrain_launches": {tag: c[k] for tag, c in terrain_launches.items()},
-                "acyclic_launches": {name: c[k] for name, c in acyclic_launches.items()}}
+                "acyclic_launches": {name: c[k] for name, c in acyclic_launches.items()},
+                "driver_launches": {tag: c[k] for tag, c in driver_launches.items()}}
 
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",

@@ -411,11 +411,14 @@ def test_perturbed_starts_match_jax(spec, jspec, sample_replans):
 # ---- refusals ----
 
 
-def test_checkpoint_and_resume_raise(spec):
+def test_checkpoint_and_resume_raise(spec, tmp_path):
+    """Resuming from another driver's checkpoint raises, naming both modes,
+    as the JAX driver's ``load_checkpoint`` does (resume itself:
+    tests/test_torch_resume.py)."""
+    (tmp_path / "state.json").write_text('{"mode": "dagger", "next_iteration": 1, "logs": []}')
     drv = dagger.SafeDagger(spec, admm_backend="torch", ik_backend="torch")
-    for kw in (dict(checkpoint_dir="ckpt"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            drv.run(TC.q0(), np.zeros(18), **kw)
+    with pytest.raises(ValueError, match="'dagger' != driver 'safedagger'"):
+        drv.run(TC.q0(), np.zeros(18), checkpoint_dir=str(tmp_path), resume=True)
 
 
 def test_drivers_default_to_the_card(spec):

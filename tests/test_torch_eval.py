@@ -25,6 +25,7 @@ needs, against the JAX package's ``bunmpc_tpu/eval/`` and
 
 import dataclasses
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -478,9 +479,8 @@ def test_train_from_databases_matches_jax(tmp_path, monkeypatch):
 
 
 def test_snapshots_need_h5py(monkeypatch, tmp_path):
-    from bunmpc_tpu_torch.learning import database
-
-    monkeypatch.setattr(database, "_HAS_H5PY", False)
+    """An hdf5 snapshot needs h5py (the port's .npz ones do not)."""
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py raises ImportError
     with pytest.raises(RuntimeError, match="h5py"):
         MDB.train_from_databases([str(tmp_path / "x.h5")], device="cpu")
 

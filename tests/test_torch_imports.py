@@ -58,10 +58,41 @@ def test_no_jax_or_jax_package_imports():
         assert os.path.join(PKG, "eval", sub) in files
     for sub in (("robots", "go2.py"), ("mpc", "motions", "go2_cyclic.py")):  # the Go2
         assert os.path.join(PKG, *sub) in files
+    for sub in UTILS + SCRIPTS:  # the experiment layer
+        assert os.path.join(PKG, sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "bunmpc_tpu"), f"{path} imports {mod}"
+            assert top not in ("jax", "jaxlib", "flax", "orbax", "bunmpc_tpu"), \
+                f"{path} imports {mod}"
+
+
+UTILS = tuple(os.path.join("utils", f"{n}.py") for n in (
+    "config", "jsonio", "logging", "runtime", "checkpoint", "profiling"))
+SCRIPTS = tuple(os.path.join("scripts", f"{n}.py") for n in (
+    "run_data_collection", "run_bc", "run_dagger", "run_eval", "run_sweep"))
+
+
+def _module_level_imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_optional_packages_stay_inside_functions():
+    """No module of the port imports PyYAML, h5py, wandb or orbax at module
+    level (the card's machine has none of them): the configs are read by the
+    port's own YAML reader, an hdf5 snapshot imports h5py where it is read or
+    written, the metrics logger imports wandb in ``__init__``; PyYAML and
+    orbax are imported nowhere."""
+    for path in _port_files():
+        for mod in _module_level_imports(path):
+            assert mod.split(".")[0] not in ("yaml", "h5py", "wandb", "orbax"), \
+                f"{path} imports {mod} at module level"
+        assert not {m.split(".")[0] for m in _imported_modules(path)} & {"yaml", "orbax"}, path
 
 
 def test_scipy_only_in_gp_bo():
@@ -76,16 +107,12 @@ def test_plotting_imports_stay_inside_functions():
     """The port imports torch and numpy at module level; the eval suite's
     plots import matplotlib and PIL inside the functions that draw
     (``eval/visualize.py`` alone), so that no entry point needs them."""
-    top = {"torch", "numpy", "scipy", "h5py", "bunmpc_tpu_torch"}
+    top = {"torch", "numpy", "scipy", "bunmpc_tpu_torch"}
     users = set()
     for path in _port_files():
-        tree = ast.parse(open(path).read(), filename=path)
-        for node in tree.body:  # module level only
-            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
-                     [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
-            for mod in names:
-                assert mod.split(".")[0] in top | {"__future__"} or mod.split(".")[0] in (
-                    sys.stdlib_module_names), f"{path} imports {mod} at module level"
+        for mod in _module_level_imports(path):
+            assert mod.split(".")[0] in top | {"__future__"} or mod.split(".")[0] in (
+                sys.stdlib_module_names), f"{path} imports {mod} at module level"
         if any(m.split(".")[0] in ("matplotlib", "PIL") for m in _imported_modules(path)):
             users.add(os.path.relpath(path, REPO))
     assert users == {os.path.join("bunmpc_tpu_torch", "eval", "visualize.py")}
@@ -100,6 +127,14 @@ def test_robot_asset_is_byte_identical():
 def test_go2_asset_is_byte_identical():
     ours = os.path.join(PKG, "robots", "assets", "go2_model.npz")
     theirs = os.path.join(REPO, "bunmpc_tpu", "robots", "assets", "go2_model.npz")
+    assert filecmp.cmp(ours, theirs, shallow=False)
+
+
+@pytest.mark.parametrize("name", ["bc", "dagger", "data_collection", "locosafedagger",
+                                  "safedagger"])
+def test_config_is_byte_identical(name):
+    ours = os.path.join(PKG, "configs", f"{name}.yaml")
+    theirs = os.path.join(REPO, "bunmpc_tpu", "configs", f"{name}.yaml")
     assert filecmp.cmp(ours, theirs, shallow=False)
 
 

@@ -160,9 +160,11 @@ def test_database_matches_jax(goal_type, tmp_path):
 
 
 def test_database_snapshot_needs_h5py(monkeypatch, tmp_path):
+    """An hdf5 snapshot needs h5py, imported where it is read or written
+    (the card's machine has none; the port's own snapshot is .npz)."""
     db = TDB.Database(10)
     db.append(*_toy(4, 0)[:1], _toy(4, 0)[2], cc_goals=_toy(4, 0)[1])
-    monkeypatch.setattr(TDB, "_HAS_H5PY", False)
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py raises ImportError
     with pytest.raises(RuntimeError, match="h5py"):
         db.save(str(tmp_path / "x.hdf5"))
     with pytest.raises(RuntimeError, match="h5py"):
