@@ -69,6 +69,12 @@ def _frame_pos(model, R, p, name, like):
     return p[..., f.body, :] + _mv(R[..., f.body, :, :], const(f.pos, like))
 
 
+def frame_position(model: RobotModel, q, frame_name: str):
+    """World position of a named fixed frame (e.g. a foot): (..., 3)."""
+    R, p = fk(model, q)
+    return _frame_pos(model, R, p, frame_name, q)
+
+
 def frame_positions(model: RobotModel, q, frame_names):
     """World positions of several frames, stacked on a new axis: (..., n, 3)."""
     R, p = fk(model, q)

@@ -312,3 +312,24 @@ def solve_acyclic_mpc_batch(
         xs_int=xs_int, us_int=us_int, f_int=f_int, X_opt=X, F_opt=F, xs=ik_xs, us=ik_us,
         cnt_plan=prob["cnt4"], dyn_violation=viol, admm_iters=iters, ik_cost=ik_cost, P_opt=P,
     )
+
+
+def solve_acyclic_mpc(
+    spec: AcyclicMpcSpec,
+    q,  # (nq,)
+    v,  # (nv,)
+    t,  # () time into the motion
+    admm_cfg=None,
+    ddp_cfg: ddp.DdpConfig = ddp.DdpConfig(),
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+) -> MpcPlan:
+    """One acyclic MPC solve (the JAX package's ``solve_acyclic_mpc``): the
+    batch of one through ``solve_acyclic_mpc_batch``, whose plan it returns
+    without the batch axis."""
+    def one(a):
+        return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
+
+    plan = solve_acyclic_mpc_batch(spec, one(q), one(v), one(t), admm_backend=admm_backend,
+                                   ik_backend=ik_backend, admm_cfg=admm_cfg, ddp_cfg=ddp_cfg)
+    return MpcPlan(*(a[0] for a in plan))

@@ -155,3 +155,61 @@ def ax_diag_iso(plan: ContactPlan, m: float, X):
     arm2 = torch.sum(arm * arm, dim=-1, keepdim=True)
     dt2 = (plan.dt * plan.dt)[..., None, None]
     return plan.cnt[..., None] * dt2 * (1.0 / (m * m) + 2.0 * arm2 / 3.0)
+
+
+# --- dense materialisation (for golden tests against the numpy/C++ twins) ---
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def ax_dense(plan: ContactPlan, m: float, X):
+    """A_x of one problem (no batch axis) as a float64 numpy array in the
+    reference's layout (row-major knot blocks of 9, force column
+    3 ne t + 3 n + axis); the JAX package's ``ax_dense``. Test-only."""
+    import numpy as np
+
+    cnt, r, dt, Xn = (np.asarray(_host(a), np.float64) for a in (plan.cnt, plan.r, plan.dt, X))
+    H, ne = cnt.shape[-2], cnt.shape[-1]
+    A = np.zeros((9 * (H + 1), 3 * ne * H))
+    for t in range(H):
+        for n in range(ne):
+            c = cnt[t, n]
+            col = 3 * ne * t + 3 * n
+            for k in range(3):
+                A[9 * t + 3 + k, col + k] = c * dt[t] / m
+            arm = Xn[t, 0:3] - r[t, n]
+            A[9 * t + 6, col + 1] = c * arm[2] * dt[t]
+            A[9 * t + 6, col + 2] = -c * arm[1] * dt[t]
+            A[9 * t + 7, col + 0] = -c * arm[2] * dt[t]
+            A[9 * t + 7, col + 2] = c * arm[0] * dt[t]
+            A[9 * t + 8, col + 0] = c * arm[1] * dt[t]
+            A[9 * t + 8, col + 1] = -c * arm[0] * dt[t]
+    return A
+
+
+def af_dense(plan: ContactPlan, m: float, F):
+    """A_f of one problem as a float64 numpy array in the reference's layout;
+    the JAX package's ``af_dense``. Test-only."""
+    import numpy as np
+
+    cnt, dt, Fn = (np.asarray(_host(a), np.float64) for a in (plan.cnt, plan.dt, F))
+    H = cnt.shape[-2]
+    A = np.zeros((9 * (H + 1), 9 * (H + 1)))
+    for t in range(H):
+        for l in range(9):
+            A[9 * t + l, 9 * t + l] = 1.0
+            A[9 * t + l, 9 * (t + 1) + l] = -1.0
+        for k in range(3):
+            A[9 * t + k, 9 * (t + 1) + 3 + k] = dt[t]
+        ftot = (cnt[t][:, None] * Fn[t]).sum(0)
+        A[9 * t + 6, 9 * t + 1] += -ftot[2] * dt[t]
+        A[9 * t + 6, 9 * t + 2] += ftot[1] * dt[t]
+        A[9 * t + 7, 9 * t + 0] += ftot[2] * dt[t]
+        A[9 * t + 7, 9 * t + 2] += -ftot[0] * dt[t]
+        A[9 * t + 8, 9 * t + 0] += -ftot[1] * dt[t]
+        A[9 * t + 8, 9 * t + 1] += ftot[0] * dt[t]
+    for l in range(9):
+        A[9 * H + l, l] = 1.0
+    return A

@@ -80,6 +80,13 @@ def percent_in_phase(params: GaitParams, t):
     return torch.where(ph <= st + 1e-4, ph / st, (ph - st) / (params.gait_period - st))
 
 
+def contact_phase_plan(params: GaitParams, t, horizon: int, dt: float):
+    """Stance flags over a horizon of fixed knots, (..., horizon, n_eff)
+    (gait_planner.cpp:96-102)."""
+    ts = t[..., None] + torch.arange(horizon, dtype=t.dtype, device=t.device) * dt
+    return in_stance(params, ts)
+
+
 def first_knot_dt(params: GaitParams, t):
     """dt of the first knot (abstract_cyclic_gen.py:385-390)."""
     dt0 = params.gait_dt - torch.round(_mod(t, params.gait_dt), decimals=2)

@@ -579,3 +579,36 @@ def solve_mpc_batch(
         res = IK.solve_dense(spec.model, spec.eff_frames, *args, cfg=ddp_cfg)
         ik_xs, ik_us, ik_cost = res.xs, res.us, res.cost
     return _finish_from_ik(spec, prob, X, F, viol, iters, ik_xs, ik_us, ik_cost, P)
+
+
+def _one(a):
+    """A single problem's input as a batch of one: a leading axis added (an
+    array stays an array, so that ``_inputs`` places it)."""
+    return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
+
+
+def solve_mpc(
+    spec: CyclicMpcSpec,
+    q,  # (nq,)
+    v,  # (nv,)
+    t,  # () gait clock
+    v_des,  # (3,) commanded CoM velocity (base heading frame)
+    w_des,  # () commanded yaw rate
+    admm_cfg=None,
+    ddp_cfg: ddp.DdpConfig = ddp.DdpConfig(),
+    noise_xy=None,  # optional (H, n_eff, 2) touchdown-location noise
+    terrain=None,  # optional sim.physics.Terrain: uneven-ground planning
+    warm_start=None,  # optional (X_wm, F_wm, P_wm) from a previous solve
+    admm_backend: str = "cuda",
+    ik_backend: str = "cuda",
+) -> MpcPlan:
+    """One kino-dynamic MPC solve (the JAX package's ``solve_mpc``): the
+    batch of one through ``solve_mpc_batch``, whose plan it returns without
+    the batch axis. Inputs, config and backends as there."""
+    plan = solve_mpc_batch(
+        spec, _one(q), _one(v), _one(t), _one(v_des), _one(w_des), admm_cfg=admm_cfg,
+        ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend,
+        warm_start=None if warm_start is None else tuple(_one(a) for a in warm_start),
+        noise_xy=None if noise_xy is None else _one(noise_xy), terrain=terrain,
+    )
+    return MpcPlan(*(a[0] for a in plan))

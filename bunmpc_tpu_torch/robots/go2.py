@@ -17,21 +17,7 @@ import os
 import numpy as np
 
 from .assets_io import load_model
-from .model import Frame, RobotModel
-
-
-def compose_inertia(m1, c1, I1, m2, c2, I2):
-    """Combine two (mass, com, inertia-about-com) triplets in a shared frame
-    (``bunmpc_tpu/robots/model.py``)."""
-    m = m1 + m2
-    if m == 0.0:
-        return 0.0, np.zeros(3), np.zeros((3, 3))
-    c = (m1 * c1 + m2 * c2) / m
-    out = np.zeros((3, 3))
-    for mi, ci, Ii in ((m1, c1, I1), (m2, c2, I2)):
-        d = ci - c
-        out += Ii + mi * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
-    return m, c, out
+from .model import Frame, RobotModel, compose_inertia
 
 
 _ASSET = os.path.join(os.path.dirname(__file__), "assets", "go2_model.npz")

@@ -1,7 +1,7 @@
 """Robot model constants for the batched PyTorch rigid-body stack.
 
-A copy of the containers of ``bunmpc_tpu/robots/model.py`` (numpy only; the
-URDF-time inertia helpers stay there): ``RobotModel`` is the
+A copy of ``bunmpc_tpu/robots/model.py`` (numpy only: the containers and
+the inertia helpers that assemble a model): ``RobotModel`` is the
 replacement for the Pinocchio ``Model``/``Data`` pair. Topology is *static*:
 every array here is a host-side numpy constant, so the kinematics unroll into
 a fixed chain of small batched tensor ops, and the CUDA kernels receive the
@@ -78,3 +78,24 @@ class RobotModel:
             chain.append(j)
             b = int(self.parent[j])
         return tuple(reversed(chain))
+
+
+def compose_inertia(m1, c1, I1, m2, c2, I2):
+    """Combine two (mass, com, inertia-about-com) triplets in a shared frame."""
+    m = m1 + m2
+    if m == 0.0:
+        return 0.0, np.zeros(3), np.zeros((3, 3))
+    c = (m1 * c1 + m2 * c2) / m
+    out = np.zeros((3, 3))
+    for mi, ci, Ii in ((m1, c1, I1), (m2, c2, I2)):
+        d = ci - c
+        out += Ii + mi * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
+    return m, c, out
+
+
+def transform_inertia(R, p, m, c, I):
+    """Express (m, c, I-about-com) given in frame B in frame A, where the pose
+    of B in A is (R, p)."""
+    c_new = R @ c + p
+    I_new = R @ I @ R.T
+    return m, c_new, I_new

@@ -162,7 +162,8 @@ def solve(
                 pen = torch.sum(r1 * r1, dim=(-2, -1)) - torch.sum(r0 * r0, dim=(-2, -1))
                 return quad + rho_k * pen
 
-            return fista.solve(F0, grad, obj_diff, proj_f, L0, fcfg, n_var_dims=3)
+            r = fista.solve(F0, grad, obj_diff, proj_f, L0, fcfg, n_var_dims=3)
+            return r.x, r.L
         if cfg.precondition:
             # per-contact isotropic diag of 2(W_F + rho A_x^T A_x)
             wf_iso = torch.mean(W_F, dim=-1, keepdim=True)
@@ -171,7 +172,7 @@ def solve(
         L = fista.power_iteration_L(
             quad_op, F0.shape, F0, 3, cfg.power_iters, cfg.power_safety
         )
-        return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3), L0
+        return fista.solve_fixed_step(F0, grad, proj_f, L, fcfg, n_var_dims=3).x, L0
 
     def solve_x(F, X0, P, rho_k, L0):
         if cfg.x_solver == "thomas":
@@ -203,14 +204,15 @@ def solve(
                 pen = torch.sum(r1 * r1, dim=(-2, -1)) - torch.sum(r0 * r0, dim=(-2, -1))
                 return quad + lin + rho_k * pen
 
-            return fista.solve(X0, grad, obj_diff, proj_x, L0, fcfg, n_var_dims=2)
+            r = fista.solve(X0, grad, obj_diff, proj_x, L0, fcfg, n_var_dims=2)
+            return r.x, r.L
         if cfg.precondition:
             d0 = 2.0 * (cost_x.W + rho * cd.af_diag(plan, F)) + 1e-12
             return _diag_fista(X0, quad_op, grad, proj_x, d0, 2), L0
         L = fista.power_iteration_L(
             quad_op, X0.shape, X0, 2, cfg.power_iters, cfg.power_safety
         )
-        return fista.solve_fixed_step(X0, grad, proj_x, L, fcfg, n_var_dims=2), L0
+        return fista.solve_fixed_step(X0, grad, proj_x, L, fcfg, n_var_dims=2).x, L0
 
     def _diag_fista(x0, quad_op, grad, proj, d0, n_var_dims):
         """FISTA in the Jacobi metric D = lam d0, lam the power-iteration
@@ -221,7 +223,7 @@ def solve(
             cfg.power_safety,
         )
         D = lam.reshape(lam.shape + (1,) * n_var_dims) * d0
-        return fista.solve_diag_step(x0, grad, proj, D, fcfg, n_var_dims=n_var_dims)
+        return fista.solve_diag_step(x0, grad, proj, D, fcfg, n_var_dims=n_var_dims).x
 
     X, F, P = X_wm, F_wm, P_wm
     rho_k = torch.full(batch_shape, cfg.rho, dtype=dtype, device=device)

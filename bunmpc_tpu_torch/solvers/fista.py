@@ -20,7 +20,7 @@ squared-norm projection (fista.cpp:59-62).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -32,6 +32,13 @@ class FistaConfig:
     beta: float = 1.5
     max_linesearch: int = 30
     momentum: str = "reference"  # or "textbook"
+
+
+class FistaResult(NamedTuple):
+    x: torch.Tensor  # solution, batch_shape + var_shape
+    L: torch.Tensor  # final per-problem Lipschitz estimates (batch_shape)
+    iters: torch.Tensor  # per-problem iterations taken while not converged (int32)
+    g_norm: torch.Tensor  # per-problem norm of the last live step
 
 
 def _vdot(a, b, n_var_dims):
@@ -100,12 +107,12 @@ def power_iteration_L(
 def solve_fixed_step(
     x0, grad_fn: Callable, proj_fn: Callable, L, cfg: FistaConfig, n_var_dims: int = 1
 ):
-    """Projected FISTA with the fixed step 1/L; returns the solution."""
+    """Projected FISTA with the fixed step 1/L; returns a ``FistaResult``
+    whose ``L`` is the step's (broadcast over the batch)."""
     batch_shape = x0.shape[: x0.ndim - n_var_dims]
-    return solve_diag_step(
-        x0, grad_fn, proj_fn, _expand(torch.broadcast_to(L, batch_shape), n_var_dims), cfg,
-        n_var_dims,
-    )
+    L = torch.broadcast_to(torch.as_tensor(L, dtype=x0.dtype, device=x0.device), batch_shape)
+    res = solve_diag_step(x0, grad_fn, proj_fn, _expand(L, n_var_dims), cfg, n_var_dims)
+    return res._replace(L=L)
 
 
 def solve_diag_step(
@@ -115,12 +122,15 @@ def solve_diag_step(
     ``D`` broadcastable to ``x0`` (counterpart of ``fista.solve_diag_step``).
     With D = lam_max(D0^-1/2 H D0^-1/2) * safety * D0 for a Jacobi estimate D0
     of diag(H) this is plain FISTA on z = D^1/2 x: exact for a box, and for
-    the friction cone when D is isotropic on each 3-vector."""
+    the friction cone when D is isotropic on each 3-vector. Returns a
+    ``FistaResult`` whose ``L`` is the largest entry of D per problem."""
     batch_shape = x0.shape[: x0.ndim - n_var_dims]
     x_k, y_k = x0, x0
     t_k = torch.ones(batch_shape, dtype=x0.dtype, device=x0.device)
+    g_norm = torch.full(batch_shape, float("inf"), dtype=x0.dtype, device=x0.device)
+    iters = torch.zeros(batch_shape, dtype=torch.int32, device=x0.device)
     done = torch.zeros(batch_shape, dtype=torch.bool, device=x0.device)
-    for _ in range(cfg.max_iters):
+    for it in range(cfg.max_iters):
         if bool(done.all()):
             break
         y_next = proj_fn(y_k - grad_fn(y_k) / D)
@@ -132,8 +142,12 @@ def solve_diag_step(
         x_k = torch.where(upd, y_next, x_k)
         y_k = torch.where(upd, y_mom, y_k)
         t_k = torch.where(~done, t_next, t_k)
+        g_norm = torch.where(~done, g, g_norm)
+        iters = torch.where(~done, torch.full_like(iters, it + 1), iters)
         done = done | (g < cfg.tol)
-    return x_k
+    L = torch.broadcast_to(torch.as_tensor(D, dtype=x0.dtype, device=x0.device), x0.shape)
+    return FistaResult(x=x_k, L=torch.amax(L, dim=tuple(range(-n_var_dims, 0))), iters=iters,
+                       g_norm=g_norm)
 
 
 def solve(
@@ -145,7 +159,8 @@ def solve(
     ``L <- beta L`` until ``f(y+) - f(y) <= <grad, d> + L/2 |d|^2`` or
     ``max_linesearch`` trials. ``obj_diff_fn(y1, y0)`` is f(y1) - f(y0) per
     problem (the reference's objective-difference trick, problem.cpp:46-51).
-    Returns ``(x, L)``: the solution and the final Lipschitz estimates."""
+    Returns a ``FistaResult``: the solution, the final Lipschitz estimates,
+    the iterations and the last step norm per problem."""
     batch_shape = x0.shape[: x0.ndim - n_var_dims]
     L = torch.broadcast_to(torch.as_tensor(L0, dtype=x0.dtype, device=x0.device),
                            batch_shape).clone()
@@ -172,8 +187,10 @@ def solve(
 
     x_k, y_k = x0, x0
     t_k = torch.ones(batch_shape, dtype=x0.dtype, device=x0.device)
+    g_norm = torch.full(batch_shape, float("inf"), dtype=x0.dtype, device=x0.device)
+    iters = torch.zeros(batch_shape, dtype=torch.int32, device=x0.device)
     done = torch.zeros(batch_shape, dtype=torch.bool, device=x0.device)
-    for _ in range(cfg.max_iters):
+    for it in range(cfg.max_iters):
         if bool(done.all()):
             break
         y_next, L_new = line_search(y_k, L, done)
@@ -186,5 +203,7 @@ def solve(
         y_k = torch.where(upd, y_mom, y_k)
         L = torch.where(~done, L_new, L)
         t_k = torch.where(~done, t_next, t_k)
+        g_norm = torch.where(~done, g, g_norm)
+        iters = torch.where(~done, torch.full_like(iters, it + 1), iters)
         done = done | (g < cfg.tol)
-    return x_k, L
+    return FistaResult(x=x_k, L=L, iters=iters, g_norm=g_norm)

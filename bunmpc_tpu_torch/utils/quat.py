@@ -74,6 +74,36 @@ def quat_to_rot(q):
     )
 
 
+def rot_to_quat(R):
+    """Rotation matrix -> quaternion (x, y, z, w), branch-free (Shepperd):
+    the four candidate constructions, the one with the largest pivot kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) / 2.0
+
+    qw0 = root(1.0 + tr)
+    q0 = torch.stack(
+        [(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0), (m10 - m01) / (4 * qw0), qw0], dim=-1)
+    qx1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack(
+        [qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1), (m21 - m12) / (4 * qx1)], dim=-1)
+    qy2 = root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack(
+        [(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2), (m02 - m20) / (4 * qy2)], dim=-1)
+    qz3 = root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack(
+        [(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3, (m10 - m01) / (4 * qz3)], dim=-1)
+    cases = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4, 4)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    q = torch.gather(cases, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return quat_normalize(q)
+
+
 def exp3(w):
     """so(3) exponential: rotation vector -> quaternion (x, y, z, w)."""
     sq = torch.sum(w * w, dim=-1, keepdim=True)
@@ -99,6 +129,26 @@ def log3_quat(q):
     return q[..., :3] * scale
 
 
+def log3(R):
+    """Rotation matrix -> rotation vector (the orientation-correction term,
+    reference examples/mpc/abstract_cyclic_gen.py:616-627)."""
+    return log3_quat(rot_to_quat(R))
+
+
+def rot_x(theta):
+    """Rotation about x by theta (...,) -> (..., 3, 3)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([o, z, z], dim=-1),
+            torch.stack([z, c, -s], dim=-1),
+            torch.stack([z, s, c], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def axis_angle_rot(axis, theta):
     """Rodrigues: rotation about a fixed axis (shape (3,), array or tensor) by
     theta (...,)."""
@@ -109,6 +159,22 @@ def axis_angle_rot(axis, theta):
     eye = torch.eye(3, dtype=theta.dtype, device=theta.device)
     outer = axis[:, None] * axis[None, :]
     return c * eye + s * k + (1 - c) * outer
+
+
+def rpy_to_rot(rpy):
+    """Roll-pitch-yaw (XYZ extrinsic, the URDF convention) -> rotation matrix."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def rot_to_rpy(R):
@@ -182,3 +248,66 @@ def se3_difference(p1, q1, p2, q2):
     Vinv = _so3_left_jacobian_inv(dw)
     dv = (Vinv @ dp_local[..., None])[..., 0]
     return dv, dw
+
+
+def _se3_Q(rho, w):
+    """Barfoot's Q block of the SE(3) left Jacobian, xi = [rho (linear), w
+    (angular)]: Jl6 = [[Jl3(w), Q], [0, Jl3(w)]], with Taylor branches at
+    w = 0."""
+    sq = torch.sum(w * w, dim=-1)[..., None, None]
+    small = sq < 1e-8
+    sq_safe = torch.where(small, torch.ones_like(sq), sq)
+    t = torch.sqrt(sq_safe)
+    rx, wx = skew(rho), skew(w)
+    wxrx = wx @ rx
+    rxwx = rx @ wx
+    wxrxwx = wxrx @ wx
+    c1 = torch.where(small, 1.0 / 6.0 - sq / 120.0, (t - torch.sin(t)) / (sq_safe * t))
+    # (theta^2/2 + cos(theta) - 1)/theta^4 -> 1/24 - theta^2/720
+    c2 = torch.where(small, 1.0 / 24.0 - sq / 720.0,
+                     (sq / 2.0 + torch.cos(t) - 1.0) / (sq_safe * sq_safe))
+    # (theta - sin(theta) - theta^3/6)/theta^5 -> -1/120 + theta^2/5040
+    c3 = torch.where(small, -1.0 / 120.0 + sq / 5040.0,
+                     (t - torch.sin(t) - t * sq / 6.0) / (sq_safe * sq_safe * t))
+    return (
+        0.5 * rx
+        + c1 * (wxrx + rxwx + wxrxwx)
+        + c2 * (wx @ wxrx + rxwx @ wx - 3.0 * wxrxwx)
+        + 0.5 * (c2 + 3.0 * c3) * (wxrxwx @ wx + wx @ wxrxwx)
+    )
+
+
+def _blocks(tl, tr, br):
+    """[[tl, tr], [0, br]] from (..., 3, 3) blocks."""
+    top = torch.cat([tl, tr], dim=-1)
+    bot = torch.cat([torch.zeros_like(br), br], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_left_jacobian(rho, w):
+    """SE(3) left Jacobian Jl6(xi), xi = [rho, w]: Exp(xi + d) ~ Exp(Jl6 d) Exp(xi)."""
+    Jl = _so3_left_jacobian(w)
+    return _blocks(Jl, _se3_Q(rho, w), Jl)
+
+
+def se3_left_jacobian_inv(rho, w):
+    """Jl6(xi)^-1 by the block inverse [[Ji, -Ji Q Ji], [0, Ji]]."""
+    Ji = _so3_left_jacobian_inv(w)
+    return _blocks(Ji, -(Ji @ _se3_Q(rho, w) @ Ji), Ji)
+
+
+def se3_right_jacobian(rho, w):
+    """Jr6(xi) = Jl6(-xi): Exp(xi + d) ~ Exp(xi) Exp(Jr6 d)."""
+    return se3_left_jacobian(-rho, -w)
+
+
+def se3_right_jacobian_inv(rho, w):
+    return se3_left_jacobian_inv(-rho, -w)
+
+
+def se3_adjoint_exp(rho, w):
+    """Ad(Exp(xi)) for the twist order [linear, angular]: [[R, t^ R], [0, R]]
+    with R = exp(w^), t = V(w) rho."""
+    R = quat_to_rot(exp3(w))
+    t = (_so3_left_jacobian(w) @ rho[..., None])[..., 0]
+    return _blocks(R, skew(t) @ R, R)

@@ -29,3 +29,23 @@ def setup_torch(device=None, seed: int | None = None) -> torch.device:
         np.random.seed(seed)
         torch.manual_seed(seed)
     return device
+
+
+def device_label(device) -> str:
+    """What an artifact records as its device: on a CUDA device the card's
+    name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the device name alone where
+    nvidia-smi is missing), otherwise ``str(device)``."""
+    import subprocess
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             f"--id={index}"], capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(index)

@@ -23,7 +23,7 @@ and height, beside the same loop cold (phase 7b). Then the learning loop
 (phase 8): one data-collection iteration (``learning.data_collection``,
 K1 and K2 once per window of each expert rollout), BC at the bc.yaml
 widths on its database (``learning.bc``), and the trained policy with cc
-goals at 512 episodes of 3000 steps (``sim.rollout.rollout_policy_cc``, no
+goals at 512 episodes of 1500 steps (``sim.rollout.rollout_policy_cc``, no
 MPC). Then the DAgger family (phase 9): ``SafeDagger.run`` with one
 iteration, one ``rollout_dagger`` call, one ``LocoSafeDagger`` iteration (K1
 and K2 once per window of every MPC and gated call), gated on the gate's
@@ -48,8 +48,14 @@ phase 14, the six Solo12 acyclic motions through K1 and K2. Then phase
 (``bunmpc_tpu_torch.scripts``) in-process, data collection with its ``.npz``
 snapshot, BC with its checkpoint, the MPC and policy grids, SafeDAgger with
 a checkpoint and a resumed call, and a ``torch.profiler`` trace of one
-main-path solve. The plain references of phases 7a, 9d, 10a, 11a, 12, 13b
-and 14 run in worker processes on the host's CPU while the card works. It
+main-path solve. Then phase 16, the analysis scripts and the learning
+demos (``bunmpc_tpu_torch.scripts``): the solve-time sweep, the ADMM
+diagnostics, the gait diagnostics, the contact sweep and calibration, the
+W_F validation, the Go2's stability sweep and the three demos, each
+``main(argv)`` in-process and cut small, its launches, outputs and output
+file checked. The plain references of phases 3-6, 7a, 9d, 10a, 11a, 12,
+13b and 14 run in worker processes on the host's CPU while the card works,
+and every phase's seconds are printed on one line beside the total. It
 checks every
 path's outputs, counts each kernel's launches in each path's run, times
 them, and prints one ``kernels`` JSON line, the card's name and power limit,
@@ -75,6 +81,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 512
+SECONDS = {}  # wall seconds of each phase and subphase, printed beside the total
 H100_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 H100_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 # Phase 7a: one window of the closed loop on the card against the plain path
@@ -297,6 +304,11 @@ def cc_rows(in_contact):
                for ee in range(td.shape[1]))
 
 
+# Phase 8: steps of 8a's and 8c's episodes (cut from 3000 to make room for
+# phase 16: the checks count rows and compare 50 steps whatever the length)
+LOOP8_STEPS = 1500
+
+
 def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
     """Phase 8: the learning loop's first half on the port's entry points.
     8a one data-collection iteration (the data-collection config: a B=1
@@ -304,8 +316,8 @@ def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
     batch, K1 and K2 once per window), 8b BC at the bc.yaml widths on its
     database for 5 of its 150 epochs, 8c the trained policy with cc goals at
     the batch of ``start`` (no MPC), its first 50 steps against the CPU in
-    f64 on 64 episodes. Returns the launch counts of 8a and the cc policy
-    of 8b."""
+    f64 on 64 episodes. 8a's and 8c's episodes are LOOP8_STEPS long.
+    Returns the launch counts of 8a and the cc policy of 8b."""
     from bunmpc_tpu_torch.learning import bc as BC
     from bunmpc_tpu_torch.learning import data_collection as DCM
     from bunmpc_tpu_torch.learning import networks
@@ -314,7 +326,7 @@ def learning_loop(torch, spec, sim, start, cmd, zero_counts, counts, card):
 
     dev = start.q.device
     B = start.q.shape[0]
-    T, epochs, n_check = 3000, 5, 64
+    T, epochs, n_check = LOOP8_STEPS, 5, 64
     dc_cfg = DCM.DataCollectionConfig(  # scripts/run_data_collection.py on data_collection.yaml
         episode_length=T, num_perturbations_per_replanning=2, goal_horizon=1,
         vx_range=(0.0, 0.3), vy_range=(0.0, 0.0), w_range=(0.0, 0.0), action_type="pd_target",
@@ -1781,6 +1793,70 @@ def solo8_phase(torch, refs, zero_counts, counts, card):
     return launches, k2
 
 
+def to_host(x):
+    """Tensors inside ``x`` (a tuple, a named tuple or a ContactPlan) as
+    numpy arrays on the host; anything else as it is."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "cnt"):
+        return type(x)(cnt=to_host(x.cnt), r=to_host(x.r), dt=to_host(x.dt))
+    if isinstance(x, tuple):
+        items = [to_host(a) for a in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def from_host(torch, x, dtype, device="cpu"):
+    """``to_host``'s inverse (and of a dict of arrays): numpy arrays as
+    tensors on ``device``, their floating values in ``dtype`` (None: as they
+    are)."""
+    if isinstance(x, np.ndarray):
+        t = torch.as_tensor(x, device=device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    if isinstance(x, dict):
+        return {k: from_host(torch, v, dtype, device) for k, v in x.items()}
+    if hasattr(x, "cnt"):
+        return type(x)(cnt=from_host(torch, x.cnt, dtype, device),
+                       r=from_host(torch, x.r, dtype, device),
+                       dt=from_host(torch, x.dt, dtype, device))
+    if isinstance(x, tuple):
+        items = [from_host(torch, a, dtype, device) for a in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def plain_job(kind, args, cfg, dtype_name, kw=None):
+    """A plain reference of phases 3-6 on the host CPU (one PyTorch thread):
+    ``"admm"`` ``cuda_admm.solve_plain(*args, cfg, **kw)``, ``"ddp"``
+    ``cuda_ddp.solve_ik_batch_plain(*args, cfg=cfg)``, ``"mpc"`` the plain
+    path of the trot (``solve_mpc_batch`` on the "torch" backends with
+    ``cuda_admm.plain_config(cfg)``) on ``args`` (q, v, t, v_des, w_des).
+    ``args`` and ``kw`` are ``to_host`` copies of the card's inputs, run in
+    ``dtype_name``; returns the result the same way."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
+
+    torch.set_num_threads(1)
+    dtype = getattr(torch, dtype_name)
+    a = from_host(torch, args, dtype)
+    kw = {k: from_host(torch, v, dtype) for k, v in (kw or {}).items()}
+    if kind == "admm":
+        return to_host(cuda_admm.solve_plain(*a, cfg, **kw))
+    if kind == "ddp":
+        return to_host(cuda_ddp.solve_ik_batch_plain(*a, cfg=cfg))
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0(), device="cpu")
+    plan = KD.solve_mpc_batch(spec, *a, admm_cfg=cuda_admm.plain_config(cfg), ddp_cfg=DdpConfig(),
+                              admm_backend="torch", ik_backend="torch")
+    return {"xs": plan.xs.numpy(), "X_opt": plan.X_opt.numpy()}
+
+
 def plain_window(dtype_name, run):
     """The worker protocol of the plain references, run in worker processes
     while the card works: one PyTorch thread, and every plan that
@@ -2421,6 +2497,248 @@ def experiment_drivers(torch, spec, inputs, admm_cfg, ddp_cfg, zero_counts, coun
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 16: every rollout of the three demos cut to 300 steps; the analysis
+# scripts' episodes: past the 500 ms the JAX scripts' attitude windows skip
+# (550: 11 windows), 500 for one half-second line of diagnose_gait, 300 for
+# sweep_contact (its metrics are over the second half)
+DEMO_STEPS = 300
+SCRIPT_STEPS = {"diagnose_gait": 500, "sweep_contact": 300, "calibrate_contact": 550,
+                "validate_wf_norm": 550, "sweep_stability": 550}
+
+
+def analysis_scripts(torch, zero_counts, counts, card):
+    """Phase 16: the ten analysis and demo scripts (``bunmpc_tpu_torch/
+    scripts``) through ``main(argv)`` in-process on the card, cut small, in a
+    temporary directory. Per script: its wall seconds, K1/K2 launches and key
+    outputs printed before its gates; the launches its loop implies (one K1
+    and one K2 a window of every MPC or gated rollout, or a solve); finite
+    outputs; its output file read back by a strict JSON parse, with the JAX
+    script's keys. 16a ``solve_times_sweep`` at B=64 (4 horizons x an untimed
+    and a timed call); 16b ``diagnose_admm`` at B=16 (the plain solver, no
+    launch; its ADMM and FISTA iterations within their caps); 16c
+    ``diagnose_gait`` Solo12 and Go2, 16d ``sweep_contact``, 16e
+    ``calibrate_contact``, 16f ``validate_wf_norm`` and 16g ``sweep_stability``
+    (the Go2's default grid, 40 rows in one call) at SCRIPT_STEPS; 16h-16j the three
+    demos at 1 iteration of 2 commands with every rollout (warmup, gated,
+    ending, eval) at 300 steps, 2 BC epochs and 2 warmup commands, their
+    checkpoints in the temporary directory. Returns each call's launches."""
+    import io
+    import tempfile
+
+    from bunmpc_tpu_torch.eval import velocity_grid
+    from bunmpc_tpu_torch.learning.bc import BcConfig
+    from bunmpc_tpu_torch.scripts import (_common, calibrate_contact, diagnose_admm,
+                                          diagnose_gait, run_learning_demo, run_locodemo,
+                                          run_locosafedagger_demo, solve_times_sweep,
+                                          sweep_contact, sweep_stability, validate_wf_norm)
+    from bunmpc_tpu_torch.sim import rollout
+
+    launches, fails = {}, []
+
+    def steps(name):
+        return SCRIPT_STEPS[name], SCRIPT_STEPS[name] // 50
+
+    def gate(ok, msg):
+        if not ok:
+            fails.append(msg)
+        return ok
+
+    def call(tag, mod, argv, *spies):
+        """``mod.main(argv)`` with the ``Spy``s on and its standard output
+        captured: ``(rc, wall seconds, printed lines)``."""
+        for sp in spies:
+            sp.__enter__()
+        buf = io.StringIO()
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for sp in spies:
+                sp.__exit__()
+        launches[tag] = counts()
+        SECONDS[f"16/{tag}"] = wall
+        log(f"[{tag}] {mod.__name__.split('.')[-1]} {' '.join(argv)}: rc {rc}, {wall:.2f} s, "
+            f"launches {launches[tag]}")
+        gate(rc == 0, f"{tag}: rc {rc}")
+        return wall, buf.getvalue().splitlines()
+
+    def want(tag, n):
+        return gate(launches[tag] == {"admm": n, "ddp": n, "fused": 0} and n >= 0,
+                    f"{tag}: K1 and K2 must launch {n} times each")
+
+    def strict(path):
+        with open(path) as fh:
+            text = fh.read()
+        lines = [json.loads(ln, parse_constant=lambda c: fails.append(f"{path}: {c}"))
+                 for ln in text.splitlines() if ln.strip()] if path.endswith(".jsonl") else \
+            json.loads(text, parse_constant=lambda c: fails.append(f"{path}: {c}"))
+        return lines
+
+    def windows(spy):
+        """Windows of the MPC and gated rollouts a spy recorded (one K1 and one
+        K2 each)."""
+        return sum(c["args"][2].episode_length // c["args"][2].steps_per_plan for c in spy.calls
+                   if c["name"] != "rollout_policy")
+
+    def finite_lines(tag, lines):
+        text = " ".join(lines)
+        return gate("nan" not in text and "inf" not in text,
+                    f"{tag}: a printed value is not finite")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        # ---- 16a. solve_times_sweep at its default B=64 ----
+        _, lines = call("16a", solve_times_sweep, ["gait=trot", "batch=64", f"out={tmp}/st.json"])
+        for ln in lines:
+            log(f"  {ln}")
+        doc = strict(f"{tmp}/st.json")
+        want("16a", 8)
+        gate(list(doc) == ["10", "15", "20", "25"] and all(
+            set(r) == {"sec_per_batch", "solves_per_sec", "mean_admm_iters", "mean_viol"} and
+            all(np.isfinite(v) for v in r.values()) for r in doc.values()), "16a: the table")
+        gate(all(r["mean_viol"] < 1e-3 for r in doc.values()), "16a: a horizon did not converge")
+
+        # ---- 16b. diagnose_admm at B=16: the plain solver on CUDA tensors ----
+        diag = Spy(torch, diagnose_admm, ["diagnose"], counts)
+        _, lines = call("16b", diagnose_admm, ["batch=16"], diag)
+        for ln in lines:
+            log(f"  {ln}")
+        d = diag.calls[0]["res"] if diag.calls else None
+        want("16b", 0)
+        gate(d is not None and all(
+            d[f"precondition={p}"]["admm_iters"].max() <= d[f"precondition={p}"]["max_admm_iters"]
+            for p in (False, True)) and d["f_sub"]["iters"].max() <= d["fista_max_iters"] and
+            d["x_sub"]["iters"].max() <= d["fista_max_iters"], "16b: iterations past their caps")
+        finite_lines("16b", lines)
+
+        # ---- 16c. diagnose_gait, Solo12 and the Go2 ----
+        T, nw = steps("diagnose_gait")
+        for robot in ("solo12", "go2"):
+            tag = f"16c {robot}"
+            _, lines = call(tag, diagnose_gait, [robot, "0.3", str(T), f"{tmp}/diag_{robot}"])
+            for ln in lines:
+                log(f"  {ln}")
+            want(tag, nw)
+            gate(any(ln.startswith("robot=") for ln in lines) and
+                 sum("touchdown offset" in ln for ln in lines) == 4, f"{tag}: the report")
+            finite_lines(tag, lines)
+
+        # ---- 16d. sweep_contact: 8 combinations, one solve a window ----
+        T, nw = steps("sweep_contact")
+        _, lines = call("16d", sweep_contact, ["solo12", "0.3", str(T)])
+        for ln in lines:
+            log(f"  {ln}")
+        want("16d", nw)
+        gate(len(lines) == 2 + len(sweep_contact.COMBOS["solo12"]) + 1, "16d: the table")
+        finite_lines("16d", lines)
+
+        # ---- 16e. calibrate_contact: the 36-row grid and the trot_sim baseline ----
+        T, nw = steps("calibrate_contact")
+        call("16e", calibrate_contact, [f"{tmp}/cal.json", str(T)])
+        doc = strict(f"{tmp}/cal.json")
+        b = doc["best"]
+        log(f"  best row kn {b['kn']:g} dn {b['dn']:g} kt {b['kt']:g}: failed {b['failed']}, "
+            f"duty {b['duty_factor']:.3f}, roll max {b['roll_max_deg']:.2f} deg; baseline "
+            f"failed {doc['trot_sim_baseline']['failed']}, duty "
+            f"{doc['trot_sim_baseline']['duty_factor']:.3f}; device {doc['meta']['device']}")
+        want("16e", 2 * nw)
+        gate(set(doc) == {"meta", "best", "grid_rows", "trot_sim_baseline"} and
+             len(doc["grid_rows"]) == 36 and doc["meta"]["device"] == card,
+             "16e: the document's keys")
+        gate(all(np.isfinite(r["duty_factor"]) and np.isfinite(r["roll_max_deg"])
+                 for r in doc["grid_rows"]), "16e: a row is not finite")
+
+        # ---- 16f. validate_wf_norm: four cases ----
+        T, nw = steps("validate_wf_norm")
+        call("16f", validate_wf_norm, [f"{tmp}/wf.json", str(T)])
+        doc = strict(f"{tmp}/wf.json")
+        for r in doc["results"]:
+            log(f"  {r['case']}: failed {r['failed']}, survival {r['survival_ms']} ms, roll max "
+                f"{r['roll_max_deg']:.2f} deg, |z - nom| {r['z_dev_end_mm']:.2f} mm, vx_end "
+                f"{r['vx_end']:.3f}")
+        want("16f", 4 * nw)
+        gate(set(doc) == {"meta", "results"} and len(doc["results"]) == 4 and
+             doc["meta"]["device"] == card, "16f: the document's keys")
+        gate(all(np.isfinite(r["roll_max_deg"]) for r in doc["results"]), "16f: not finite")
+
+        # ---- 16g. sweep_stability: the Go2's 40-row default grid, one call ----
+        T, nw = steps("sweep_stability")
+        _, lines = call("16g", sweep_stability, ["go2", "0.3", str(T), "500", "default",
+                                                 f"{tmp}/ss.json"])
+        doc = strict(f"{tmp}/ss.json")
+        log(f"  {len(doc['rows'])} rows, {sum(not r['failed'] for r in doc['rows'])} survived "
+            f"{T} ms; row 31 (11c's settings) roll max {doc['rows'][31]['roll_max_deg']:.2f} deg, "
+            f"z_end {doc['rows'][31]['z_end_m']:.3f} m")
+        want("16g", nw)
+        with open(SWEEP_ARTIFACT) as fh:
+            art = json.load(fh)
+        gate(set(doc) == set(art) and set(doc["rows"][0]) == set(art["rows"][0]) and
+             len(doc["rows"]) == 40, "16g: the document's keys")
+        gate(all(np.isfinite(r["roll_max_deg"]) for r in doc["rows"]), "16g: not finite")
+
+        # ---- 16h-16j. the three demos, cut ----
+        def cut(make):
+            def f(*a):
+                return dataclasses.replace(
+                    make(*a), episode_length=DEMO_STEPS, rollouts_warmup=2,
+                    episode_length_warmup=DEMO_STEPS, ending_mpc_rollout_ms=DEMO_STEPS,
+                    warmup_bc_epochs=2, bc=BcConfig(n_epoch=2))
+            return f
+
+        eval_grid, ckpt = velocity_grid.eval_policy_grid, _common.checkpoint_dir
+
+        def short_eval(spec, sim_params, cfg, *a, **k):
+            return eval_grid(spec, sim_params, dataclasses.replace(cfg, episode_length=DEMO_STEPS),
+                             *a, **k)
+
+        demos = (("16h", run_learning_demo, ["1", "2", str(DEMO_STEPS)]),
+                 ("16i", run_locodemo, ["1", "2"]),
+                 ("16j", run_locosafedagger_demo, ["1", "2", str(DEMO_STEPS)]))
+        velocity_grid.eval_policy_grid = short_eval
+        _common.checkpoint_dir = lambda out: os.path.join(tmp, os.path.basename(ckpt(out)))
+        try:
+            for tag, mod, args in demos:
+                make = mod.make_cfg
+                mod.make_cfg = cut(make)
+                roll = Spy(torch, rollout, ["rollout_mpc", "rollout_safedagger",
+                                            "rollout_policy"], counts)
+                try:
+                    out = f"{tmp}/torch_{mod.__name__.split('.')[-1]}.jsonl"
+                    _, lines = call(tag, mod, [out] + args, roll)
+                finally:
+                    mod.make_cfg = make
+                entries = strict(out)
+                meta, last = entries[0]["meta"], entries[-1]
+                stages = [e for e in entries[1:] if "iteration" in e]
+                log(f"  {len(stages)} stages; rollout calls {[c['name'] for c in roll.calls]}; "
+                    f"last line {json.dumps(last)[:300]}")
+                want(tag, windows(roll))
+                gate(meta["device"] == card and meta["n_iterations"] == 1 and
+                     [s["iteration"] for s in stages][-1] == 0, f"{tag}: the meta line and stages")
+                gate(all(np.isfinite(s["train_loss"]) for s in stages if "train_loss" in s),
+                     f"{tag}: a loss is not finite")
+                if tag == "16h":
+                    gate(set(last) == {"best_iteration", "survival_rate", "mean_survival_ms",
+                                       "tracking_score"}, "16h: the summary line")
+                if tag == "16i":
+                    gate(last["final_posterior_entropy"] < meta["prior_entropy"],
+                         "16i: the posterior did not concentrate")
+            gate(os.path.isdir(os.path.join(tmp, ".ckpt_torch_run_learning_demo")) and
+                 os.path.isdir(os.path.join(tmp, ".ckpt_torch_run_locodemo")),
+                 "16h/16i: no checkpoint in the temporary directory")
+        finally:
+            velocity_grid.eval_policy_grid, _common.checkpoint_dir = eval_grid, ckpt
+    log(json.dumps({"metric": "analysis_scripts", "launches": launches,
+                    "wall_s": {k[3:]: round(v, 2) for k, v in SECONDS.items()
+                               if k.startswith("16/")}, "card": card}))
+    check(not fails, "phase 16: " + "; ".join(fails))
+    return launches
+
+
 def main_path_stages(spec, inputs, admm_cfg, stage):
     """One ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` on these
     inputs, stage by stage, each inside ``with stage(name, out):``, where the
@@ -2500,14 +2818,14 @@ def main():
     t0 = time.time()
     reports = _build.build_kernels(
         [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL], force=True)
-    build_s = time.time() - t0
+    build_s = SECONDS["2 build"] = time.time() - t0
     log(f"[2] build: {build_s:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  {name}: {line.strip()}")
-    # the plain references of phases 7a, 9d, 10a, 11a, 12, 13b and 14, on the host CPU
-    # while the card works
+    # the plain references of phases 3-6, 7a, 9d, 10a, 11a, 12, 13b and 14, on the
+    # host CPU while the card works
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -2540,6 +2858,7 @@ def run_phases(torch, card, t_start, pool):
     v_np, w_np = workload.command_draw(B, seed=0)
     cmd = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (v_np, w_np))
     torch.cuda.synchronize()
+    SECONDS["settle"] = time.time() - t0
     log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
         f"{float(start.q[0, 2]):.4f} m")
     head = [a[:WINDOW_N].cpu().numpy() for a in (start.q, start.v, *cmd)]
@@ -2565,25 +2884,20 @@ def run_phases(torch, card, t_start, pool):
                prob["F_wm"], prob["x_bounds"])
     bench_cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", fista_max_iters=30)
 
-    # ---- 3. K1 against its plain version, on the card ----
+    # ---- 3. K1 against its plain version ----
+    # the plain references of phases 3-6 run on the host CPU's workers from
+    # the card's inputs (copied to the host first); the card's side runs
+    # here and ``finish_3_6`` holds it to them once the card's phases are done
+    t36 = time.time()
+    refs36 = {}
+    admm_host = to_host(admm_in)
     pinned = cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas", max_admm_iters=15,
                                       dual_relax=1.0, rho_growth=1.0)
-    Xk, Fk, vk, _, _ = cuda_admm.solve(*admm_in, pinned)
-    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*admm_in, pinned)
+    card36 = {"3 pinned": cuda_admm.solve(*admm_in, pinned)}
+    refs36["3 pinned"] = pool.submit(plain_job, "admm", admm_host, pinned, "float32")
+    Xk, Fk, vk, itk, Pk = card36["3 bench"] = cuda_admm.solve(*admm_in, bench_cfg)
+    refs36["3 bench"] = pool.submit(plain_job, "admm", admm_host, bench_cfg, "float32")
     torch.cuda.synchronize()
-    dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
-    dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
-    log(f"[3] K1 pinned (15 iters): |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), "
-        f"viol rel {dv:.3e} (< 1e-3)")
-    check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K1 pinned case disagrees with its plain version")
-    Xk, Fk, vk, itk, Pk = cuda_admm.solve(*admm_in, bench_cfg)
-    Xp, Fp, vp, itp, Pp = cuda_admm.solve_plain(*admm_in, bench_cfg)
-    torch.cuda.synchronize()
-    log(f"[3] K1 bench config: iters kernel mean {itk.float().mean():.2f}, plain mean "
-        f"{itp.float().mean():.2f}; problems with other iteration counts {(itk != itp).sum()}")
-    k1_err = quantile_gate("K1 X", Xk, Xp)
-    log(f"  K1 F: |d| max {float((Fk - Fp).abs().max()):.3e} (force scale "
-        f"{float(Fp.abs().max()):.1f} N)")
     check(bool(torch.isfinite(Xk).all() and torch.isfinite(Fk).all()), "K1 output not finite")
 
     # ---- 3b. K1's other branches against the plain version run in f64 ----
@@ -2596,52 +2910,31 @@ def run_phases(torch, card, t_start, pool):
     # does (the card's build, which contracts into fused multiply-adds, lands
     # far closer), and so does the plain version at fista_max_iters 149
     sub = rows(admm_in, 64)
-    sub64 = as_f64(sub)
-    for name, kw, viol_tol in (("fista", dict(x_solver="fista"), 1e-3),
-                               ("thomas+precondition", dict(precondition=True), 1e-3),
-                               ("fista+precondition", dict(x_solver="fista", precondition=True),
-                                5e-3)):
+    sub_host = to_host(sub)
+    branches = (("fista", dict(x_solver="fista"), 1e-3),
+                ("thomas+precondition", dict(precondition=True), 1e-3),
+                ("fista+precondition", dict(x_solver="fista", precondition=True), 5e-3))
+    for name, kw, viol_tol in branches:
         cfg = cuda_admm.CudaAdmmConfig(rho=trot.rho, max_admm_iters=15, dual_relax=1.0,
                                        rho_growth=1.0, **kw)
-        Xb, Fb, vb, _, _ = cuda_admm.solve(*sub, cfg)
-        Xr, Fr, vr, _, _ = cuda_admm.solve_plain(*sub64, cfg)
-        X3, _, v3, _, _ = cuda_admm.solve_plain(*sub, cfg)
-        torch.cuda.synchronize()
-        dX, dF = float((Xb.double() - Xr).abs().max()), float((Fb.double() - Fr).abs().max())
-        dv = float(((vb.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
-        dv3 = float(((v3.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
-        log(f"[3b] K1 {name} (15 iters) vs plain f64: |dX| {dX:.3e} (< 5e-3), |dF| {dF:.3e} "
-            f"(< 2e-1), viol rel {dv:.3e} (< {viol_tol}); plain f32 vs plain f64: |dX| "
-            f"{float((X3.double() - Xr).abs().max()):.3e}, viol rel {dv3:.3e}")
-        check(dX < 5e-3 and dF < 2e-1 and dv < viol_tol,
-              f"K1 {name} disagrees with its plain version")
-        check(bool(torch.isfinite(Xb).all() and torch.isfinite(Fb).all()), f"K1 {name} not finite")
+        card36[f"3b {name}"] = cuda_admm.solve(*sub, cfg)
+        for dt in ("float64", "float32"):
+            refs36[f"3b {name} {dt}"] = pool.submit(plain_job, "admm", sub_host, cfg, dt)
 
     # ---- 3c. K1 with a carried dual, against the plain version in f64 ----
     # the bench solve's (X, F, P) as the warm start of the same 64 problems,
     # with the accelerated schedule (rho escalates and backs off, rescaling
     # the dual) on both precondition branches: the dual is read and given
     # back at the base rho, as the plain version reads P_wm and returns P
-    sub = rows(admm_in, 64)
     warm = sub[:6] + (Xk[:64].contiguous(), Fk[:64].contiguous(), sub[8])
     P0 = Pk[:64].contiguous()
-    log(f"[3c] the carried dual: |P0| max {float(P0.abs().max()):.3e}; K1's P vs the plain "
-        f"version's on the bench solve: |d| max {float((Pk - Pp).abs().max()):.3e}")
     for prec in (False, True):
         cfg = dataclasses.replace(bench_cfg, precondition=prec)
-        Xc, Fc, vc, itc, Pc = cuda_admm.solve(*warm, cfg, P_wm=P0)
-        Xr, Fr, vr, itr, Pr = cuda_admm.solve_plain(*as_f64(warm), cfg, P_wm=P0.double())
-        cold = cuda_admm.solve(*warm, cfg)
-        torch.cuda.synchronize()
-        log(f"[3c] K1 precondition={prec} with the carried dual vs plain f64: iters mean "
-            f"kernel {itc.float().mean():.2f}, plain {itr.float().mean():.2f} (a zero dual: "
-            f"{cold[3].float().mean():.2f}); viol max {float(vc.max()):.3e}")
-        quantile_gate(f"K1 X (precondition={prec}, P0)", Xc.double(), Xr)
-        quantile_gate(f"K1 P (precondition={prec}, P0)", Pc.double(), Pr)
-        check(bool(torch.isfinite(Xc).all() and torch.isfinite(Pc).all()),
-              "K1 with a carried dual not finite")
+        card36[f"3c {prec}"] = (cuda_admm.solve(*warm, cfg, P_wm=P0), cuda_admm.solve(*warm, cfg))
+        refs36[f"3c {prec}"] = pool.submit(plain_job, "admm", to_host(warm), cfg, "float64",
+                                           {"P_wm": to_host(P0)})
 
-    # ---- 4. K2 against its plain version, on the card ----
+    # ---- 4. K2 against its plain version ----
     # (a) one iteration, one alpha, on the random IK problems of the JAX
     # package's own kernel check (tests/test_pallas_ddp.py), at the main
     # path's shapes. The plain version runs in f64 on the same inputs: in f32
@@ -2649,15 +2942,8 @@ def run_phases(torch, card, t_start, pool):
     # ~2e-4 on xs over 512 problems, about 100x the kernel's
     one = cuda_ddp.CudaDdpConfig(n_iters=1, alphas=(1.0,))
     rnd_in = workload.random_ik_problems(model, spec.eff_frames, B, spec.ik_hor, dev)
-    rnd_in64 = tuple(a.double() if torch.is_tensor(a) else a for a in rnd_in)
-    xs_k, us_k, c_k = cuda_ddp.solve_ik_batch(*rnd_in, cfg=one)
-    xs_p, us_p, c_p = cuda_ddp.solve_ik_batch_plain(*rnd_in64, cfg=one)
-    torch.cuda.synchronize()
-    dxs, dus = float((xs_k - xs_p).abs().max()), float((us_k - us_p).abs().max())
-    dc = float(((c_k - c_p).abs() / c_p.abs()).max())
-    log(f"[4] K2 one iteration (kernel f32 vs plain f64): |dxs| {dxs:.3e} (< 2e-4), "
-        f"|dus| {dus:.3e} (< 2e-3), cost rel {dc:.3e} (< 1e-4)")
-    check(dxs < 2e-4 and dus < 2e-3 and dc < 1e-4, "K2 single iteration disagrees")
+    card36["4 one"] = cuda_ddp.solve_ik_batch(*rnd_in, cfg=one)
+    refs36["4 one"] = pool.submit(plain_job, "ddp", to_host(rnd_in), one, "float64")
     # (b) the full config on the main path's own IK problems (built from K1's
     # output); their weights span 1e-5..1e4, so f32 rounding moves both f32
     # solvers by up to ~1e-2 from the exact solution: the plain version runs
@@ -2667,15 +2953,11 @@ def run_phases(torch, card, t_start, pool):
     w_stage, w_term, ctrl_w, x_reg = IK.dense_weights(model, spec.eff_frames, tasks)
     ddp_in = (model, spec.eff_frames, x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, x_reg,
               w_stage, w_term, ctrl_w, tasks.dts)
-    ddp_in64 = tuple(a.double() if torch.is_tensor(a) else a for a in ddp_in)
     full = cuda_ddp.CudaDdpConfig()
-    xs_k, us_k, c_k = cuda_ddp.solve_ik_batch(*ddp_in, cfg=full)
-    xs_p, us_p, c_p = cuda_ddp.solve_ik_batch_plain(*ddp_in64, cfg=full)
+    card36["4 full"] = cuda_ddp.solve_ik_batch(*ddp_in, cfg=full)
+    refs36["4 full"] = pool.submit(plain_job, "ddp", to_host(ddp_in), full, "float64")
     torch.cuda.synchronize()
-    log("[4] K2 full config (kernel f32 vs plain f64):")
-    k2_err = quantile_gate("K2 xs", xs_k.double(), xs_p)
-    log(f"  K2 cost rel max {float(((c_k.double() - c_p).abs() / c_p.abs()).max()):.3e}")
-    check(bool(torch.isfinite(xs_k).all()), "K2 output not finite")
+    check(bool(torch.isfinite(card36["4 full"][0]).all()), "K2 output not finite")
 
     # ---- 5. K1 against the committed native fixture (reference schedule) ----
     fx = np.load(os.path.join(REPO, "tests", "fixtures", "solo12_trot_e2e.npz"))
@@ -2710,28 +2992,16 @@ def run_phases(torch, card, t_start, pool):
     prob2 = KD._prepare_problem(spec2, *inputs)
     admm2 = (prob2["plan"], m, prob2["x_init"], prob2["W"], prob2["X_ref"], prob2["W_F"],
              prob2["X_wm"], prob2["F_wm"], prob2["x_bounds"])
-    Xk, Fk, vk, _, _ = cuda_admm.solve(*admm2, pinned)
-    Xp, Fp, vp, _, _ = cuda_admm.solve_plain(*admm2, pinned)
-    torch.cuda.synchronize()
-    dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
-    dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
-    log(f"[5a] K1 at H={spec2.horizon} ({cuda_admm.launch_per_block(spec2.horizon)} problems a "
-        f"block), pinned: |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), viol rel {dv:.3e} "
-        f"(< 1e-3)")
-    check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K1 at the long horizon disagrees")
+    card36["5a shape"] = (spec2.horizon, cuda_admm.launch_per_block(spec2.horizon), spec2.ik_hor,
+                          cuda_ddp.launch_per_block(spec2.ik_hor))
+    card36["5a K1"] = cuda_admm.solve(*admm2, pinned)
+    refs36["5a K1"] = pool.submit(plain_job, "admm", to_host(admm2), pinned, "float32")
     rnd2 = workload.random_ik_problems(model, spec2.eff_frames, B, spec2.ik_hor, dev)
-    rnd2_64 = tuple(a.double() if torch.is_tensor(a) else a for a in rnd2)
-    xs_k, us_k, c_k = cuda_ddp.solve_ik_batch(*rnd2, cfg=one)
-    xs_p, us_p, c_p = cuda_ddp.solve_ik_batch_plain(*rnd2_64, cfg=one)
+    card36["5a K2"] = cuda_ddp.solve_ik_batch(*rnd2, cfg=one)
+    refs36["5a K2"] = pool.submit(plain_job, "ddp", to_host(rnd2), one, "float64")
     torch.cuda.synchronize()
-    dxs, dus = float((xs_k - xs_p).abs().max()), float((us_k - us_p).abs().max())
-    dc = float(((c_k - c_p).abs() / c_p.abs()).max())
-    log(f"[5a] K2 at IK H={spec2.ik_hor} ({cuda_ddp.launch_per_block(spec2.ik_hor)} problems a "
-        f"block), one iteration vs plain f64: |dxs| {dxs:.3e} (< 2e-4), |dus| {dus:.3e} "
-        f"(< 2e-3), cost rel {dc:.3e} (< 1e-4)")
-    check(dxs < 2e-4 and dus < 2e-3 and dc < 1e-4, "K2 at the long horizon disagrees")
-    check(bool(torch.isfinite(Xk).all() and torch.isfinite(xs_k).all()),
-          "long-horizon output not finite")
+    check(bool(torch.isfinite(card36["5a K1"][0]).all() and
+               torch.isfinite(card36["5a K2"][0]).all()), "long-horizon output not finite")
 
     # ---- 5b. K3 against its plain version, on the card ----
     H = spec.horizon
@@ -2796,12 +3066,9 @@ def run_phases(torch, card, t_start, pool):
         f"{plans.admm_iters.float().mean():.2f}")
     check(conv >= 0.99, "converged_frac below 0.99")
     # the whole path against the plain path in f64 on the first 64 problems
-    sub = tuple(a[:64].double() for a in inputs)
-    ref = KD.solve_mpc_batch(spec, *sub, admm_cfg=cuda_admm.plain_config(bench_cfg),
-                             ddp_cfg=ddp_cfg, admm_backend="torch", ik_backend="torch")
-    log("[6] main path vs plain path in f64 (64 problems):")
-    quantile_gate("xs", plans.xs[:64].double(), ref.xs)
-    quantile_gate("X_opt", plans.X_opt[:64].double(), ref.X_opt)
+    # (the host CPU's workers; held in finish_3_6)
+    refs36["6"] = pool.submit(plain_job, "mpc", to_host(tuple(a[:64] for a in inputs)), bench_cfg,
+                              "float64")
 
     # timed reps: host clock around work that ends in synchronize
     solve()
@@ -2885,6 +3152,90 @@ def run_phases(torch, card, t_start, pool):
     # (trot_sim) on its simulator, from the settled standing start, with
     # commands of the reference envelope (vx ~ U[0, 0.3], seed 0); one window
     # is one solve (K1 and K2 once each) and 50 substeps
+    card36["6"] = plans
+
+    def finish_3_6():
+        """Phases 3-6's gates: the card's results against the plain references
+        the host CPU's workers computed from the same inputs. Returns K1's and
+        K2's max errors for the kernels line."""
+        t1 = time.perf_counter()
+        ref = {k: from_host(torch, f.result(), None, dev) for k, f in refs36.items()}
+        log(f"[3-6] the plain references of phases 3-6 on the host CPU's workers: waited "
+            f"{time.perf_counter() - t1:.1f} s")
+        Xk, Fk, vk, _, _ = card36["3 pinned"]
+        Xp, Fp, vp, _, _ = ref["3 pinned"]
+        dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
+        dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
+        log(f"[3] K1 pinned (15 iters): |dX| {dX:.3e} (< 1e-4), |dF| {dF:.3e} (< 1e-3), "
+            f"viol rel {dv:.3e} (< 1e-3)")
+        check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3,
+              "K1 pinned case disagrees with its plain version")
+        Xk, Fk, vk, itk, Pk = card36["3 bench"]
+        Xp, Fp, vp, itp, Pp = ref["3 bench"]
+        log(f"[3] K1 bench config: iters kernel mean {itk.float().mean():.2f}, plain mean "
+            f"{itp.float().mean():.2f}; problems with other iteration counts {(itk != itp).sum()}")
+        k1_err = quantile_gate("K1 X", Xk, Xp)
+        log(f"  K1 F: |d| max {float((Fk - Fp).abs().max()):.3e} (force scale "
+            f"{float(Fp.abs().max()):.1f} N)")
+        for name, _, viol_tol in branches:
+            Xb, Fb, vb, _, _ = card36[f"3b {name}"]
+            Xr, Fr, vr, _, _ = ref[f"3b {name} float64"]
+            X3, _, v3, _, _ = ref[f"3b {name} float32"]
+            dX, dF = float((Xb.double() - Xr).abs().max()), float((Fb.double() - Fr).abs().max())
+            dv = float(((vb.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
+            dv3 = float(((v3.double() - vr).abs() / vr.abs().clamp_min(1e-30)).max())
+            log(f"[3b] K1 {name} (15 iters) vs plain f64: |dX| {dX:.3e} (< 5e-3), |dF| {dF:.3e} "
+                f"(< 2e-1), viol rel {dv:.3e} (< {viol_tol}); plain f32 vs plain f64: |dX| "
+                f"{float((X3.double() - Xr).abs().max()):.3e}, viol rel {dv3:.3e}")
+            check(dX < 5e-3 and dF < 2e-1 and dv < viol_tol,
+                  f"K1 {name} disagrees with its plain version")
+            check(bool(torch.isfinite(Xb).all() and torch.isfinite(Fb).all()),
+                  f"K1 {name} not finite")
+        log(f"[3c] the carried dual: |P0| max {float(P0.abs().max()):.3e}; K1's P vs the plain "
+            f"version's on the bench solve: |d| max {float((Pk - Pp).abs().max()):.3e}")
+        for prec in (False, True):
+            (Xc, Fc, vc, itc, Pc), cold = card36[f"3c {prec}"]
+            Xr, Fr, vr, itr, Pr = ref[f"3c {prec}"]
+            log(f"[3c] K1 precondition={prec} with the carried dual vs plain f64: iters mean "
+                f"kernel {itc.float().mean():.2f}, plain {itr.float().mean():.2f} (a zero dual: "
+                f"{cold[3].float().mean():.2f}); viol max {float(vc.max()):.3e}")
+            quantile_gate(f"K1 X (precondition={prec}, P0)", Xc.double(), Xr)
+            quantile_gate(f"K1 P (precondition={prec}, P0)", Pc.double(), Pr)
+            check(bool(torch.isfinite(Xc).all() and torch.isfinite(Pc).all()),
+                  "K1 with a carried dual not finite")
+        xs_k, us_k, c_k = card36["4 one"]
+        xs_p, us_p, c_p = ref["4 one"]
+        dxs, dus = float((xs_k - xs_p).abs().max()), float((us_k - us_p).abs().max())
+        dc = float(((c_k - c_p).abs() / c_p.abs()).max())
+        log(f"[4] K2 one iteration (kernel f32 vs plain f64): |dxs| {dxs:.3e} (< 2e-4), "
+            f"|dus| {dus:.3e} (< 2e-3), cost rel {dc:.3e} (< 1e-4)")
+        check(dxs < 2e-4 and dus < 2e-3 and dc < 1e-4, "K2 single iteration disagrees")
+        xs_k, us_k, c_k = card36["4 full"]
+        xs_p, us_p, c_p = ref["4 full"]
+        log("[4] K2 full config (kernel f32 vs plain f64):")
+        k2_err = quantile_gate("K2 xs", xs_k.double(), xs_p)
+        log(f"  K2 cost rel max {float(((c_k.double() - c_p).abs() / c_p.abs()).max()):.3e}")
+        H2, pb2, Hik2, pbik2 = card36["5a shape"]
+        Xk, Fk, vk, _, _ = card36["5a K1"]
+        Xp, Fp, vp, _, _ = ref["5a K1"]
+        dX, dF = float((Xk - Xp).abs().max()), float((Fk - Fp).abs().max())
+        dv = float(((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max())
+        log(f"[5a] K1 at H={H2} ({pb2} problems a block), pinned: |dX| {dX:.3e} (< 1e-4), |dF| "
+            f"{dF:.3e} (< 1e-3), viol rel {dv:.3e} (< 1e-3)")
+        check(dX < 1e-4 and dF < 1e-3 and dv < 1e-3, "K1 at the long horizon disagrees")
+        xs_k, us_k, c_k = card36["5a K2"]
+        xs_p, us_p, c_p = ref["5a K2"]
+        dxs, dus = float((xs_k - xs_p).abs().max()), float((us_k - us_p).abs().max())
+        dc = float(((c_k - c_p).abs() / c_p.abs()).max())
+        log(f"[5a] K2 at IK H={Hik2} ({pbik2} problems a block), one iteration vs plain f64: "
+            f"|dxs| {dxs:.3e} (< 2e-4), |dus| {dus:.3e} (< 2e-3), cost rel {dc:.3e} (< 1e-4)")
+        check(dxs < 2e-4 and dus < 2e-3 and dc < 1e-4, "K2 at the long horizon disagrees")
+        log("[6] main path vs plain path in f64 (64 problems):")
+        quantile_gate("xs", card36["6"].xs[:64].double(), ref["6"]["xs"])
+        quantile_gate("X_opt", card36["6"].X_opt[:64].double(), ref["6"]["X_opt"])
+        return k1_err, k2_err
+
+    SECONDS["3-6b"] = time.time() - t36
     log(f"[6] phases 3-6b done {time.time() - t_start:.1f} s after the start")
     t7a = time.time()
     win_cfg = rollout.RolloutConfig(episode_length=100, kp=trot_sim.kp, kd=trot_sim.kd,
@@ -2899,39 +3250,48 @@ def run_phases(torch, card, t_start, pool):
         win_launches = counts()
     finally:
         KD.solve_mpc_batch = solve_batch
-    # the plain path's, in f64 and f32 (the host CPU's workers)
-    t0 = time.perf_counter()
-    ref_win, ref_plans = {}, {}
-    for dtype in (torch.float64, f32):
-        ref_win[dtype], ref_plans[dtype] = reference_rollout(
-            torch, window_refs[str(dtype).split(".")[-1]], dev)
-    plans += ref_plans[torch.float64]
-    log(f"[7a] waited {time.perf_counter() - t0:.2f} s for the plain references")
     t_w = KD.window_clock(0.0, 0, win_cfg.plan_freq, start.q).expand(B)
-    dq, dv = end_diff_at(win, ref_win[torch.float64])
-    sq, sv = end_diff_at(ref_win[f32], ref_win[torch.float64])
-    log(f"[7a] two windows (the second solve takes the first's X, F and dual P) launches: "
-        f"{win_launches}; end q |d| {dq:.3e} (< {TWO_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< "
-        f"{TWO_WINDOW_V_TOL:.1e}) against the plain path in f64 ({n} episodes); the plain path's "
-        f"own f32 spread here q {sq:.3e}, v {sv:.3e} (CPU test: q {TWO_WINDOW_SPREAD[0]:.3e}, v "
-        f"{TWO_WINDOW_SPREAD[1]:.3e}); ADMM iterations mean window 1 "
-        f"{plans[0].admm_iters.float().mean():.2f}, window 2 {plans[1].admm_iters.float().mean():.2f}"
-        f" (plain f64: {plans[2].admm_iters.float().mean():.2f}, "
-        f"{plans[3].admm_iters.float().mean():.2f})")
-    log(f"[7a] the windows' plans and K1's dual after window 1 against the plain path in f64 "
-        f"({n} episodes):")
-    quantile_gate("xs_int (window 1)", plans[0].xs_int[:n, :50].double(), plans[2].xs_int)
-    quantile_gate("f_int (window 1, substep 0)", plans[0].f_int[:n, 0].double(),
-                  plans[2].f_int)
-    quantile_gate("P_opt (window 1)", plans[0].P_opt[:n].double(), plans[2].P_opt)
-    quantile_gate("xs_int (window 2, carried)", plans[1].xs_int[:n, :50].double(),
-                  plans[3].xs_int)
-    check(bool(plans[0].P_opt.abs().max() > 0), "K1 returned a zero dual")
-    check(win_launches == {"admm": 2, "ddp": 2, "fused": 0},
-          "two windows must launch K1 and K2 twice each")
-    check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "end-of-window state disagrees")
-    check(bool(torch.isfinite(win.states).all()), "window records not finite")
+
+    def finish_7a(card_plans=plans, win=win, n=n, win_launches=win_launches):
+        """7a's gates against the plain path's two windows in f64 and f32,
+        which the host CPU's workers compute meanwhile."""
+        # the plain path's, in f64 and f32 (the host CPU's workers)
+        t0 = time.perf_counter()
+        ref_win, ref_plans = {}, {}
+        for dtype in (torch.float64, f32):
+            ref_win[dtype], ref_plans[dtype] = reference_rollout(
+                torch, window_refs[str(dtype).split(".")[-1]], dev)
+        plans = card_plans + ref_plans[torch.float64]
+        log(f"[7a] waited {time.perf_counter() - t0:.2f} s for the plain references")
+        dq, dv = end_diff_at(win, ref_win[torch.float64])
+        sq, sv = end_diff_at(ref_win[f32], ref_win[torch.float64])
+        log(f"[7a] two windows (the second solve takes the first's X, F and dual P) launches: "
+            f"{win_launches}; end q |d| {dq:.3e} (< {TWO_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< "
+            f"{TWO_WINDOW_V_TOL:.1e}) against the plain path in f64 ({n} episodes); the plain "
+            f"path's own f32 spread here q {sq:.3e}, v {sv:.3e} (CPU test: q "
+            f"{TWO_WINDOW_SPREAD[0]:.3e}, v "
+            f"{TWO_WINDOW_SPREAD[1]:.3e}); ADMM iterations mean window 1 "
+            f"{plans[0].admm_iters.float().mean():.2f}, window 2 "
+            f"{plans[1].admm_iters.float().mean():.2f} (plain f64: "
+            f"{plans[2].admm_iters.float().mean():.2f}, "
+            f"{plans[3].admm_iters.float().mean():.2f})")
+        log(f"[7a] the windows' plans and K1's dual after window 1 against the plain path in f64 "
+            f"({n} episodes):")
+        quantile_gate("xs_int (window 1)", plans[0].xs_int[:n, :50].double(), plans[2].xs_int)
+        quantile_gate("f_int (window 1, substep 0)", plans[0].f_int[:n, 0].double(),
+                      plans[2].f_int)
+        quantile_gate("P_opt (window 1)", plans[0].P_opt[:n].double(), plans[2].P_opt)
+        quantile_gate("xs_int (window 2, carried)", plans[1].xs_int[:n, :50].double(),
+                      plans[3].xs_int)
+        check(bool(plans[0].P_opt.abs().max() > 0), "K1 returned a zero dual")
+        check(win_launches == {"admm": 2, "ddp": 2, "fused": 0},
+              "two windows must launch K1 and K2 twice each")
+        check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "end-of-window state disagrees")
+        check(bool(torch.isfinite(win.states).all()), "window records not finite")
+
+    SECONDS["7a"] = time.time() - t7a
     log(f"[7a] {time.time() - t7a:.1f} s")
+    t7b = time.time()
 
     # ---- 7b. the closed loop at full width: 512 episodes x 3000 steps ----
     loop_cfg = rollout.RolloutConfig(episode_length=3000, kp=trot_sim.kp, kd=trot_sim.kd,
@@ -3051,62 +3411,85 @@ def run_phases(torch, card, t_start, pool):
     check(med_roll < 10.0, f"survivors' median roll_max {med_roll:.3f} deg not below 10")
     check(med_z < 0.03, f"survivors' median height error {med_z:.4f} m not below 0.03")
 
+    SECONDS["7b"] = time.time() - t7b
     # ---- 8. the learning loop: data collection, BC, the policy rollout ----
     t0 = time.time()
     dc_launches, cc_policy = learning_loop(torch, loop_spec, sim, start, cmd, zero_counts, counts,
                                            card)
+    SECONDS["8"] = time.time() - t0
     log(f"[8] learning loop {time.time() - t0:.1f} s")
 
     # ---- 9. the DAgger family: SafeDagger, rollout_dagger, LocoSafeDagger ----
     t0 = time.time()
     dagger_launches, vc_policies, finish_9d = dagger_family(torch, loop_spec, sim, start,
                                                             zero_counts, counts, card, pool)
+    SECONDS["9"] = time.time() - t0
     log(f"[9] DAgger family {time.time() - t0:.1f} s")
 
     # ---- 10. every gait (10a) and the eval suite (10b-10f) ----
     t0 = time.time()
     gait_launches = every_gait(torch, refs, zero_counts, counts, card)
+    SECONDS["10a"] = time.time() - t0
     log(f"[10a] every gait {time.time() - t0:.1f} s")
     t1 = time.time()
     eval_launches = eval_suite(torch, loop_spec, sim, start, zero_counts, counts, card, vc_policies,
                                cc_policy)
+    SECONDS["10b-10f"] = time.time() - t1
     log(f"[10] eval suite {time.time() - t1:.1f} s; phase 10 {time.time() - t0:.1f} s")
 
     # ---- 11. the Go2: every gait on both paths (11a), its closed loop (11b-11d) ----
     t0 = time.time()
     go2_launches, _ = go2_gaits(torch, refs, zero_counts, counts, card)
+    SECONDS["11a"] = time.time() - t0
     log(f"[11a] the Go2's gaits {time.time() - t0:.1f} s")
     t1 = time.time()
     go2_loop_launches, finish_11b = go2_loop(torch, zero_counts, counts, card, pool)
+    SECONDS["11b-11d"] = time.time() - t1
     log(f"[11] the Go2's loop {time.time() - t1:.1f} s; phase 11 {time.time() - t0:.1f} s")
 
     # ---- 12. the Solo8: K2 at 8 joints on the main and the fused path ----
     t0 = time.time()
     solo8_launches, k2_nj8 = solo8_phase(torch, refs, zero_counts, counts, card)
+    SECONDS["12"] = time.time() - t0
     log(f"[12] the Solo8 {time.time() - t0:.1f} s")
 
     # ---- 13. terrain: zero heights, a slope, a random heightfield ----
     t0 = time.time()
     terrain_launches = terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts,
                                      counts, card)
+    SECONDS["13"] = time.time() - t0
     log(f"[13] terrain {time.time() - t0:.1f} s")
 
     # ---- 14. the six Solo12 acyclic motions through K1 and K2 ----
     t0 = time.time()
     acyclic_launches = acyclic_table(torch, refs, zero_counts, counts, card)
+    SECONDS["14"] = time.time() - t0
     log(f"[14] the acyclic motions {time.time() - t0:.1f} s")
 
     # ---- 15. the experiment drivers: the CLI's main() in-process, and a trace ----
     t0 = time.time()
     driver_launches = experiment_drivers(torch, spec, inputs, bench_cfg, ddp_cfg, zero_counts,
                                          counts, card)
+    SECONDS["15"] = time.time() - t0
     log(f"[15] the experiment drivers {time.time() - t0:.1f} s")
 
-    # ---- 9d's and 11b's gates: their plain references ran on the host CPU's workers ----
+    # ---- 16. the analysis scripts and the learning demos ----
+    t0 = time.time()
+    script_launches = analysis_scripts(torch, zero_counts, counts, card)
+    SECONDS["16"] = time.time() - t0
+    log(f"[16] the analysis scripts {time.time() - t0:.1f} s")
+
+    # ---- 3-6's, 7a's, 9d's and 11b's gates: their plain references ran on the host CPU's
+    # workers ----
+    t0 = time.time()
+    k1_err, k2_err = finish_3_6()
+    finish_7a()
     finish_9d()
     finish_11b()
+    SECONDS["gates 3-6, 7a, 9d, 11b"] = time.time() - t0
 
     # ---- 7. the kernels line ----
+    t_line = time.time()
     zero_counts()
     solve()
     torch.cuda.synchronize()
@@ -3157,7 +3540,8 @@ def run_phases(torch, card, t_start, pool):
                                    for g, paths in solo8_launches.items()},
                 "terrain_launches": {tag: c[k] for tag, c in terrain_launches.items()},
                 "acyclic_launches": {name: c[k] for name, c in acyclic_launches.items()},
-                "driver_launches": {tag: c[k] for tag, c in driver_launches.items()}}
+                "driver_launches": {tag: c[k] for tag, c in driver_launches.items()},
+                "script_launches": {tag: c[k] for tag, c in script_launches.items()}}
 
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",
@@ -3190,7 +3574,12 @@ def run_phases(torch, card, t_start, pool):
          "max_abs_err": k2_nj8["max_abs_err"], "ms": k2_nj8["ms"], "plain_ms": k2_nj8["plain_ms"],
          "bound_ms": k2_nj8["bound_ms"], "bound_by": k2_nj8["bound_by"], "library_ms": None},
     ]
-    log(f"[7] total {time.time() - t_start:.1f} s")
+    SECONDS["kernels line"] = time.time() - t_line
+    total = time.time() - t_start
+    log(f"[time] seconds by phase {json.dumps({k: round(v, 1) for k, v in SECONDS.items()})}; "
+        f"the phases {sum(v for k, v in SECONDS.items() if '/' not in k):.1f} s of "
+        f"a total {total:.1f} s")
+    log(f"[7] total {total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -185,12 +185,14 @@ def test_backtracking_fista_against_jax(momentum):
     def res_t(x):
         return (At @ x[..., None])[..., 0] - bt
 
-    x, L = tfista.solve(
+    res = tfista.solve(
         torch.zeros(B, n, dtype=torch.float64),
         lambda x: 2.0 * (At.transpose(1, 2) @ res_t(x)[..., None])[..., 0],
         lambda x1, x0: (res_t(x1) ** 2).sum(-1) - (res_t(x0) ** 2).sum(-1),
         tfista.box_projector(torch.as_tensor(lb), torch.as_tensor(ub)), 1.0,
         tfista.FistaConfig(**cfg_kw))
+    x, L = res.x, res.L
     np.testing.assert_allclose(x.numpy(), np.asarray(ref.x), atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(res.iters.numpy(), np.asarray(ref.iters))
     np.testing.assert_array_equal(L.numpy(), np.asarray(ref.L))
     assert np.all(L.numpy() > 1.0)
