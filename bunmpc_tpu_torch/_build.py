@@ -14,11 +14,19 @@ instantiation, each selected by a define (K2 over the joint count,
 ``build_host`` compiles the same sources with ``g++`` for the host (the
 per-problem math is ``__host__ __device__``): a test-only build that lets the
 CPU tests check the kernel math. It is never on the main path.
+
+Building and loading hold an exclusive ``fcntl`` lock on the build
+directory's ``.lock`` file, so that processes starting together (the ranks
+of ``parallel.mesh.launch``, test workers) never build one library at once:
+the first builds it, the others find it fresh. The kernel releases the lock
+when its holder dies.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -85,12 +93,28 @@ def _compile_cmd(name: str, out: str, defines=()):
             os.path.join(CSRC, f"{name}.cu")]
 
 
+@contextlib.contextmanager
+def build_lock(directory: str):
+    """Hold the exclusive lock of a build directory (its ``.lock`` file)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, ".lock"), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_kernels(kernels, force: bool = False, extra=()) -> dict:
     """Compile every stale library of ``kernels`` (``Kernel`` objects: a
     source and its defines, plus ``extra`` defines), all nvcc processes at
-    once; returns {library file name: ptxas report}. Raises with the
-    compiler output if a build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    once, under the build directory's lock; returns {library file name:
+    ptxas report}. Raises with the compiler output if a build fails."""
+    with build_lock(BUILD_DIR):
+        return _compile_locked(kernels, force, extra)
+
+
+def _compile_locked(kernels, force: bool, extra) -> dict:
     procs = {}
     for k in kernels:
         defines = tuple(k.defines) + tuple(extra)
@@ -124,13 +148,18 @@ def build_kernels(kernels, force: bool = False, extra=()) -> dict:
 def build_host(name: str, out_dir: str) -> str:
     """Test-only: compile ``csrc/<name>.cu`` with g++ as host C++ (the
     ``__host__ __device__`` per-problem math, float and double entry points)
-    into ``out_dir``; returns the library path."""
+    into ``out_dir``, unless a library newer than the sources is there, under
+    the directory's lock; returns the library path."""
     out = os.path.join(out_dir, f"lib{name}_host.so")
-    cmd = [
-        "g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", out,
-        os.path.join(CSRC, f"{name}.cu"),
-    ]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    with build_lock(out_dir):
+        if _stale(out):
+            tmp = os.path.join(out_dir, f"lib{name}_host.{os.getpid()}.tmp.so")
+            cmd = [
+                "g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", tmp,
+                os.path.join(CSRC, f"{name}.cu"),
+            ]
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+            os.replace(tmp, out)
     return out
 
 
@@ -147,8 +176,9 @@ class Kernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            build_kernels([self])
-            self._lib = ctypes.CDLL(lib_path(self.name, self.defines))
+            with build_lock(BUILD_DIR):
+                _compile_locked([self], False, ())
+                self._lib = ctypes.CDLL(lib_path(self.name, self.defines))
         return self._lib
 
     def launch(self, symbol: str, args, argtypes) -> None:

@@ -81,14 +81,15 @@ def train_from_databases(
     limit: int = 2_000_000,
     mesh=None,
     rng_seed: int = 0,
-    device="cuda",
+    device=None,
 ) -> list[PolicyEntry]:
     """Train one policy per saved database snapshot (reference
     behavioral_cloning_train_multi_database.py: one network per hdf5 file,
-    labeled by database size) on ``device``. A snapshot is the port's
-    ``.npz`` or the JAX package's hdf5, which needs h5py
-    (``Database.load_saved_database`` raises ``RuntimeError`` without it);
-    ``mesh`` raises as ``bc.train_policy`` does (one card trains)."""
+    labeled by database size) on ``device`` (the card by default). A
+    snapshot is the port's ``.npz`` or the JAX package's hdf5, which needs
+    h5py (``Database.load_saved_database`` raises ``RuntimeError`` without
+    it). ``mesh`` (a ``parallel.mesh`` batch mesh, every rank of it calling
+    this) trains each policy data-parallel, as ``bc.train_policy`` does."""
     entries = []
     for path in db_paths:
         db = Database(limit=limit, goal_type=goal_type)

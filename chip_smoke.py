@@ -53,16 +53,25 @@ demos (``bunmpc_tpu_torch.scripts``): the solve-time sweep, the ADMM
 diagnostics, the gait diagnostics, the contact sweep and calibration, the
 W_F validation, the Go2's stability sweep and the three demos, each
 ``main(argv)`` in-process and cut small, its launches, outputs and output
-file checked. The plain references of phases 3-6, 7a, 9d, 10a, 11a, 12,
-13b and 14 run in worker processes on the host's CPU while the card works,
-and every phase's seconds are printed on one line beside the total. It
-checks every
-path's outputs, counts each kernel's launches in each path's run, times
-them, and prints one ``kernels`` JSON line, the card's name and power limit,
-and last
-``{"ok": true, "device": {...}}``. Every phase fails the run (non-zero exit)
-on a miss; without CUDA, or without the repository next to it, it exits
-non-zero and prints no result.
+file checked (the ADMM diagnostics, whose plain solver needs no kernel, run
+on the card while nvcc builds the kernels). Then phase 17, the multi-device path (``bunmpc_tpu_torch.parallel``, one
+process per card): the main path's batch sharded over the ranks (K1 and K2
+once per rank) and gathered, data-parallel BC with its gradient all-reduce
+against the unsharded trainer, and ``scripts/bench_multichip``; every
+visible card a rank over NCCL, and on a one-card machine also two ranks on
+the card over gloo (17a-17b's ranks work while phase 16 runs). The plain
+references of phases 3-6, 7a, 9d, 10a, 11a, 12, 13b and 14 run in worker
+processes on the host's CPU while the card works, and every phase's seconds are printed on one line beside the
+total. It checks every path's outputs, counts each kernel's launches in
+each path's run, times them, and prints one ``kernels`` JSON line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Every phase fails the run (non-zero exit) on a miss; without CUDA, or
+without the repository next to it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --only-17
+
+runs phases 1, 2 and 17 alone, on every visible card (a multi-card machine's
+check of the multi-device path).
 """
 
 import concurrent.futures
@@ -2506,6 +2515,84 @@ SCRIPT_STEPS = {"diagnose_gait": 500, "sweep_contact": 300, "calibrate_contact":
                 "validate_wf_norm": 550, "sweep_stability": 550}
 
 
+def diagnose_on_card(torch):
+    """Phase 16b: ``diagnose_admm.main(["batch=16"])`` in-process on the card
+    (the script's default device), the plain biconvex solver on CUDA tensors
+    with its statistics logged. It needs no kernel, so ``main`` runs it while
+    nvcc builds them. Gates: rc 0, no kernel launched (the counts set to 0
+    just before, read just after), the ADMM and FISTA iterations within
+    their caps, the printed values finite. Returns (its launches, wall s)."""
+    import io
+
+    from bunmpc_tpu_torch.scripts import diagnose_admm
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    kernels = {"admm": [cuda_admm.KERNEL], "ddp": list(cuda_ddp.KERNELS.values()),
+               "fused": [cuda_fused.KERNEL]}
+
+    def counts():
+        return {n: sum(k.launches for k in ks) for n, ks in kernels.items()}
+
+    diag, buf = Spy(torch, diagnose_admm, ["diagnose"], counts), io.StringIO()
+    for ks in kernels.values():
+        for k in ks:
+            k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with diag, contextlib.redirect_stdout(buf):
+        rc = diagnose_admm.main(["batch=16"])
+    torch.cuda.synchronize()
+    wall, launched, lines = time.perf_counter() - t0, counts(), buf.getvalue().splitlines()
+    log(f"[16b] diagnose_admm batch=16 (on the card, during the build): rc {rc}, {wall:.2f} s, "
+        f"launches {launched}")
+    for ln in lines:
+        log(f"  {ln}")
+    d = diag.calls[0]["res"] if diag.calls else None
+    text = " ".join(lines)
+    check(rc == 0, f"16b: rc {rc}")
+    check(launched == {"admm": 0, "ddp": 0, "fused": 0}, "16b: K1 and K2 must launch 0 times each")
+    check(d is not None and all(
+        d[f"precondition={p}"]["admm_iters"].max() <= d[f"precondition={p}"]["max_admm_iters"]
+        for p in (False, True)) and d["f_sub"]["iters"].max() <= d["fista_max_iters"] and
+        d["x_sub"]["iters"].max() <= d["fista_max_iters"], "16b: iterations past their caps")
+    check("nan" not in text and "inf" not in text, "16b: a printed value is not finite")
+    return launched, wall
+
+
+def loop_start(torch, pool):
+    """The closed loop's start (kernel-free: ``workload.settled_start``, a
+    500 ms PD hold) and its commands on the card, and phases 7a's and 13b's
+    plain references queued on the host CPU's workers. Returns (start,
+    commands, 7a's references by dtype, 13b's reference)."""
+    from bunmpc_tpu_torch import workload
+
+    t0 = time.time()
+    start = workload.settled_start(B)
+    v_np, w_np = workload.command_draw(B, seed=0)
+    cmd = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (v_np, w_np))
+    torch.cuda.synchronize()
+    SECONDS["2/settle"] = time.time() - t0
+    log(f"[7a] settled start (500 ms PD hold, during the build): {time.time() - t0:.1f} s, "
+        f"base z {float(start.q[0, 2]):.4f} m")
+    head = [a[:WINDOW_N].cpu().numpy() for a in (start.q, start.v, *cmd)]
+    window_refs = {dt: pool.submit(window_reference, *head, dt) for dt in ("float64", "float32")}
+    head = [a[:SLOPE_N] for a in head]
+    return start, cmd, window_refs, pool.submit(window_reference, *head, "float64", 0.1)
+
+
+def warm_up(torch):
+    """PyTorch's one-time costs of a process, paid while nvcc builds the
+    kernels: an Adam step of a small MLP on the card (the optimiser's first
+    import of ``torch._dynamo``, cuBLAS's handle and modules). Returns wall s."""
+    t0 = time.perf_counter()
+    net = torch.nn.Sequential(torch.nn.Linear(8, 8), torch.nn.ReLU(), torch.nn.Linear(8, 2)).cuda()
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    net(torch.ones(4, 8, device="cuda")).abs().mean().backward()
+    opt.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def analysis_scripts(torch, zero_counts, counts, card):
     """Phase 16: the ten analysis and demo scripts (``bunmpc_tpu_torch/
     scripts``) through ``main(argv)`` in-process on the card, cut small, in a
@@ -2514,21 +2601,20 @@ def analysis_scripts(torch, zero_counts, counts, card):
     and one K2 a window of every MPC or gated rollout, or a solve); finite
     outputs; its output file read back by a strict JSON parse, with the JAX
     script's keys. 16a ``solve_times_sweep`` at B=64 (4 horizons x an untimed
-    and a timed call); 16b ``diagnose_admm`` at B=16 (the plain solver, no
-    launch; its ADMM and FISTA iterations within their caps); 16c
-    ``diagnose_gait`` Solo12 and Go2, 16d ``sweep_contact``, 16e
+    and a timed call); 16c ``diagnose_gait`` Solo12 and Go2, 16d ``sweep_contact``, 16e
     ``calibrate_contact``, 16f ``validate_wf_norm`` and 16g ``sweep_stability``
     (the Go2's default grid, 40 rows in one call) at SCRIPT_STEPS; 16h-16j the three
     demos at 1 iteration of 2 commands with every rollout (warmup, gated,
     ending, eval) at 300 steps, 2 BC epochs and 2 warmup commands, their
-    checkpoints in the temporary directory. Returns each call's launches."""
+    checkpoints in the temporary directory (16b, ``diagnose_admm``, ran
+    during the build: ``diagnose_on_card``). Returns each call's launches."""
     import io
     import tempfile
 
     from bunmpc_tpu_torch.eval import velocity_grid
     from bunmpc_tpu_torch.learning.bc import BcConfig
-    from bunmpc_tpu_torch.scripts import (_common, calibrate_contact, diagnose_admm,
-                                          diagnose_gait, run_learning_demo, run_locodemo,
+    from bunmpc_tpu_torch.scripts import (_common, calibrate_contact, diagnose_gait,
+                                          run_learning_demo, run_locodemo,
                                           run_locosafedagger_demo, solve_times_sweep,
                                           sweep_contact, sweep_stability, validate_wf_norm)
     from bunmpc_tpu_torch.sim import rollout
@@ -2601,19 +2687,6 @@ def analysis_scripts(torch, zero_counts, counts, card):
             set(r) == {"sec_per_batch", "solves_per_sec", "mean_admm_iters", "mean_viol"} and
             all(np.isfinite(v) for v in r.values()) for r in doc.values()), "16a: the table")
         gate(all(r["mean_viol"] < 1e-3 for r in doc.values()), "16a: a horizon did not converge")
-
-        # ---- 16b. diagnose_admm at B=16: the plain solver on CUDA tensors ----
-        diag = Spy(torch, diagnose_admm, ["diagnose"], counts)
-        _, lines = call("16b", diagnose_admm, ["batch=16"], diag)
-        for ln in lines:
-            log(f"  {ln}")
-        d = diag.calls[0]["res"] if diag.calls else None
-        want("16b", 0)
-        gate(d is not None and all(
-            d[f"precondition={p}"]["admm_iters"].max() <= d[f"precondition={p}"]["max_admm_iters"]
-            for p in (False, True)) and d["f_sub"]["iters"].max() <= d["fista_max_iters"] and
-            d["x_sub"]["iters"].max() <= d["fista_max_iters"], "16b: iterations past their caps")
-        finite_lines("16b", lines)
 
         # ---- 16c. diagnose_gait, Solo12 and the Go2 ----
         T, nw = steps("diagnose_gait")
@@ -2736,6 +2809,290 @@ def analysis_scripts(torch, zero_counts, counts, card):
                     "wall_s": {k[3:]: round(v, 2) for k, v in SECONDS.items()
                                if k.startswith("16/")}, "card": card}))
     check(not fails, "phase 16: " + "; ".join(fails))
+
+    return launches
+
+
+# Phase 17b: data-parallel BC at the bc.yaml widths on a seeded toy set whose
+# train split is 20 batches of 256: 10 epochs = 200 steps (float32, no TF32).
+# Two gates against the unsharded trainer (``bc.train_step``), run free from
+# the same initial weights on its own batches: its per-step losses within
+# MULTI_BC_RTOL over the first MULTI_BC_FREE_STEPS steps (a rank that took
+# the wrong rows, or too few, parts at step 0). Two roundings of one f32
+# L1/ReLU trainer part later all the same, where a residual or a unit near
+# zero takes the other sign (on 2 CPU ranks after 65 steps, on four H100s
+# after 71, two ranks on one H100 after 156), so every step is also held to
+# the unsharded computation from the same parameters: the all-reduced loss
+# to the whole batch's within MULTI_BC_RTOL at every step, the all-reduced
+# gradient to the whole batch's within MULTI_BC_RTOL at all but
+# MULTI_BC_GRAD_OFF steps and within MULTI_BC_GRAD_MAX at every step (a
+# 256-row and a 128-row product round apart on the card, so a step with one
+# of its 3,072 L1 residuals within rounding of zero takes that element's
+# other sign: 2-4 of 200 steps at 1.6e-3..4.0e-3 on H100s)
+MULTI_BC_ROWS = 5700
+MULTI_BC_EPOCHS = 10
+MULTI_BC_RTOL = 1e-4
+MULTI_BC_FREE_STEPS = 50
+MULTI_BC_GRAD_OFF = 10
+MULTI_BC_GRAD_MAX = 1e-2
+
+
+def bc_toy_database(n):
+    """A cc database of ``n`` seeded rows: a tanh teacher of the state and goal."""
+    from bunmpc_tpu_torch.learning.database import Database
+
+    rng = np.random.default_rng(17)
+    states = rng.normal(size=(n, 43)).astype(np.float32)
+    goals = rng.normal(size=(n, 12)).astype(np.float32)
+    W = rng.normal(size=(55, 12)).astype(np.float32) * 0.3
+    db = Database(n, goal_type="cc")
+    db.append(states, np.tanh(np.concatenate([states, goals], -1) @ W), cc_goals=goals)
+    return db
+
+
+@contextlib.contextmanager
+def against_full_batch(torch, bc, PM, records):
+    """Hold every data-parallel BC step (``bc.make_sharded_train_step``) to
+    the unsharded computation from the same parameters: the batch gathered
+    over the mesh, its mean loss and gradients (``bc.loss_fn``,
+    ``torch.autograd.grad``) before the step. Appends (the all-reduced loss,
+    the whole batch's loss, |all-reduced gradient - the whole batch's| /
+    |the whole batch's|) per step to ``records``."""
+    inner = bc.make_sharded_train_step
+
+    def make(module, optimizer, mesh, loss_type="l1"):
+        sharded, params = inner(module, optimizer, mesh, loss_type), list(module.parameters())
+
+        def step(x, y):
+            fx, fy = PM.gather_batch(mesh, (x, y))
+            ref = bc.loss_fn(module(fx), fy, loss_type)
+            grads = torch.autograd.grad(ref, params)
+            loss = sharded(x, y)
+            num = sum(((p.grad - g) ** 2).sum() for p, g in zip(params, grads))
+            den = sum((g ** 2).sum() for g in grads)
+            records.append(torch.stack([loss, ref.detach(), (num / den).sqrt()]))
+            return loss
+        return step
+
+    bc.make_sharded_train_step = make
+    try:
+        yield records
+    finally:
+        bc.make_sharded_train_step = inner
+
+
+@contextlib.contextmanager
+def step_losses(bc):
+    """Record the loss of every step of the unsharded trainer (``bc.train_step``)."""
+    inner, losses = bc.train_step, []
+
+    def step(*a, **k):
+        losses.append(inner(*a, **k))
+        return losses[-1]
+
+    bc.train_step = step
+    try:
+        yield losses
+    finally:
+        bc.train_step = inner
+
+
+def sharded_rank(backend, bc_params):
+    """Phase 17's rank (``parallel.mesh.launch``, one process per device):
+    17a this rank's shard of the main path's B problems through K1 and K2
+    (``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")``), gathered
+    over the mesh; 17b ``bc.train_policy(mesh=...)`` from ``bc_params``,
+    every step held to the whole batch's loss and gradient
+    (``against_full_batch``). Returns the launches, the gathered plans (in
+    full from the first rank, a checksum from the others) and the steps'
+    records."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.learning import bc
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.parallel import mesh as PM
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+
+    t0 = time.perf_counter()
+    mesh = PM.batch_mesh(device="cuda", backend=backend)
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0(),
+                               device=mesh.device)
+    mine = PM.shard_batch(mesh, tuple(a.astype(np.float32) for a in workload.trot_states(B)))
+    kernels = {"admm": [cuda_admm.KERNEL], "ddp": list(cuda_ddp.KERNELS.values()),
+               "fused": [cuda_fused.KERNEL]}
+    for ks in kernels.values():
+        for k in ks:
+            k.launches = 0
+    t1 = time.perf_counter()
+    plans = KD.solve_mpc_batch(
+        spec, *mine, admm_cfg=cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas",
+                                                       fista_max_iters=30),
+        ddp_cfg=DdpConfig(), admm_backend="cuda", ik_backend="cuda")
+    torch.cuda.synchronize(mesh.device)
+    launches = {n: sum(k.launches for k in ks) for n, ks in kernels.items()}
+    full = PM.gather_batch(mesh, plans)
+    t2 = time.perf_counter()
+    params = {k: torch.as_tensor(v) for k, v in bc_params.items()}
+    with against_full_batch(torch, bc, PM, []) as held:
+        _, rep = bc.train_policy(bc_toy_database(MULTI_BC_ROWS),
+                                 bc.BcConfig(n_epoch=MULTI_BC_EPOCHS), mesh=mesh, params=params)
+    t3 = time.perf_counter()
+    out = dict(rank=mesh.rank, size=mesh.size, device=str(mesh.device), backend=mesh.backend,
+               launches=launches, shard=int(mine[0].shape[0]),
+               seconds={"setup": t1 - t0, "solve+gather": t2 - t1, "bc": t3 - t2},
+               held=torch.stack(held).double().cpu().numpy(), epoch_losses=rep.train_losses,
+               checksum=float(full.xs.double().sum()))
+    if mesh.rank == 0:
+        out["plans"] = {k: getattr(full, k) for k in ("xs", "X_opt", "dyn_violation")}
+    return out
+
+
+def start_multi_device(torch):
+    """Phase 17a-17b's ranks (``sharded_rank``), started in the background:
+    every visible card a rank over NCCL and, where there is one card, also
+    two ranks on it over gloo, the layouts side by side. Returns what
+    ``multi_device`` finishes with."""
+    from bunmpc_tpu_torch.learning.networks import init_policy
+    from bunmpc_tpu_torch.parallel import mesh as PM
+
+    n_cards = torch.cuda.device_count()
+    layouts = {"nccl": n_cards} if n_cards > 1 else {"nccl": 1, "gloo": 2}
+    db = bc_toy_database(MULTI_BC_ROWS)
+    x, y = db.xy()
+    net = init_policy(torch.Generator().manual_seed(17), x.shape[-1], y.shape[-1],
+                      num_hidden_layer=3, hidden_dim=512)
+    params = {k: v.numpy() for k, v in net.state_dict().items()}
+    threads = concurrent.futures.ThreadPoolExecutor(len(layouts))
+    runs = {b: threads.submit(PM.launch, sharded_rank, n, args=(b, params), device="cuda",
+                              backend=b, timeout=300) for b, n in layouts.items()}
+    threads.shutdown(wait=False)
+    return dict(runs=runs, db=db, params=params, t0=time.time())
+
+
+def multi_device(torch, card, started):
+    """Phase 17, the multi-device path (``parallel.mesh``), on the ranks
+    ``start_multi_device`` started. 17a the sharded main-path solve of
+    bench.py's B draws (``workload.trot_states``, seed 0): K1 and K2 once per
+    rank, the gathered plans the same on every rank and against the
+    unsharded solve of this run by the quantile gate, converged_frac >=
+    0.99. 17b data-parallel BC (``MULTI_BC_EPOCHS`` x 20 steps at the
+    bc.yaml widths): the per-step losses against the free-running unsharded
+    trainer from the same initial weights, and every step's all-reduced loss
+    and gradient against the whole batch's from the same parameters (the
+    gates above ``MULTI_BC_ROWS``), the same on every rank. 17c
+    ``bench_multichip`` (fast budget, 64 problems a device): its rates and
+    document, K1 and K2 four times per rank and count. Returns each layout's
+    per-rank launches."""
+    import tempfile
+
+    from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.learning import bc
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu_torch.robots.solo12 import Solo12Config
+    from bunmpc_tpu_torch.scripts import bench_multichip
+    from bunmpc_tpu_torch.solvers import cuda_admm
+    from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+
+    n_cards = torch.cuda.device_count()
+    db, params = started["db"], started["params"]
+    # the unsharded references on the card
+    t0 = time.time()
+    spec = KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0(), device="cuda")
+    inputs = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                   for a in workload.trot_states(B))
+    ref = KD.solve_mpc_batch(
+        spec, *inputs, admm_cfg=cuda_admm.CudaAdmmConfig(rho=trot.rho, x_solver="thomas",
+                                                         fista_max_iters=30),
+        ddp_cfg=DdpConfig(), admm_backend="cuda", ik_backend="cuda")
+    with step_losses(bc) as losses:
+        _, ref_rep = bc.train_policy(db, bc.BcConfig(n_epoch=MULTI_BC_EPOCHS),
+                                     params={k: torch.as_tensor(v) for k, v in params.items()},
+                                     device="cuda")
+    ref_steps = torch.stack(losses).cpu().numpy()
+    results = {}
+    for b, run in started["runs"].items():
+        try:
+            results[b] = run.result()
+        except RuntimeError as e:
+            raise PhaseError(f"phase 17 ({b}): a rank failed: {e}") from e
+    SECONDS["17/17a-17b"] = time.time() - t0
+    log(f"[17] 17a-17b's ranks started {t0 - started['t0']:.1f} s before the references; the "
+        f"references and the wait {time.time() - t0:.1f} s")
+    launches = {}
+    for b, ranks in results.items():
+        launches[b] = [r["launches"] for r in ranks]
+        seconds = [{k: round(v, 2) for k, v in r["seconds"].items()} for r in ranks]
+        log(f"[17] {len(ranks)} rank(s) of {n_cards} visible card(s), backend {b}, devices "
+            f"{[r['device'] for r in ranks]}, shards {[r['shard'] for r in ranks]}; per-rank "
+            f"launches {launches[b]}; seconds {seconds}")
+    for b, ranks in results.items():
+        plans = ranks[0]["plans"]
+        conv = float((plans["dyn_violation"] < 1e-3).mean())
+        held = ranks[0]["held"]
+        loss_d = np.abs(held[:, 0] - held[:, 1]) / np.abs(held[:, 1])
+        grad_d = held[:, 2]
+        grad_off = int((grad_d > MULTI_BC_RTOL).sum())
+        free = np.abs(held[:, 0] - ref_steps[:len(held)]) / np.abs(ref_steps[:len(held)])
+        parted = np.nonzero(free > MULTI_BC_RTOL)[0]
+        log(f"[17a {b}] gathered plans: converged_frac {conv:.4f} (>= 0.99); rank checksums "
+            f"{[r['checksum'] for r in ranks]}")
+        log(f"[17b {b}] BC {len(held)} steps against the free-running unsharded trainer from the "
+            f"same initial weights: per-step loss |d|/|ref| max over the first "
+            f"{MULTI_BC_FREE_STEPS} steps {free[:MULTI_BC_FREE_STEPS].max():.3e} (< "
+            f"{MULTI_BC_RTOL}), over all {free.max():.3e}, median {np.median(free):.3e}, above "
+            f"{MULTI_BC_RTOL} from step {int(parted[0]) if len(parted) else None}; its epoch "
+            f"losses {np.round(ref_rep.train_losses, 5).tolist()}")
+        log(f"[17b {b}] every step against the whole batch from the same parameters: loss "
+            f"|d|/|ref| max {loss_d.max():.3e} (< {MULTI_BC_RTOL}); gradient |d|/|ref| median "
+            f"{np.median(grad_d):.3e}, max {grad_d.max():.3e} (< {MULTI_BC_GRAD_MAX}), {grad_off} "
+            f"steps above {MULTI_BC_RTOL} (<= {MULTI_BC_GRAD_OFF}: an L1 residual at zero); "
+            f"losses first {held[0, 0]:.5f} last {held[-1, 0]:.5f}; epoch losses "
+            f"{np.round(ranks[0]['epoch_losses'], 5).tolist()}")
+        check(all(r["launches"] == {"admm": 1, "ddp": 1, "fused": 0} for r in ranks),
+              f"17a ({b}): K1 and K2 must launch once per rank")
+        check(sorted(r["rank"] for r in ranks) == list(range(len(ranks))) and
+              sum(r["shard"] for r in ranks) == B, f"17a ({b}): the shards")
+        check(len({r["checksum"] for r in ranks}) == 1, f"17a ({b}): the ranks gathered apart")
+        for name in ("xs", "X_opt"):
+            quantile_gate(f"17a ({b}) {name}", torch.as_tensor(plans[name]),
+                          getattr(ref, name).cpu())
+        check(conv >= 0.99, f"17a ({b}): converged_frac below 0.99")
+        check(len(ref_steps) == MULTI_BC_EPOCHS * 20 and all(
+            len(r["held"]) == len(ref_steps) and
+            np.array_equal(r["held"][:, 0], held[:, 0]) for r in ranks),
+            f"17b ({b}): the ranks' steps")
+        check(bool(free[:MULTI_BC_FREE_STEPS].max() < MULTI_BC_RTOL),
+              f"17b ({b}): the sharded losses left the unsharded trainer's in the first "
+              f"{MULTI_BC_FREE_STEPS} steps")
+        check(bool(loss_d.max() < MULTI_BC_RTOL and grad_off <= MULTI_BC_GRAD_OFF and
+                   grad_d.max() < MULTI_BC_GRAD_MAX),
+              f"17b ({b}): the all-reduced losses or gradients left the whole batch's")
+        check(np.isfinite(held).all() and ranks[0]["epoch_losses"][-1] <
+              ranks[0]["epoch_losses"][0] and ref_rep.train_losses[-1] < ref_rep.train_losses[0],
+              f"17b ({b}): the losses did not fall")
+
+    # ---- 17c. bench_multichip ----
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multichip_") as tmp:
+        out = os.path.join(tmp, "torch_multichip_scaling_gpu.json")
+        rc = bench_multichip.main(["fast=1", "per_device=64", f"out={out}"])
+        with open(out) as fh:
+            doc = json.load(fh)
+    SECONDS["17/17c"] = time.time() - t0
+    log(f"[17c] bench_multichip fast=1 per_device=64: rc {rc}, {SECONDS['17/17c']:.1f} s")
+    log(json.dumps({"metric": "multichip_scaling", **doc, "card": card}))
+    check(rc == 0 and doc["platform"] == "gpu" and doc["n_devices"] == n_cards and
+          doc["backend"] == "nccl", "17c: the document")
+    check(all(np.isfinite(v) and v > 0 for v in doc["rates"].values()), "17c: a rate")
+    check(all(r == {"admm": 4, "ddp": 4} for n in doc["launches"]
+              for r in doc["launches"][n][:int(n)]), "17c: K1 and K2 four times per rank")
+    launches["17c"] = doc["launches"]
     return launches
 
 
@@ -2804,9 +3161,6 @@ def main():
         print("chip_smoke: run it from the repository (bunmpc_tpu_torch not found)",
               file=sys.stderr)
         return 1
-    from bunmpc_tpu_torch import _build
-    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
-
     t_start = time.time()
 
     # ---- 1. device ----
@@ -2814,29 +3168,92 @@ def main():
     log(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 2. build (every kernel, nvcc in parallel) ----
+    only_17 = sys.argv[1:] == ["--only-17"]
+    if sys.argv[1:] and not only_17:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only-17)",
+              file=sys.stderr)
+        return 2
+
+    # the plain references run on the host CPU's workers, those of 7a, 13b, 10a,
+    # 11a, 12 and 14 from phase 2 on, while nvcc builds (those of 3-6, 9d and 11b
+    # once their inputs exist on the card); the workers run at a lower priority
+    # (nice 10), on the cycles that nvcc and this process leave idle
+    pool = None
+    if not only_17:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=4, mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(10,))
+    try:
+        return build_and_run(torch, card, t_start, only_17, pool)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def build_and_run(torch, card, t_start, only_17, pool):
+    """Phase 2, then phase 17 alone (``only_17``) or phases 3-17 and the
+    kernels line (``run_phases``)."""
+    from bunmpc_tpu_torch import _build
+    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
+
+    # ---- 2. build (every kernel, nvcc in parallel); meanwhile, on the card, what
+    # needs no kernel: the closed loop's start, PyTorch's one-time costs and 16b ----
     t0 = time.time()
-    reports = _build.build_kernels(
-        [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL], force=True)
+
+    def build():
+        t = time.time()
+        reports = _build.build_kernels(
+            [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL], force=True)
+        SECONDS["2/nvcc"] = time.time() - t
+        return reports
+
+    with concurrent.futures.ThreadPoolExecutor(1) as builder:
+        built = builder.submit(build)
+        loop = refs = diag_launches = None
+        if not only_17:
+            # the host CPU's workers take 7a's and 13b's references first, then the gaits'
+            loop = loop_start(torch, pool)
+            refs = submit_references(pool)
+        SECONDS["2/warm-up"] = warm_up(torch)
+        if not only_17:
+            diag_launches, SECONDS["2/16b"] = diagnose_on_card(torch)
+        reports = built.result()
     build_s = SECONDS["2 build"] = time.time() - t0
-    log(f"[2] build: {build_s:.1f} s")
+    log(f"[2] build: nvcc {SECONDS['2/nvcc']:.1f} s; meanwhile on the card the settle "
+        f"{SECONDS.get('2/settle', 0.0):.1f} s, the warm-up {SECONDS['2/warm-up']:.1f} s and 16b "
+        f"{SECONDS.get('2/16b', 0.0):.1f} s; the phase {build_s:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  {name}: {line.strip()}")
-    # the plain references of phases 3-6, 7a, 9d, 10a, 11a, 12, 13b and 14, on the
-    # host CPU while the card works
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    # phase 17's rank server imports PyTorch and the port in the background
+    from bunmpc_tpu_torch.parallel import mesh as PM
+
+    PM.prestart()
     try:
-        return run_phases(torch, card, t_start, pool)
+        if only_17:
+            # phases 1, 2 and 17 alone: the multi-device path on every visible card
+            t0 = time.time()
+            multi_device(torch, card, start_multi_device(torch))
+            SECONDS["17"] = time.time() - t0
+            log(f"[time] seconds by phase "
+                f"{json.dumps({k: round(v, 1) for k, v in SECONDS.items()})}; "
+                f"a total {time.time() - t_start:.1f} s")
+            print(card)
+            print(json.dumps({"ok": True, "phases": [1, 2, 17],
+                              "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                         "count": torch.cuda.device_count()}}))
+            return 0
+        return run_phases(torch, card, t_start, pool, loop, refs, diag_launches)
     finally:
-        pool.shutdown(wait=False, cancel_futures=True)
+        PM.shutdown()
 
 
-def run_phases(torch, card, t_start, pool):
-    """Phases 3-15 and the kernels line (``main`` checked the card, built the
-    kernels and started the reference workers)."""
+def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
+    """Phases 3-17 and the kernels line (``build_and_run`` checked the card,
+    settled the closed loop's start and started the reference workers on
+    7a's, 13b's (``loop``) and the gaits' references (``refs``), built the
+    kernels and ran 16b (``diag_launches``, its launches))."""
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import ik as IK
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
@@ -2849,23 +3266,9 @@ def run_phases(torch, card, t_start, pool):
 
     dev = torch.device("cuda")
     model = Solo12Config.load_model()
-    # the closed loop's start first: phases 7a's and 13b's plain references go to
-    # the host CPU's workers ahead of the gaits' (10a, 11a, 12, 14)
+    start, cmd, window_refs, slope_ref = loop
     loop_spec = KD.make_cyclic_spec(model, trot_sim, Solo12Config.q0(), device="cuda")
     sim = workload.closed_loop_sim_params()
-    t0 = time.time()
-    start = workload.settled_start(B)
-    v_np, w_np = workload.command_draw(B, seed=0)
-    cmd = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (v_np, w_np))
-    torch.cuda.synchronize()
-    SECONDS["settle"] = time.time() - t0
-    log(f"[7a] settled start (500 ms PD hold): {time.time() - t0:.1f} s, base z "
-        f"{float(start.q[0, 2]):.4f} m")
-    head = [a[:WINDOW_N].cpu().numpy() for a in (start.q, start.v, *cmd)]
-    window_refs = {dt: pool.submit(window_reference, *head, dt) for dt in ("float64", "float32")}
-    head = [a[:SLOPE_N] for a in head]
-    slope_ref = pool.submit(window_reference, *head, "float64", 0.1)
-    refs = submit_references(pool)
     spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0(), device="cuda")
     # the launch shape: a warp and a shared-memory slice per problem
     admm_shape = (cuda_admm.launch_per_block(spec.horizon), 4 * cuda_admm.shared_size(spec.horizon))
@@ -3473,14 +3876,24 @@ def run_phases(torch, card, t_start, pool):
     SECONDS["15"] = time.time() - t0
     log(f"[15] the experiment drivers {time.time() - t0:.1f} s")
 
-    # ---- 16. the analysis scripts and the learning demos ----
+    # ---- 16. the analysis scripts and the learning demos; 17a-17b's ranks
+    # start first and work beside it ----
     t0 = time.time()
+    started = start_multi_device(torch)
     script_launches = analysis_scripts(torch, zero_counts, counts, card)
+    script_launches = {"16a": script_launches.pop("16a"), "16b": diag_launches,
+                       **script_launches}
     SECONDS["16"] = time.time() - t0
     log(f"[16] the analysis scripts {time.time() - t0:.1f} s")
 
-    # ---- 3-6's, 7a's, 9d's and 11b's gates: their plain references ran on the host CPU's
-    # workers ----
+    # ---- 17. the multi-device path: the sharded solve, sharded BC, bench_multichip ----
+    t0 = time.time()
+    multi_launches = multi_device(torch, card, started)
+    SECONDS["17"] = time.time() - t0
+    log(f"[17] the multi-device path {time.time() - t0:.1f} s")
+
+    # ---- 3-6's, 7a's, 9d's and 11b's gates: their plain references ran on the host
+    # CPU's workers ----
     t0 = time.time()
     k1_err, k2_err = finish_3_6()
     finish_7a()
@@ -3541,7 +3954,9 @@ def run_phases(torch, card, t_start, pool):
                 "terrain_launches": {tag: c[k] for tag, c in terrain_launches.items()},
                 "acyclic_launches": {name: c[k] for name, c in acyclic_launches.items()},
                 "driver_launches": {tag: c[k] for tag, c in driver_launches.items()},
-                "script_launches": {tag: c[k] for tag, c in script_launches.items()}}
+                "script_launches": {tag: c[k] for tag, c in script_launches.items()},
+                "multi_device_launches": {b: [c[k] for c in ranks]
+                                          for b, ranks in multi_launches.items() if b != "17c"}}
 
     kernels = [
         {"name": "admm", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/admm.cu",

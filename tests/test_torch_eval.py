@@ -474,7 +474,7 @@ def test_train_from_databases_matches_jax(tmp_path, monkeypatch):
         assert a.db_size == b.db_size
         np.testing.assert_allclose(a.final_train_loss, b.final_train_loss, rtol=1e-5)
         np.testing.assert_allclose(a.final_valid_loss, b.final_valid_loss, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):  # a mesh is a parallel.mesh.Mesh
         MDB.train_from_databases(paths[:1], cfg=cfg, limit=1000, mesh=object(), device="cpu")
 
 

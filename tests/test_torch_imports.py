@@ -58,7 +58,7 @@ def test_no_jax_or_jax_package_imports():
         assert os.path.join(PKG, "eval", sub) in files
     for sub in (("robots", "go2.py"), ("mpc", "motions", "go2_cyclic.py")):  # the Go2
         assert os.path.join(PKG, *sub) in files
-    for sub in UTILS + SCRIPTS:  # the experiment layer
+    for sub in UTILS + SCRIPTS + PARALLEL:  # the experiment layer, the multi-device path
         assert os.path.join(PKG, sub) in files
     for path in files:
         for mod in _imported_modules(path):
@@ -71,6 +71,32 @@ UTILS = tuple(os.path.join("utils", f"{n}.py") for n in (
     "config", "jsonio", "logging", "runtime", "checkpoint", "profiling"))
 SCRIPTS = tuple(os.path.join("scripts", f"{n}.py") for n in (
     "run_data_collection", "run_bc", "run_dagger", "run_eval", "run_sweep"))
+PARALLEL = (os.path.join("parallel", "__init__.py"), os.path.join("parallel", "mesh.py"),
+            os.path.join("scripts", "bench_multichip.py"))
+
+
+def test_parallel_imports_torch_numpy_and_the_standard_library():
+    """The multi-device path (``parallel/``, ``scripts/bench_multichip.py``)
+    imports torch (``torch.distributed``), numpy, the standard library and
+    the port, at any level."""
+    for sub in PARALLEL:
+        path = os.path.join(PKG, sub)
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level > 0:
+                continue  # the port's own modules
+            for mod in _imported_modules_of(node):
+                assert mod.split(".")[0] in {"torch", "numpy", "__future__",
+                                             "bunmpc_tpu_torch"} | set(sys.stdlib_module_names), \
+                    f"{path} imports {mod}"
+
+
+def _imported_modules_of(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.module:
+        return [node.module]
+    return []
 
 
 def _module_level_imports(path):

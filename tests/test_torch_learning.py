@@ -455,7 +455,7 @@ def test_entry_points_default_to_the_card(spec):
     db.append(*_toy(40, 0)[:1], _toy(40, 0)[2], cc_goals=_toy(40, 0)[1])
     with pytest.raises(RuntimeError, match="CUDA"):
         bc.train_policy(db, bc.BcConfig(n_epoch=1, batch_size=8))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):  # a mesh is a parallel.mesh.Mesh
         bc.train_policy(db, mesh=object(), device="cpu")
     gpu_spec = dataclasses.replace(spec, device=torch.device("cuda"))
     with pytest.raises(RuntimeError, match="CUDA"):
