@@ -33,6 +33,7 @@ import torch
 from ..kin import algorithms as K
 from ..robots.model import RobotModel
 from ..solvers import biconvex, cuda_admm, cuda_ddp, cuda_fused, ddp
+from ..utils import profiling
 from ..utils import quat as Q
 from . import gait as G
 from . import ik as IK
@@ -519,66 +520,77 @@ def solve_mpc_batch(
     if (noise_xy is not None or terrain is not None) and fuse_prep:
         raise ValueError("the fused path (K3) plans flat ground without touchdown noise: "
                          "noise_xy and terrain need fuse_prep=False")
-    p = spec.params
-    m = spec.model.total_mass
-    q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
-    if noise_xy is not None:
-        noise_xy = torch.as_tensor(noise_xy, dtype=q.dtype, device=q.device)
-    if terrain is not None:
-        terrain = terrain.to(q)
+    with profiling.span("mpc.solve"):
+        p = spec.params
+        m = spec.model.total_mass
+        q, v, t, v_des, w_des = _inputs(spec, q, v, t, v_des, w_des)
+        if noise_xy is not None:
+            noise_xy = torch.as_tensor(noise_xy, dtype=q.dtype, device=q.device)
+        if terrain is not None:
+            terrain = terrain.to(q)
 
-    if fuse_prep:
-        if admm_cfg is None:
-            admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
-        qr, t_, v_des_w, x_init, ee, hip, amom = _compact_inputs(spec, q, v, t, v_des, w_des)
-        X, F, viol, iters, cnt, r, dts, swing = cuda_fused.solve_from_state(
-            t_, v_des_w, w_des, x_init, ee, hip, amom, m, make_prep_consts(spec), admm_cfg,
-            spec.horizon, spec.n_eff,
-        )
-        prob = dict(q=qr, v=v, x_init=x_init, plan=G.ContactPlan(cnt=cnt, r=r, dt=dts),
-                    swing_mask=swing)
-        P = torch.zeros_like(X)
-    else:
-        prob = _prepare_problem(spec, q, v, t, v_des, w_des, noise_xy=noise_xy, terrain=terrain)
-        X_wm, F_wm, P_wm = (prob["X_wm"], prob["F_wm"], None) if warm_start is None \
-            else warm_start
-        if admm_backend == "cuda":
+        if fuse_prep:
             if admm_cfg is None:
                 admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
-            X, F, viol, iters, P = cuda_admm.solve(
-                prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
-                X_wm, F_wm, prob["x_bounds"], admm_cfg, prob["F_ref"], P_wm,
-            )
+            with profiling.span("mpc.fused"):
+                qr, t_, v_des_w, x_init, ee, hip, amom = _compact_inputs(spec, q, v, t, v_des,
+                                                                         w_des)
+                X, F, viol, iters, cnt, r, dts, swing = cuda_fused.solve_from_state(
+                    t_, v_des_w, w_des, x_init, ee, hip, amom, m, make_prep_consts(spec),
+                    admm_cfg, spec.horizon, spec.n_eff,
+                )
+                prob = dict(q=qr, v=v, x_init=x_init, plan=G.ContactPlan(cnt=cnt, r=r, dt=dts),
+                            swing_mask=swing)
+                P = torch.zeros_like(X)
         else:
-            if admm_cfg is None:
-                admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
-            dyn = biconvex.solve(
-                prob["plan"], m, prob["x_init"],
-                biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]), prob["W_F"], X_wm, F_wm,
-                torch.zeros_like(X_wm) if P_wm is None else P_wm, admm_cfg,
-                x_bounds=prob["x_bounds"], F_ref=prob["F_ref"],
-            )
-            X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
+            with profiling.span("mpc.prep"):
+                prob = _prepare_problem(spec, q, v, t, v_des, w_des, noise_xy=noise_xy,
+                                        terrain=terrain)
+            X_wm, F_wm, P_wm = (prob["X_wm"], prob["F_wm"], None) if warm_start is None \
+                else warm_start
+            with profiling.span("mpc.k1"):
+                if admm_backend == "cuda":
+                    if admm_cfg is None:
+                        admm_cfg = cuda_admm.CudaAdmmConfig(rho=p.rho, x_solver="thomas")
+                    X, F, viol, iters, P = cuda_admm.solve(
+                        prob["plan"], m, prob["x_init"], prob["W"], prob["X_ref"], prob["W_F"],
+                        X_wm, F_wm, prob["x_bounds"], admm_cfg, prob["F_ref"], P_wm,
+                    )
+                else:
+                    if admm_cfg is None:
+                        admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
+                    dyn = biconvex.solve(
+                        prob["plan"], m, prob["x_init"],
+                        biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]), prob["W_F"], X_wm,
+                        F_wm, torch.zeros_like(X_wm) if P_wm is None else P_wm, admm_cfg,
+                        x_bounds=prob["x_bounds"], F_ref=prob["F_ref"],
+                    )
+                    X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
+        profiling.count("mpc.admm_iters_max", iters)
 
-    tasks, x0 = _build_ik_tasks(spec, prob, X)
-    w_stage, w_term, ctrl_w, x_reg = IK.dense_weights(spec.model, spec.eff_frames, tasks)
-    args = (
-        x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, x_reg, w_stage, w_term,
-        ctrl_w, tasks.dts,
-    )
-    if ik_backend == "cuda":
-        if ddp_cfg.derivs_every != 1:
-            raise NotImplementedError("the DDP kernel refreshes its Jacobians every iteration")
-        kcfg = cuda_ddp.CudaDdpConfig(
-            n_iters=ddp_cfg.n_iters, alphas=tuple(ddp_cfg.alphas), reg=ddp_cfg.reg
-        )
-        ik_xs, ik_us, ik_cost = cuda_ddp.solve_ik_batch(
-            spec.model, spec.eff_frames, *args, cfg=kcfg
-        )
-    else:
-        res = IK.solve_dense(spec.model, spec.eff_frames, *args, cfg=ddp_cfg)
-        ik_xs, ik_us, ik_cost = res.xs, res.us, res.cost
-    return _finish_from_ik(spec, prob, X, F, viol, iters, ik_xs, ik_us, ik_cost, P)
+        with profiling.span("mpc.ik_build"):
+            tasks, x0 = _build_ik_tasks(spec, prob, X)
+            w_stage, w_term, ctrl_w, x_reg = IK.dense_weights(spec.model, spec.eff_frames, tasks)
+            args = (
+                x0, tasks.ee_targets, tasks.com_ref, tasks.mom_ref, x_reg, w_stage, w_term,
+                ctrl_w, tasks.dts,
+            )
+        with profiling.span("mpc.k2"):
+            if ik_backend == "cuda":
+                if ddp_cfg.derivs_every != 1:
+                    raise NotImplementedError(
+                        "the DDP kernel refreshes its Jacobians every iteration")
+                kcfg = cuda_ddp.CudaDdpConfig(
+                    n_iters=ddp_cfg.n_iters, alphas=tuple(ddp_cfg.alphas), reg=ddp_cfg.reg
+                )
+                ik_xs, ik_us, ik_cost = cuda_ddp.solve_ik_batch(
+                    spec.model, spec.eff_frames, *args, cfg=kcfg
+                )
+            else:
+                res = IK.solve_dense(spec.model, spec.eff_frames, *args, cfg=ddp_cfg)
+                ik_xs, ik_us, ik_cost = res.xs, res.us, res.cost
+        with profiling.span("mpc.finish"):
+            return _finish_from_ik(spec, prob, X, F, viol, iters, ik_xs, ik_us, ik_cost, P)
 
 
 def _one(a):

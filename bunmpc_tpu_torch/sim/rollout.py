@@ -44,6 +44,7 @@ from ..mpc import gait as G
 from ..mpc import kino_dyn as KD
 from ..robots.model import RobotModel
 from ..solvers.ddp import DdpConfig
+from ..utils import profiling
 from ..utils.quat import quat_to_rot, rot_to_rpy
 from . import controllers, physics
 
@@ -547,8 +548,9 @@ def _windows(spec, cfg, b: _Buffers, substep, start_time, v_des, w_des, warm_sta
         b.mpc_bad.copy_(torch.isnan(plan.f_int).flatten(1).any(1)
                         | torch.isnan(plan.xs_int).flatten(1).any(1))
         b.i.zero_()
-        for _ in range(cfg.steps_per_plan):
-            substep()
+        with profiling.span("rollout.substeps"):
+            for _ in range(cfg.steps_per_plan):
+                substep()
 
 
 def _result(b, mpc_usage) -> RolloutResult:
@@ -588,10 +590,11 @@ class _Substep:
             torch.cuda.current_stream().wait_stream(side)
             self.warm += 1
         else:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.fn(*self.args)
-            graph.replay()  # the capture only recorded the step
+            with profiling.span("rollout.capture"):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self.fn(*self.args)
+                graph.replay()  # the capture only recorded the step
             self.graph = graph
 
 

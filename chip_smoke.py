@@ -2277,7 +2277,8 @@ def busy_share(trace_path):
     the span of every event, host and device), and each kernel's total
     milliseconds and calls."""
     with open(trace_path) as fh:
-        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e
+                  and e.get("cat") != "program_span"]
     dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     t0 = min(e["ts"] for e in events)
@@ -2306,9 +2307,9 @@ def experiment_drivers(torch, spec, inputs, admm_cfg, ddp_cfg, zero_counts, coun
     mode=safedagger`` (safedagger.yaml's 8 rollouts an iteration; 1 of 10
     iterations, 300 of 5000 steps, 2 of 150 and 50 epochs) with a
     checkpoint, then ``n_iterations=2 resume=true``; 15e ``torch.profiler``
-    around one main-path solve at B=512 (``utils/profiling.device_trace``)
-    and ``SolveTimer`` over its five stages. Returns each call's launch
-    counts."""
+    around one main-path solve at B=512 (``utils/profiling.device_trace``,
+    the program's spans recorded in it: each stage's host ms and launches).
+    Returns each call's launch counts."""
     import tempfile
 
     from bunmpc_tpu_torch.eval import velocity_grid
@@ -2472,21 +2473,19 @@ def experiment_drivers(torch, spec, inputs, admm_cfg, ddp_cfg, zero_counts, coun
         torch.cuda.synchronize()
         zero_counts()
         with PROF.device_trace(f"{tmp}/trace") as prof:
-            plan = solve()
+            with PROF.recording() as rec:
+                plan = solve()
         launches["15e"] = counts()
         share, window_ms, kernels = busy_share(f"{tmp}/trace/trace.json")
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
         names = " ".join(kernels)
-        timer = PROF.SolveTimer()
-        for _ in range(3):
-            main_path_stages(spec, inputs, admm_cfg, timer.phase)
-        stages = {k: {f: round(v, 6) for f, v in s_.items()} for k, s_ in timer.summary().items()}
+        stages = stage_account(prof, rec)
         log(f"[15e] trace of one main-path solve at B={B}: window {window_ms:.3f} ms, device busy "
             f"{100 * share:.2f}%, {sum(n for _, n in kernels.values())} kernel launches of "
             f"{len(kernels)} kernels; launches counted {launches['15e']}; top 10 by device time "
             "(ms, calls): " + "; ".join(f"{k[:60]} {ms:.4f} {n}" for k, (ms, n) in top))
-        log("[15e] SolveTimer (s, 3 solves):\n" + timer.report())
-        summary["15e"] = dict(busy_share=share, window_ms=window_ms, stages_s=stages,
+        log(f"[15e] the traced solve's spans (host ms, kernel launches): {stages}")
+        summary["15e"] = dict(busy_share=share, window_ms=window_ms, stage_ms=stages,
                               top_kernels=[[k, ms, n] for k, (ms, n) in top],
                               profiler_rows=len(prof.key_averages()))
         gate(bool(torch.isfinite(plan.xs).all()), "15e: the traced solve is not finite")
@@ -3096,52 +3095,36 @@ def multi_device(torch, card, started):
     return launches
 
 
-def main_path_stages(spec, inputs, admm_cfg, stage):
-    """One ``solve_mpc_batch(admm_backend="cuda", ik_backend="cuda")`` on these
-    inputs, stage by stage, each inside ``with stage(name, out):``, where the
-    stage appends its outputs to the list ``out``; returns the plan."""
-    from bunmpc_tpu_torch.mpc import ik as IK
-    from bunmpc_tpu_torch.mpc import kino_dyn as KD
-    from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp
-
-    model, m = spec.model, spec.model.total_mass
-    out = []
-    with stage("prep", out):
-        out.append(KD._prepare_problem(spec, *inputs))
-    pr = out.pop()
-    with stage("k1_admm", out):
-        out.append(cuda_admm.solve(pr["plan"], m, pr["x_init"], pr["W"], pr["X_ref"], pr["W_F"],
-                                   pr["X_wm"], pr["F_wm"], pr["x_bounds"], admm_cfg))
-    X, F, viol, iters, P = out.pop()
-    with stage("ik_build", out):
-        tk, x0s = KD._build_ik_tasks(spec, pr, X)
-        out.append(IK.dense_weights(model, spec.eff_frames, tk))
-    ws, wt, cw, xr = out.pop()
-    with stage("k2_ddp", out):
-        out.append(cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
-                                           tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts))
-    ixs, ius, icost = out.pop()
-    with stage("interp", out):
-        out.append(KD._finish_from_ik(spec, pr, X, F, viol, iters, ixs, ius, icost, P))
-    return out.pop()
+def stage_account(prof, rec):
+    """Each program span of a recording (``utils.profiling.recording()``)
+    made inside the finished ``torch.profiler`` profile ``prof``: its host
+    milliseconds and the kernel launches (the profiler's host
+    ``cudaLaunch*``/``cuLaunch*`` events) that start inside it and inside
+    none of its children, summed by span name."""
+    launches = [e.start_ns() / 1e3 for e in prof.profiler.kineto_results.events()
+                if e.name().startswith(("cudaLaunch", "cuLaunch"))]
+    out = {}
+    for s in rec.spans:
+        inner = [c for c in rec.spans if c.parent == s.id]
+        n = sum(s.start <= t < s.end and not any(c.start <= t < c.end for c in inner)
+                for t in launches)
+        acc = out.setdefault(s.name, {"host_ms": 0.0, "launches": 0})
+        acc["host_ms"] = round(acc["host_ms"] + (s.end - s.start) * 1e-3, 3)
+        acc["launches"] += n
+    return out
 
 
-def main_path_stage_ms(torch, spec, inputs, admm_cfg):
-    """Milliseconds of each stage of the main path on these inputs, by CUDA
-    events around the stages."""
-    events = []
+def recorded_stages(torch, solve):
+    """``stage_account`` of one ``solve()`` (a ``solve_mpc_batch`` call) under
+    ``torch.profiler`` and the program's recording."""
+    from bunmpc_tpu_torch.utils import profiling as PROF
 
-    @contextlib.contextmanager
-    def stage(name, out):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        yield
-        ev[1].record()
-        events.append((name, ev))
-
-    main_path_stages(spec, inputs, admm_cfg, stage)
-    torch.cuda.synchronize()
-    return {name: round(e0.elapsed_time(e1), 3) for name, (e0, e1) in events}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with PROF.recording() as rec:
+            solve()
+        torch.cuda.synchronize()
+    return stage_account(prof, rec)
 
 
 def main():
@@ -3486,7 +3469,7 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
           "launch counters did not rise by one per solve")
     med = float(np.median(reps))
 
-    stages = main_path_stage_ms(torch, spec, inputs, bench_cfg)
+    stages = recorded_stages(torch, solve)
     log(json.dumps({
         "metric": "trot_mpc_solves_per_sec", "value": round(B / med, 1), "batch": B,
         "converged_frac": conv, "rep_times_s": [round(r, 5) for r in reps],
@@ -3524,26 +3507,7 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
         torch.cuda.synchronize()
         freps.append(time.perf_counter() - t0)
     fmed = float(np.median(freps))
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    qr, t_, vdw, x_init, ee, hip, amom = KD._compact_inputs(spec, *inputs)
-    ev[1].record()
-    X, F, viol, iters, cnt, r, dts, swing = cuda_fused.solve_from_state(
-        t_, vdw, inputs[4], x_init, ee, hip, amom, m, pc, bench_cfg, H, spec.n_eff)
-    ev[2].record()
-    fpr = dict(q=qr, v=inputs[1], x_init=x_init, plan=type(plan)(cnt=cnt, r=r, dt=dts),
-               swing_mask=swing)
-    tk, x0s = KD._build_ik_tasks(spec, fpr, X)
-    ws, wt, cw, xr = IK.dense_weights(model, spec.eff_frames, tk)
-    ev[3].record()
-    ixs, ius, icost = cuda_ddp.solve_ik_batch(model, spec.eff_frames, x0s, tk.ee_targets,
-                                              tk.com_ref, tk.mom_ref, xr, ws, wt, cw, tk.dts)
-    ev[4].record()
-    KD._finish_from_ik(spec, fpr, X, F, viol, iters, ixs, ius, icost, torch.zeros_like(X))
-    ev[5].record()
-    torch.cuda.synchronize()
-    fstage_names = ["compact", "k3", "ik_build", "k2_ddp", "interp"]
-    fstages = {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(fstage_names)}
+    fstages = recorded_stages(torch, solve_fused)
     log(json.dumps({
         "metric": "fused_trot_mpc_solves_per_sec", "value": round(B / fmed, 1), "batch": B,
         "converged_frac": fconv, "rep_times_s": [round(r, 5) for r in freps],
@@ -3771,8 +3735,9 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     survival = float(alive.mean())
     med_roll = float(np.median(roll_max)) if alive.any() else float("nan")
     med_z = float(np.median(z_dev)) if alive.any() else float("nan")
-    stages = main_path_stage_ms(torch, loop_spec, (start.q, start.v, t_w, *cmd),
-                                cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas"))
+    stages = recorded_stages(torch, lambda: KD.solve_mpc_batch(
+        loop_spec, start.q, start.v, t_w, *cmd,
+        admm_cfg=cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas")))
     log(f"[7b] closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
         f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}; (X, F, P) carried: live "
         f"solves' ADMM iterations mean {iters_loop:.2f}, the slowest live problem's a window "

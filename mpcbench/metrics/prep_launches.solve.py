@@ -1,0 +1,10 @@
+"""Kernel launches under ``mpc.prep`` a traced solve: the trace's host
+launch events (``cudaLaunch*``, ``cuLaunch*``) that start inside the
+program's ``mpc.prep`` spans and inside none of their children."""
+
+from mpcbench import program_spans
+
+
+def read(ctx):
+    rec = program_spans.records(ctx)
+    return None if rec is None else rec.stage_launches("mpc.prep")

@@ -13,6 +13,8 @@ and against the committed native fixture.
   that file's full-chain check (at 1e-5 the remaining X error of ~3e-4 shows
   as ~1e-2 in the accelerations): additionally |dxs| < 1e-3, |dus| < 5e-3
   (:136-139).
+* Under ``utils.profiling.recording()`` a solve records ``mpc.solve`` around
+  its five stages, in order, and the largest of its ADMM iteration counts.
 """
 
 import dataclasses
@@ -35,6 +37,8 @@ from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot
 from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TSolo
 from bunmpc_tpu_torch.solvers import cuda_admm
 from bunmpc_tpu_torch.solvers.biconvex import BiconvexConfig
+from bunmpc_tpu_torch.solvers.ddp import DdpConfig
+from bunmpc_tpu_torch.utils import profiling
 from bunmpc_tpu_torch.workload import trot_states
 
 from torch_port_helpers import call_host, host_lib
@@ -95,6 +99,22 @@ def test_cuda_backends_on_cpu_run_the_plain_path(tspec):
     for field in ("xs_int", "us_int", "f_int", "X_opt", "F_opt", "xs", "us", "P_opt"):
         torch.testing.assert_close(getattr(got, field), getattr(ref, field), atol=0, rtol=0)
     assert torch.any(got.P_opt != 0)  # K1's plain version returns the dual
+
+
+def test_solve_records_its_five_stages(tspec):
+    states = [torch.as_tensor(a, dtype=torch.float64) for a in trot_states(2, seed=3)]
+    cfg = BiconvexConfig(rho=trot.rho, fista_max_iters=30, max_admm_iters=8)
+    with profiling.recording() as rec:
+        plan = TKD.solve_mpc_batch(tspec, *states, admm_cfg=cfg, ddp_cfg=DdpConfig(n_iters=1),
+                                   admm_backend="torch", ik_backend="torch")
+    solve, *stages = rec.spans
+    assert solve.name == "mpc.solve" and solve.parent is None
+    assert [s.name for s in stages] == ["mpc.prep", "mpc.k1", "mpc.ik_build", "mpc.k2",
+                                        "mpc.finish"]
+    assert all(s.parent == s.root == solve.id for s in stages)
+    assert solve.start <= stages[0].start and stages[-1].end <= solve.end
+    assert all(a.end <= b.start for a, b in zip(stages, stages[1:]))
+    assert rec.counters == {"mpc.admm_iters_max": [float(plan.admm_iters.max())]}
 
 
 def test_model_from_jax_arrays():

@@ -21,6 +21,8 @@ package's ``bunmpc_tpu/sim/rollout.py`` on the same seeded numpy inputs.
   tensors) against the same fixture's carried rollout.
 * Terrain on a zero heightfield gives the flat loop; per-episode options
   of the wrong shape raise.
+* Under ``utils.profiling.recording()`` the loop records, per window, one
+  ``mpc.solve`` and then one ``rollout.substeps`` span.
 """
 
 import os
@@ -44,6 +46,7 @@ from bunmpc_tpu_torch.robots.solo12 import Solo12Config as TC
 from bunmpc_tpu_torch.sim import controllers, physics
 from bunmpc_tpu_torch.sim import rollout as TR
 from bunmpc_tpu_torch.solvers import biconvex, cuda_admm, ddp
+from bunmpc_tpu_torch.utils import profiling
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (phase 7a's gates)
@@ -311,6 +314,23 @@ def test_cuda_backend_carries_the_dual(spec, reference):
                 np.testing.assert_array_equal(a, r, err_msg=f)
             else:
                 np.testing.assert_allclose(a, r, atol=1e-9, rtol=0, err_msg=f)
+
+
+def test_rollout_records_one_substeps_span_per_window(spec):
+    n = 2
+    state0 = physics.SimState(q=t64(TC.q0()).expand(n, -1).contiguous(),
+                              v=torch.zeros((n, spec.model.nv), dtype=F64))
+    cfg = TR.RolloutConfig(episode_length=20, plan_freq=0.01, kp=trot_sim.kp, kd=trot_sim.kd)
+    with profiling.recording() as rec:
+        TR.rollout_mpc(spec, workload.closed_loop_sim_params(), cfg, state0,
+                       torch.zeros((n, 3), dtype=F64), torch.zeros(n, dtype=F64),
+                       admm_cfg=biconvex.BiconvexConfig(rho=trot_sim.rho, max_admm_iters=4),
+                       ddp_cfg=ddp.DdpConfig(n_iters=1), admm_backend="torch",
+                       ik_backend="torch")
+    top = [s for s in rec.spans if s.parent is None]
+    assert [s.name for s in top] == ["mpc.solve", "rollout.substeps"] * cfg.n_windows
+    assert all(a.end <= b.start for a, b in zip(top, top[1:]))
+    assert len(rec.counters["mpc.admm_iters_max"]) == cfg.n_windows
 
 
 @pytest.mark.slow

@@ -9,8 +9,13 @@ JAX package's (``bunmpc_tpu/utils``):
 * ``jsonio``'s output equals the JAX copy's;
 * ``MetricsLogger`` writes one JSON line per call with ``_time``/``_step``;
 * ``SolveTimer.summary`` aggregates phases; ``device_trace`` writes a
-  Chrome trace of the CPU activities; ``solve_times_sweep`` times a call
-  per horizon;
+  Chrome trace of the CPU activities, with a recording's spans as a track
+  over the operations they wrap; ``solve_times_sweep`` times a call per
+  horizon;
+* ``span`` and ``count`` outside a recording do nothing (no clock, no
+  allocation, no sync, no read of the value); inside one, spans nest by
+  parent and root id, a counted tensor is reduced only when the recording
+  ends, and spans share the profiler's clock;
 * a policy checkpoint written by the JAX ``save_policy`` at 2 x 64 loads in
   the port with actions within 1e-6 (f32) of the JAX policy on 64 seeded
   inputs, and one written by the port loads in JAX to the same tolerance;
@@ -20,6 +25,7 @@ JAX package's (``bunmpc_tpu/utils``):
 
 import json
 import math
+import time
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,15 +128,91 @@ def test_solve_timer_summary():
 
 def test_device_trace_and_sweep(tmp_path):
     with PROF.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with PROF.recording(), PROF.span("product"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     assert any("mm" in e.key for e in prof.key_averages())
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert len(trace["traceEvents"]) > 0
+    [mm] = [e for e in trace["traceEvents"] if e.get("name") == "aten::mm"]
+    [sp] = [e for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+    assert sp["name"] == "product" and sp["pid"] != mm["pid"]
+    assert sp["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= sp["ts"] + sp["dur"]
     calls = []
     out = PROF.solve_times_sweep(lambda h: (lambda x: calls.append(h) or x * h),
                                  lambda h: (torch.ones(h),), [2, 4], n_rep=2)
     assert set(out) == {2, 4} and all(t >= 0 for t in out.values())
     assert calls == [2, 2, 2, 4, 4, 4]  # one untimed call, then n_rep
+
+
+class _Untouchable:
+    """A value that fails on any use: ``count`` outside a recording must
+    not read it."""
+
+    def __getattribute__(self, name):
+        raise AssertionError(f"read {name}")
+
+
+def test_span_and_count_outside_a_recording_do_nothing(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a clock reading or a sync outside a recording")
+
+    monkeypatch.setattr(PROF.time, "time_ns", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    shared = PROF.span("a")
+    for _ in range(3):  # one shared object, nothing made per call
+        span = PROF.span("mpc.solve")
+        with span:
+            PROF.count("mpc.admm_iters_max", _Untouchable())
+        assert span is shared
+    monkeypatch.undo()
+    with PROF.recording() as rec:
+        pass
+    assert rec.spans == [] and rec.counters == {}
+
+
+def test_spans_nest_and_counters_reduce_when_the_recording_ends():
+    iters = torch.tensor([3, 5, 4])
+    with PROF.recording() as rec:
+        with PROF.span("mpc.solve"):
+            with PROF.span("mpc.prep"):
+                pass
+            with PROF.span("mpc.k1"):
+                PROF.count("mpc.admm_iters_max", iters)
+                PROF.count("calls", 1)
+        with PROF.span("rollout.substeps"):
+            pass
+        iters[0] = 9  # kept, not yet reduced: the recording reads this
+        with pytest.raises(RuntimeError, match="in progress"):
+            with PROF.recording():
+                pass
+    assert [s.name for s in rec.spans] == ["mpc.solve", "mpc.prep", "mpc.k1", "rollout.substeps"]
+    solve, prep, k1, sub = rec.spans
+    assert [s.id for s in rec.spans] == [0, 1, 2, 3]
+    assert solve.parent is None and prep.parent == k1.parent == solve.id
+    assert solve.root == prep.root == k1.root == solve.id  # a solve's spans share one id
+    assert sub.parent is None and sub.root == sub.id
+    assert solve.start <= prep.start <= prep.end <= k1.start <= k1.end <= solve.end <= sub.start
+    assert rec.counters == {"mpc.admm_iters_max": [9.0], "calls": [1.0]}
+    assert PROF.span("x") is PROF.span("y")  # the recording is over
+
+
+def test_spans_share_the_profilers_clock():
+    a = torch.ones(64, 64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with PROF.recording() as rec:
+            time.sleep(0.005)
+            with PROF.span("inside"):
+                a @ a
+            time.sleep(0.005)
+            a @ a
+            time.sleep(0.005)
+            with PROF.span("after"):
+                time.sleep(0.005)
+    mms = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                 for e in prof.profiler.kineto_results.events() if e.name() == "aten::mm")
+    inside, after = rec.spans
+    assert len(mms) == 2
+    assert inside.start <= mms[0][0] <= mms[0][1] <= inside.end
+    assert inside.end < mms[1][0] <= mms[1][1] < after.start
 
 
 def test_setup_torch():
