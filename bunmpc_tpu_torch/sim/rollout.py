@@ -6,9 +6,11 @@ episode is a Python loop over replanning windows, and in each window
 
 1. ONE batched MPC solve for every episode (``kino_dyn.solve_mpc_batch``;
    with the "cuda" backends one launch of K1 and one of K2), then
-2. ``steps_per_plan`` 1 ms substeps, each a handful of batched tensor ops:
-   features, the inverse-dynamics controller, the action encoding, the
-   physics step, the failure predicate and the records.
+2. ``steps_per_plan`` 1 ms substeps, each the features, the
+   inverse-dynamics controller, the action encoding, the physics step, the
+   failure predicate and the records: in ``rollout_mpc`` on the card one
+   launch of K4 (``cuda_substep``, ``csrc/substep.cu``), otherwise (and in
+   the gated and policy rollouts) a handful of batched tensor ops.
 
 Nothing inside a window waits for the host: a failed episode is frozen
 with ``torch.where``, as the JAX package's scan does, and the records are
@@ -46,7 +48,7 @@ from ..robots.model import RobotModel
 from ..solvers.ddp import DdpConfig
 from ..utils import profiling
 from ..utils.quat import quat_to_rot, rot_to_rpy
-from . import controllers, physics
+from . import controllers, cuda_substep, physics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,7 +372,24 @@ def rollout_mpc(
     if warm_start_carry is None:
         warm_start_carry = spec.warm_start_style == "tiled"
     _check_window(spec, cfg)
+    args, start_time = _loop_args(spec, sim_params, cfg, state0, v_des, w_des, start_time,
+                                  push_force, terrain, q_noise, v_noise, gains, swing_blend,
+                                  force_gate)
+    *_, v_des, w_des, _, _, opts, b = args
+    # a CPU tensor takes the plain substep; a CUDA tensor K4, or the call raises
+    substep = _Substep(_substep if b.q.device.type == "cpu" else cuda_substep.Launch(*args),
+                       *args)
+    _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry, opts,
+             admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
+    return _result(b, torch.ones(b.states.shape[:2], dtype=b.q.dtype, device=b.q.device))
 
+
+def _loop_args(spec, sim_params, cfg, state0, v_des, w_des, start_time=0.0, push_force=None,
+               terrain=None, q_noise=None, v_noise=None, gains=None, swing_blend=None,
+               force_gate=None):
+    """``_substep``'s arguments for ``rollout_mpc``'s inputs, every option as
+    the substeps read it and the loop's buffers fresh; and ``start_time`` as
+    the windows take it: ``(args, start_time)``."""
     if gains is None:
         gains = controllers.IdControllerGains(kp=spec.params.kp, kd=spec.params.kd)
     q, v = state0
@@ -391,11 +410,8 @@ def rollout_mpc(
             leg_joint_mask(spec.model, spec.eff_frames), dtype=dtype, device=device))
     b = _make_buffers(spec, cfg, q, v)
     push = _push(push_force, B, b.states.shape[1], q)
-    substep = _Substep(_substep, spec, sim_params, cfg, gains, v_des, w_des,
-                       _step0(start_time, cfg, q), push, opts, b)
-    _windows(spec, cfg, b, substep, start_time, v_des, w_des, warm_start_carry, opts,
-             admm_cfg=admm_cfg, ddp_cfg=ddp_cfg, admm_backend=admm_backend, ik_backend=ik_backend)
-    return _result(b, torch.ones((B, b.states.shape[1]), dtype=dtype, device=device))
+    return ((spec, sim_params, cfg, gains, v_des, w_des, _step0(start_time, cfg, q), push, opts, b),
+            start_time)
 
 
 class _LoopOptions(NamedTuple):

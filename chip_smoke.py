@@ -16,10 +16,14 @@ batched Solo12 trot MPC solve of ``bench.py`` (B=512, f32): the main path
 fused path with ``fuse_prep=True`` (K3, K2); phase 3c holds K1 with a
 carried scaled dual against the plain version in f64. Then it drives the
 closed loop (``sim.rollout.rollout_mpc``, the walking trot ``trot_sim`` from
-a settled start, (X, F, P) carried from window to window): two windows
-against the plain path in f64 (phase 7a), and 512 episodes of 3000 steps, K1
-and K2 once per window, gated on survival and the survivors' median roll
-and height, beside the same loop cold (phase 7b). Then the learning loop
+a settled start, (X, F, P) carried from window to window, its substeps on
+K4): two windows against the plain path in f64 (phase 7a), and the first
+window's substeps again on K4 and on the plain substep in f32 against the
+plain substep in f64 on the card (``substep_window``; the Go2 with every
+per-episode option in 11b, the Solo8 in 12 likewise), and 512 episodes of
+3000 steps, K1 and K2 once per window and the substeps on K4, gated on
+survival and the survivors' median roll and height, beside the same loop
+cold (phase 7b). Then the learning loop
 (phase 8): one data-collection iteration (``learning.data_collection``,
 K1 and K2 once per window of each expert rollout), BC at the bc.yaml
 widths on its database (``learning.bc``), and the trained policy with cc
@@ -42,7 +46,9 @@ package's 40-row stability sweep as one rollout (11d). Then phase 12, the
 Solo8 (8 joints: K2's 8-joint build) on the main and the fused path. Then
 phase 13, terrain: two windows on a zero heightfield equal to flat ground
 bit for bit (13a), two windows on a 10% slope against the plain path in f64
-(13b), and 512 episodes of 3000 steps on a random heightfield (13c). Then
+(13b; gated after phase 17, and its substeps on K4 with the plans held
+against the plain substep), and 512 episodes of 3000 steps on a random
+heightfield (13c). Then
 phase 14, the six Solo12 acyclic motions through K1 and K2. Then phase
 15, the experiment drivers: the five CLI drivers' ``main(argv)``
 (``bunmpc_tpu_torch.scripts``) in-process, data collection with its ``.npz``
@@ -1488,6 +1494,116 @@ def tree_map(fn, x):
     return fn(x) if hasattr(x, "dim") else x
 
 
+# what ``substep_window`` compares, each with the floor of its gate: K4's gap
+# to the plain substep in f64 at most 10x the plain f32 run's or this
+SUBSTEP_FLOORS = {"q": 1e-6, "v": 1e-4, "states": 1e-4, "actions": 1e-6, "vc_goals": 1e-6,
+                  "base": 1e-6, "com": 1e-6, "contact_forces": 1e-3, "contact_pos": 1e-6}
+
+
+def substep_window(torch, tag, spec, cfg, plans, win, start, v_des, w_des, **loop_kw):
+    """K4 against the plain substep on the card over the windows of ``cfg``
+    (50 steps each), driven by ``plans`` (one a window: the solves of the
+    ``rollout_mpc`` call ``win``, on K4) from ``start`` with
+    ``rollout_mpc``'s options ``loop_kw``: K4 and the plain substep in f32,
+    each a CUDA graph replayed as in ``rollout_mpc`` (a first pass captures
+    it, a second from the same buffers is timed with CUDA events), and the
+    plain substep eagerly in f64, the yardstick. Prints K4's and the plain f32
+    run's gaps to it (end q and v, the records), the flags K4 and the plain
+    f32 run disagree on, and K4's ms a substep against its bound and the
+    plain version's; then gates: K4's records equal ``win``'s bit for bit,
+    K4's gaps within 10x the plain f32 run's in the end state and in every
+    record (at least ``SUBSTEP_FLOORS``), equal failures, contacts apart in
+    at most 1% of entries. Returns K4's numbers for the kernels line."""
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
+    from bunmpc_tpu_torch.sim import cuda_substep, physics
+    from bunmpc_tpu_torch.sim import rollout as R
+
+    n, nj = start.q.shape[0], spec.model.n_joints
+    kernel = cuda_substep.KERNELS[nj]
+    steps = len(plans) * cfg.steps_per_plan
+    assert steps == cfg.episode_length
+
+    def args(dtype):
+        kw = {k: tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, v)
+              for k, v in loop_kw.items()}
+        return R._loop_args(spec, kw.pop("sim_params"), cfg,
+                            physics.SimState(start.q.to(dtype), start.v.to(dtype)),
+                            v_des.to(dtype), w_des.to(dtype), **kw)
+
+    def windows(step, a, t0):
+        """Every window: its plan into the buffers as ``_windows`` puts it,
+        then its substeps; ms a substep on the card's clock."""
+        b, ms = a[-1], 0.0
+        for w, plan in enumerate(plans):
+            for buf, x in ((b.xs_int, plan.xs_int), (b.us_int, plan.us_int),
+                           (b.f_int, plan.f_int)):
+                buf.copy_(x)
+            b.mpc_bad.copy_(torch.isnan(plan.f_int).flatten(1).any(1)
+                            | torch.isnan(plan.xs_int).flatten(1).any(1))
+            b.sim_t.copy_(KD.window_start(t0, w, cfg.plan_freq, b.q).expand(n))
+            b.i.zero_()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(cfg.steps_per_plan):
+                step()
+            e1.record()
+            torch.cuda.synchronize()
+            ms += e0.elapsed_time(e1)
+        return ms / steps
+
+    def graph_windows(fn, dtype):
+        """The windows once (the warm-up and the capture), then again from
+        the same buffers, timed: (arguments, ms a substep)."""
+        a, t0 = args(dtype)
+        b = a[-1]
+        fresh = {k: getattr(b, k).clone() for k in ("q", "v", "failed", "fail_step", "i", "k",
+                                                    "prev_cnt")}
+        step = R._Substep(fn(a), *a)
+        windows(step, a, t0)
+        for k, x in fresh.items():
+            getattr(b, k).copy_(x)
+        return a, windows(step, a, t0)
+
+    launches0 = kernel.launches
+    k4, k4_ms = graph_windows(lambda a: cuda_substep.Launch(*a), torch.float32)
+    k4_launches = kernel.launches - launches0
+    p32, plain_ms = graph_windows(lambda a: R._substep, torch.float32)
+    p64, t0 = args(torch.float64)
+    windows(lambda: R._substep(*p64), p64, t0)
+    bk, bp, b64 = k4[-1], p32[-1], p64[-1]
+
+    def gap(x, y):
+        return float((x.double() - y.double()).abs().max())
+
+    names = tuple(SUBSTEP_FLOORS)
+    g_k = {k: gap(getattr(bk, k), getattr(b64, k)) for k in names}
+    g_p = {k: gap(getattr(bp, k), getattr(b64, k)) for k in names}
+    apart = {k: int((getattr(bk, k) != getattr(bp, k)).sum())
+             for k in ("failed", "fail_step", "in_contact")}
+    same = all(torch.equal(getattr(bk, k), getattr(win, k)[:, :steps])
+               for k in ("states", "actions", "vc_goals", "base", "com", "contact_forces",
+                         "contact_pos", "in_contact"))
+    bound, by = bound_ms(n * cuda_substep.substep_bytes(nj, cfg.action_type),
+                         n * cuda_substep.substep_ops(nj))
+    log(f"[{tag}] K4 ({nj} joints, {n} episodes, {len(plans)} window(s), the plans held): |d| "
+        f"to the plain substep in f64, "
+        f"K4 / plain f32: " + ", ".join(f"{k} {g_k[k]:.3e} / {g_p[k]:.3e}" for k in names)
+        + f"; K4 and plain f32 apart in failed {apart['failed']}, fail_step "
+        f"{apart['fail_step']}, in_contact {apart['in_contact']} of {bk.in_contact.numel()}; "
+        f"K4's records = rollout_mpc's bit for bit {same}; ms a substep K4 {k4_ms:.4f} "
+        f"(bound {bound:.6f} by {by}), plain (graph replay) {plain_ms:.4f}; K4 launches "
+        f"{k4_launches} (two warm-up steps and the capture)")
+    check(same, f"{tag}: K4's records are not rollout_mpc's")
+    for k, floor in SUBSTEP_FLOORS.items():
+        check(g_k[k] <= max(10 * g_p[k], floor),
+              f"{tag}: K4's {k} farther from the plain f64 substep than 10x the plain f32's")
+    check(apart["failed"] == 0 and apart["fail_step"] == 0, f"{tag}: K4's failures differ")
+    check(apart["in_contact"] <= 0.01 * bk.in_contact.numel(), f"{tag}: K4's contacts differ")
+    check(bool(torch.isfinite(bk.states).all()), f"{tag}: K4's records not finite")
+    return {"ms": round(k4_ms, 4), "plain_ms": round(plain_ms, 4), "bound_ms": round(bound, 6),
+            "bound_by": by, "max_abs_err": g_k["q"], "episodes": n}
+
+
 SWEEP_ARTIFACT = os.path.join(REPO, "artifacts", "stability_sweep_go2.json")
 SWEEP_ROW_11C = 31  # kp 60, kd 3, kn 6e4, dn 3000, kt 3000, swing_blend 0.5, force_gate 1
 
@@ -1516,7 +1632,7 @@ def go2_loop(torch, zero_counts, counts, card, pool):
     from bunmpc_tpu_torch import workload
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.mpc.motions.go2_cyclic import trot_sim
-    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.sim import cuda_substep, physics, rollout
     from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
 
     f32 = torch.float32
@@ -1568,6 +1684,9 @@ def go2_loop(torch, zero_counts, counts, card, pool):
     finally:
         KD.solve_mpc_batch = solve_batch
     card_s = time.perf_counter() - t0
+    d = {k: torch.as_tensor(a, dtype=f32, device=spec.device) for k, a in host.items()}
+    substep_window(torch, "11b", spec, win_cfg, plans[:1], win, start64, d["v_des"], d["w_des"],
+                   q_noise=d["q_noise"], v_noise=d["v_noise"], **opts)
 
     def finish_11b():
         t1 = time.perf_counter()
@@ -1614,6 +1733,7 @@ def go2_loop(torch, zero_counts, counts, card, pool):
     KD.solve_mpc_batch = timed_solve
     try:
         zero_counts()
+        k4_0 = cuda_substep.KERNELS[12].launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout.rollout_mpc(spec, sim, loop_cfg, start, *cmd, swing_blend=0.5,
@@ -1621,6 +1741,7 @@ def go2_loop(torch, zero_counts, counts, card, pool):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches["11c"] = counts()
+        k4_launches = cuda_substep.KERNELS[12].launches - k4_0
     finally:
         KD.solve_mpc_batch = solve_batch
     nv = spec.model.nv
@@ -1645,7 +1766,8 @@ def go2_loop(torch, zero_counts, counts, card, pool):
     iters = torch.stack([w[3] for w in windows]).float().cpu().numpy()
     live = fail_step[None, :] > (np.arange(nw) * loop_cfg.steps_per_plan)[:, None]
     log(f"[11c] Go2 closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
-        f"{B * T / wall:.1f} env-steps/s; launches {launches['11c']}; window / solve / substeps "
+        f"{B * T / wall:.1f} env-steps/s; launches {launches['11c']}, K4 {k4_launches}; "
+        f"window / solve / substeps "
         f"ms {np.mean(window_ms):.1f} / {np.mean(solve_ms):.1f} / {np.mean(sub_ms):.1f}")
     log(f"[11c] survival {survival:.4f} (>= 0.5), episode 0 (vx 0.3) failed {bool(failed[0])} "
         f"at {int(fail_step[0])}; survivors' median roll_max (500-3000 ms) {med(roll_max):.3f} "
@@ -1665,6 +1787,8 @@ def go2_loop(torch, zero_counts, counts, card, pool):
         "admm_iters_mean": float(iters[live].mean()), "card": card}))
     check(launches["11c"] == {"admm": nw, "ddp": nw, "fused": 0},
           f"11c: K1 and K2 must launch once per window ({nw})")
+    check(k4_launches == 3, f"11c: the substeps must run on K4 (launched {k4_launches} times; "
+          "two warm-up steps and the capture of its graph)")
     check(finite and frozen, "11c: live records not finite, or failed episodes not frozen")
     check(survival >= 0.5, f"11c: survival {survival:.4f} below 0.5")
     check(med(roll_max) < 15.0, "11c: survivors' median roll_max not below 15 deg")
@@ -1799,7 +1923,28 @@ def solo8_phase(torch, refs, zero_counts, counts, card):
           "bound_ms": round(bound, 6), "bound_by": by,
           "per_block": cuda_ddp.launch_per_block(Hik, model.nq, model.nv)}
     log(f"[12] K2 at 8 joints, IK H {Hik}: {k2}")
-    return launches, k2
+    # one window of the Solo8 loop (K4's 8-joint build) from its standing q0
+    from bunmpc_tpu_torch.sim import physics, rollout
+
+    f32 = torch.float32
+    start = physics.SimState(
+        torch.as_tensor(workload.solo8_q0(), dtype=f32, device=spec.device)[None].expand(B, -1)
+        .contiguous(), torch.zeros((B, model.nv), dtype=f32, device=spec.device))
+    v_des = torch.zeros((B, 3), dtype=f32, device=spec.device)
+    v_des[:, 0] = 0.2
+    w_des = torch.zeros(B, dtype=f32, device=spec.device)
+    wcfg = rollout.RolloutConfig(episode_length=50, kp=trot.kp, kd=trot.kd,
+                                 gait_period=trot.gait_period)
+    sim = workload.closed_loop_sim_params()
+    plans = []
+    solve_batch = capture_solves(KD, plans)
+    try:
+        win = rollout.rollout_mpc(spec, sim, wcfg, start, v_des, w_des)
+    finally:
+        KD.solve_mpc_batch = solve_batch
+    k4 = substep_window(torch, "12", spec, wcfg, plans[:1], win, start, v_des, w_des,
+                        sim_params=sim)
+    return launches, k2, k4
 
 
 def to_host(x):
@@ -2010,6 +2155,7 @@ def reference_rollout(torch, future, device):
 
 WINDOW_N = 64  # episodes of phase 7a held against the plain path
 SLOPE_N = 64  # episodes of phase 13b
+SLOPE_ULP_DRAWS = 3  # starts of 13b moved by one float32 ulp, each run on K4 and plain
 
 
 def terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts, counts, card):
@@ -2019,16 +2165,22 @@ def terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts, cou
     two windows at B=512 on a zero heightfield equal the loop without
     terrain in every record, bit for bit; 13b two windows at B=64 on a 10%
     slope against the plain path in f64 (``slope_ref``, computed on the host
-    CPU; phase 7a's end-state tolerances); 13c 512 episodes x 3000 steps on
+    CPU; phase 7a's end-state tolerances over every episode, gated by the
+    returned ``finish_13b`` after the later phases), the same two windows on
+    K4 against the plain substep with K4's plans held (``substep_window``),
+    and printed beside them the plain substep's loop from the same start and
+    both loops from ``SLOPE_ULP_DRAWS`` starts moved by one float32 ulp; 13c
+    512 episodes x 3000 steps on
     ``workload.terrain_draw(0)`` (a random 8 m x 8 m heightfield, 2 cm
     amplitude, 3 blurs) from the flat settle, gated on K1 and K2 once a
     window, finite records and frozen failed episodes; survival, the
     survivors' median roll_max and their height above the local ground are
     printed, not gated (no earlier run says whether the expert walks on such
-    ground). Returns each part's launches."""
+    ground). Returns each part's launches and ``finish_13b``."""
     from bunmpc_tpu_torch import workload
+    from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot_sim
-    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.sim import cuda_substep, physics, rollout
     from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
 
     dev = start.q.device
@@ -2054,22 +2206,74 @@ def terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts, cou
     # 13b: a 10% slope against the plain path in f64
     n = SLOPE_N
     slope = workload.slope_terrain(0.1)
+
+    def slope_loop(q0, plain=False):
+        """The slope's two windows from ``q0`` (and the settled v), their
+        substeps on K4 or, with ``plain``, on the plain substep's graph (the
+        loop before K4); returns the rollout and its window plans."""
+        plans, launch = [], cuda_substep.Launch
+        solve_batch = capture_solves(KD, plans)
+        if plain:
+            cuda_substep.Launch = lambda *a: rollout._substep
+        try:
+            res = rollout.rollout_mpc(loop_spec, sim, win_cfg,
+                                      physics.SimState(q0, start.v[:n].contiguous()),
+                                      cmd[0][:n], cmd[1][:n], terrain=slope)
+        finally:
+            KD.solve_mpc_batch, cuda_substep.Launch = solve_batch, launch
+        return res, plans
+
+    slope_start = physics.SimState(start.q[:n].contiguous(), start.v[:n].contiguous())
     zero_counts()
-    win = rollout.rollout_mpc(loop_spec, sim, win_cfg, physics.SimState(
-        start.q[:n].contiguous(), start.v[:n].contiguous()), cmd[0][:n], cmd[1][:n],
-        terrain=slope)
+    win, plans = slope_loop(slope_start.q)
     torch.cuda.synchronize()
     out["13b"] = counts()
     t0 = time.perf_counter()
-    ref, _ = reference_rollout(torch, slope_ref, dev)
+    ref, ref_plans = reference_rollout(torch, slope_ref, dev)
     wait = time.perf_counter() - t0
-    dq, dv = end_diff_at(win, ref)
+
+    def reading(res, res_plans):
+        """End q and v |d| to the reference over every episode, and the
+        episodes whose solves stopped one ADMM iteration apart from its."""
+        one_apart = torch.zeros(n, dtype=torch.bool, device=dev)
+        for p, r in zip(res_plans, ref_plans):
+            one_apart |= (p.admm_iters[:n].to(dev) - r.admm_iters.to(dev)).abs() == 1
+        return (*end_diff_at(res, ref), one_apart.nonzero().flatten().tolist())
+
+    dq, dv, one_apart = reading(win, plans)
     log(f"[13b] two windows at B={n} on a 10% slope: launches {out['13b']}; end q |d| {dq:.3e} "
         f"(< {TWO_WINDOW_Q_TOL:.1e}), v |d| {dv:.3e} (< {TWO_WINDOW_V_TOL:.1e}) against the "
-        f"plain path in f64 (host CPU; waited {wait:.2f} s); failed {int(win.failed.sum())}")
+        f"plain path in f64 (host CPU; waited {wait:.2f} s); episodes whose solves stopped one "
+        f"ADMM iteration apart from the reference's {one_apart}; failed {int(win.failed.sum())}")
     check(out["13b"] == {"admm": 2, "ddp": 2, "fused": 0}, "13b: K1 and K2 once a window")
-    check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL, "13b: the slope's end state disagrees")
     check(bool(torch.isfinite(win.states).all()), "13b: records not finite")
+    # the same two windows with K4's own plans held: K4 against the plain substep
+    substep_window(torch, "13b", loop_spec, win_cfg, plans, win, slope_start, cmd[0][:n],
+                   cmd[1][:n], sim_params=sim, terrain=slope)
+    # the end-state reading's edge, printed: the plain substep's loop (the loop
+    # before K4) from the same start, then both loops from starts moved by one
+    # float32 ulp in random entries
+    rows = {"as settled": {"K4": (dq, dv, one_apart),
+                           "plain": reading(*slope_loop(slope_start.q, plain=True))}}
+    gen = torch.Generator().manual_seed(13)
+    for draw in range(1, SLOPE_ULP_DRAWS + 1):
+        move = torch.randint(-1, 2, slope_start.q.shape, generator=gen).to(dev)
+        q0 = torch.where(move == 0, slope_start.q,
+                         torch.nextafter(slope_start.q, move.to(slope_start.q) * torch.inf))
+        rows[f"moved by one ulp, draw {draw}"] = {
+            name: reading(*slope_loop(q0, plain)) for name, plain in (("K4", False),
+                                                                      ("plain", True))}
+    for where, row in rows.items():
+        log(f"[13b] start {where}: " + "; ".join(
+            f"{name} end q |d| {r[0]:.3e}, v |d| {r[1]:.3e}, one apart {r[2]}, "
+            f"{'within' if r[0] < TWO_WINDOW_Q_TOL and r[1] < TWO_WINDOW_V_TOL else 'past'} "
+            "the limits" for name, r in row.items()))
+
+    def finish_13b():
+        """13b's end-state gate, over every episode (after the later phases,
+        so that its reading does not hide theirs)."""
+        check(dq < TWO_WINDOW_Q_TOL and dv < TWO_WINDOW_V_TOL,
+              "13b: the slope's end state disagrees")
 
     # 13c: 512 x 3000 on a random heightfield
     ter = workload.terrain_draw(0)
@@ -2108,7 +2312,7 @@ def terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts, cou
           f"13c: K1 and K2 once a window ({T // 50})")
     check(finite, "13c: records of live episodes not finite")
     check(frozen, "13c: failed episodes were not frozen")
-    return out
+    return out, finish_13b
 
 
 ACYCLIC_PROBLEM0 = {  # tests/test_acyclic.py:33-73
@@ -3177,6 +3381,7 @@ def build_and_run(torch, card, t_start, only_17, pool):
     """Phase 2, then phase 17 alone (``only_17``) or phases 3-17 and the
     kernels line (``run_phases``)."""
     from bunmpc_tpu_torch import _build
+    from bunmpc_tpu_torch.sim import cuda_substep
     from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
 
     # ---- 2. build (every kernel, nvcc in parallel); meanwhile, on the card, what
@@ -3186,7 +3391,8 @@ def build_and_run(torch, card, t_start, only_17, pool):
     def build():
         t = time.time()
         reports = _build.build_kernels(
-            [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL], force=True)
+            [cuda_admm.KERNEL, *cuda_ddp.KERNELS.values(), cuda_fused.KERNEL,
+             *cuda_substep.KERNELS.values()], force=True)
         SECONDS["2/nvcc"] = time.time() - t
         return reports
 
@@ -3242,7 +3448,7 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     from bunmpc_tpu_torch.mpc import kino_dyn as KD
     from bunmpc_tpu_torch.mpc.motions.solo12_cyclic import trot, trot_sim
     from bunmpc_tpu_torch.robots.solo12 import Solo12Config
-    from bunmpc_tpu_torch.sim import physics, rollout
+    from bunmpc_tpu_torch.sim import cuda_substep, physics, rollout
     from bunmpc_tpu_torch.solvers import cuda_admm, cuda_ddp, cuda_fused
     from bunmpc_tpu_torch.solvers.ddp import DdpConfig
     from bunmpc_tpu_torch.utils.quat import quat_to_rot, rot_to_rpy
@@ -3618,6 +3824,8 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     finally:
         KD.solve_mpc_batch = solve_batch
     t_w = KD.window_clock(0.0, 0, win_cfg.plan_freq, start.q).expand(B)
+    k4_row = substep_window(torch, "7a", loop_spec, dataclasses.replace(win_cfg, episode_length=50),
+                            plans[:1], win, start, *cmd, sim_params=sim)
 
     def finish_7a(card_plans=plans, win=win, n=n, win_launches=win_launches):
         """7a's gates against the plain path's two windows in f64 and f32,
@@ -3678,12 +3886,14 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     KD.solve_mpc_batch = timed_solve
     try:
         zero_counts()
+        k4_0 = cuda_substep.KERNELS[12].launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rollout.rollout_mpc(loop_spec, sim, loop_cfg, start, *cmd)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         loop_launches = counts()
+        k4_loop = cuda_substep.KERNELS[12].launches - k4_0
         # the same loop cold (warm_start_carry=False, PR 8's default on the card) over
         # its first COLD_WINDOWS windows, against the carried run's first as many
         carried_windows, windows = windows, []
@@ -3739,7 +3949,8 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
         loop_spec, start.q, start.v, t_w, *cmd,
         admm_cfg=cuda_admm.CudaAdmmConfig(rho=trot_sim.rho, x_solver="thomas")))
     log(f"[7b] closed loop: {B} episodes x {T} steps ({nw} windows) in {wall:.2f} s, "
-        f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}; (X, F, P) carried: live "
+        f"{B * T / wall:.1f} env-steps/s; launches {loop_launches}, K4 {k4_loop}; "
+        f"(X, F, P) carried: live "
         f"solves' ADMM iterations mean {iters_loop:.2f}, the slowest live problem's a window "
         f"{iters_max['carried']['mean_of_window_max']:.2f} on average (max "
         f"{iters_max['carried']['max']}), solve ms mean {np.mean(solve_ms):.2f}")
@@ -3773,6 +3984,8 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     }))
     check(loop_launches == {"admm": nw, "ddp": nw, "fused": 0},
           f"the closed loop must launch K1 and K2 once per window ({nw})")
+    check(k4_loop == 3, "the closed loop's substeps must run on K4 (two warm-up steps and the "
+          "capture of its graph)")
     check(finite, "records of live episodes not finite")
     check(frozen, "failed episodes were not frozen")
     check(survival >= 0.5, f"survival {survival:.4f} below 0.5")
@@ -3817,14 +4030,14 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
 
     # ---- 12. the Solo8: K2 at 8 joints on the main and the fused path ----
     t0 = time.time()
-    solo8_launches, k2_nj8 = solo8_phase(torch, refs, zero_counts, counts, card)
+    solo8_launches, k2_nj8, k4_nj8 = solo8_phase(torch, refs, zero_counts, counts, card)
     SECONDS["12"] = time.time() - t0
     log(f"[12] the Solo8 {time.time() - t0:.1f} s")
 
     # ---- 13. terrain: zero heights, a slope, a random heightfield ----
     t0 = time.time()
-    terrain_launches = terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref, zero_counts,
-                                     counts, card)
+    terrain_launches, finish_13b = terrain_phase(torch, loop_spec, sim, start, cmd, slope_ref,
+                                                 zero_counts, counts, card)
     SECONDS["13"] = time.time() - t0
     log(f"[13] terrain {time.time() - t0:.1f} s")
 
@@ -3857,14 +4070,15 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
     SECONDS["17"] = time.time() - t0
     log(f"[17] the multi-device path {time.time() - t0:.1f} s")
 
-    # ---- 3-6's, 7a's, 9d's and 11b's gates: their plain references ran on the host
-    # CPU's workers ----
+    # ---- 3-6's, 7a's, 9d's and 11b's gates (their plain references ran on the host
+    # CPU's workers) and 13b's ----
     t0 = time.time()
     k1_err, k2_err = finish_3_6()
     finish_7a()
     finish_9d()
     finish_11b()
-    SECONDS["gates 3-6, 7a, 9d, 11b"] = time.time() - t0
+    finish_13b()
+    SECONDS["gates 3-6, 7a, 9d, 11b, 13b"] = time.time() - t0
 
     # ---- 7. the kernels line ----
     t_line = time.time()
@@ -3953,6 +4167,11 @@ def run_phases(torch, card, t_start, pool, loop, refs, diag_launches):
          "solo8_launches": {p: n["ddp"] for p, n in solo8_launches["trot"].items()},
          "max_abs_err": k2_nj8["max_abs_err"], "ms": k2_nj8["ms"], "plain_ms": k2_nj8["plain_ms"],
          "bound_ms": k2_nj8["bound_ms"], "bound_by": k2_nj8["bound_by"], "library_ms": None},
+        {"name": "substep", "route": "cuda", "source": "bunmpc_tpu_torch/csrc/substep.cu",
+         "replaces": None, "closed_loop_launches": k4_loop, **k4_row, "library_ms": None},
+        {"name": "substep (8 joints)", "route": "cuda",
+         "source": "bunmpc_tpu_torch/csrc/substep.cu", "replaces": None, **k4_nj8,
+         "library_ms": None},
     ]
     SECONDS["kernels line"] = time.time() - t_line
     total = time.time() - t_start

@@ -28,7 +28,10 @@ bit; K2 built for 8 joints (the Solo8; its own library and launch count) at
 IK H 10 and 30 and K2 at 12 joints
 at the acyclic motions' IK H 30 against the plain version in f64 with the
 gates above, and with ragged batches and every block size that fits, bit for
-bit; every acyclic motion's K1 at B=16 with the gates above."""
+bit; every acyclic motion's K1 at B=16 with the gates above; K4, the
+closed loop's substep kernel, for a 50-step window at B=64 (Solo12, the Go2
+and Solo8 under several option sets) against the plain substep in f64,
+within 10x the plain substep's own f32 distance."""
 
 import numpy as np
 import pytest
@@ -660,3 +663,48 @@ def test_acyclic_admm_kernel_matches_plain(device, name):
     torch.testing.assert_close(Xk.double(), Xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(Fk.double(), Fp, atol=3e-3, rtol=0)
     torch.testing.assert_close(vk.double(), vp, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("name, option", (("solo12", "none"), ("solo12", "bias_push"),
+                                          ("solo12", "terrain"), ("go2", "swing_gate"),
+                                          ("go2", "per_episode"), ("solo8", "structured")))
+def test_substep_kernel_matches_plain(device, name, option):
+    """K4 (csrc/substep.cu) for a 50-step window at B=64 against the plain
+    substep in f64 on the card: q, v and every record within 10x the plain
+    substep's own f32 run (at least 1e-6, 1e-4 in v and the features, 1e-3
+    in the contact forces), the same failures, contacts apart in at most 1%
+    of entries; the launch count rises by one a step."""
+    import test_torch_substep_kernel as TK
+    from bunmpc_tpu_torch.sim import cuda_substep
+    from bunmpc_tpu_torch.sim import rollout as R
+
+    runs = {}
+    for tag, dtype in (("k4", torch.float32), ("f32", torch.float32), ("f64", torch.float64)):
+        a = TK.substep_args(name, option, dtype=dtype, device=device, batch=64)
+        if tag == "k4":
+            kernel = cuda_substep.KERNELS[a[0].model.n_joints]
+            n0 = kernel.launches
+            launch = cuda_substep.Launch(*a)
+            for _ in range(TK.STEPS):
+                launch()
+            assert kernel.launches - n0 == TK.STEPS
+        else:
+            for _ in range(TK.STEPS):
+                R._substep(*a)
+        runs[tag] = a[-1]
+    torch.cuda.synchronize()
+    k4, p32, p64 = runs["k4"], runs["f32"], runs["f64"]
+    window = slice(TK.K0, TK.K0 + TK.STEPS)
+    for field, floor in (("q", 1e-6), ("v", 1e-4), ("states", 1e-4), ("actions", 1e-6),
+                         ("vc_goals", 1e-6), ("base", 1e-6), ("com", 1e-6),
+                         ("contact_forces", 1e-3), ("contact_pos", 1e-6)):
+        x = {k: getattr(b, field) for k, b in runs.items()}
+        if field not in ("q", "v"):
+            x = {k: t[:, window] for k, t in x.items()}
+        dk = float((x["k4"].double() - x["f64"]).abs().max())
+        dp = float((x["f32"].double() - x["f64"]).abs().max())
+        assert dk <= max(10 * dp, floor), (field, dk, dp)
+    assert torch.equal(k4.failed, p32.failed) and torch.equal(k4.fail_step, p32.fail_step)
+    apart = int((k4.in_contact[:, window] != p32.in_contact[:, window]).sum())
+    assert apart <= 0.01 * k4.in_contact[:, window].numel()
+    assert bool(torch.isfinite(k4.states[:, window]).all())
